@@ -1,0 +1,62 @@
+"""Config registry: ``--arch <id>`` resolution for the port's launchers.
+
+Holds the paper's Llama pre-training ladder (Table 10) and the assigned
+decoder configs whose serving path is ported: ``qwen1.5-4b`` (QKV bias)
+and ``stablelm-12b`` (GQA kv=8, 25% partial rotary, head dim 160).  The
+numbers are those of ``repro.configs.registry`` and its config modules.
+Any other arch id raises "not yet ported".
+"""
+
+from __future__ import annotations
+
+from repro_torch.models.config import ModelConfig, reduce_for_smoke
+
+
+def _llama(name, layers, d, heads, ff) -> ModelConfig:
+    """Paper Table 10 Llama-based pre-training architectures."""
+    return ModelConfig(
+        name=name, family="decoder", n_layers=layers, d_model=d,
+        n_heads=heads, n_kv_heads=heads, d_ff=ff, vocab_size=32000,
+        rope_theta=10000.0, vocab_round=64)
+
+
+# paper's pre-training ladder (hidden/intermediate/heads/layers, Table 10)
+_PAPER_MODELS = {
+    "llama-60m": _llama("llama-60m", 8, 512, 8, 1376),
+    "llama-130m": _llama("llama-130m", 12, 768, 12, 2048),
+    "llama-350m": _llama("llama-350m", 24, 1024, 16, 2736),
+    "llama-1b": _llama("llama-1b", 32, 2048, 24, 5461),
+    "llama-3b": _llama("llama-3b", 32, 2560, 32, 6848),
+    "llama-7b": _llama("llama-7b", 32, 4096, 32, 11008),
+    # ~100M model for the end-to-end example driver
+    "llama-100m": _llama("llama-100m", 12, 640, 10, 1708),
+}
+
+# assigned decoder archs on the paged serving path
+_ASSIGNED = {
+    # hf:Qwen/Qwen1.5-4B
+    "qwen1.5-4b": ModelConfig(
+        name="qwen1.5-4b", family="decoder", n_layers=40, d_model=2560,
+        n_heads=20, n_kv_heads=20, d_ff=6912, vocab_size=151936,
+        qkv_bias=True, rope_theta=1000000.0),
+    # hf:stabilityai/stablelm-2-12b, partial rotary (25%)
+    "stablelm-12b": ModelConfig(
+        name="stablelm-12b", family="decoder", n_layers=40, d_model=5120,
+        n_heads=32, n_kv_heads=8, d_ff=13824, vocab_size=100352,
+        rope_pct=0.25, rope_theta=10000.0),
+}
+
+
+def arch_names() -> list[str]:
+    return sorted(list(_ASSIGNED) + list(_PAPER_MODELS))
+
+
+def get_config(name: str, smoke: bool = False) -> ModelConfig:
+    """Resolve an architecture id; ``smoke=True`` returns the reduced
+    same-family config used by CPU smoke tests."""
+    cfg = _ASSIGNED.get(name) or _PAPER_MODELS.get(name)
+    if cfg is None:
+        raise NotImplementedError(
+            f"arch {name!r} is not yet ported to repro_torch; "
+            f"options: {arch_names()}")
+    return reduce_for_smoke(cfg) if smoke else cfg

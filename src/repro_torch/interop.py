@@ -1,0 +1,36 @@
+"""Parameters from the JAX package, as the port's tensors.
+
+The JAX package keeps parameters as a pytree of arrays with the layer
+stack on axis 0 and weights stored ``(in, out)`` for ``x @ w``; the port
+keeps the same schema (:func:`repro_torch.models.transformer.init_decoder`),
+so the conversion is a tree map.  The caller hands over numpy arrays
+(``jax.tree.map(np.asarray, params)``): this module imports no JAX.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import torch_dtype
+
+
+def _tensor(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
+    # numpy has no bfloat16 of its own (JAX's is ml_dtypes'): go via fp32,
+    # which holds every bf16 value exactly
+    t = torch.from_numpy(np.asarray(a, dtype=np.float32).copy())
+    return t.to(device=device, dtype=dtype)
+
+
+def params_from_jax(params_np, cfg: ModelConfig, device="cpu") -> dict:
+    """JAX decoder params (nested dicts of numpy arrays) -> port params in
+    ``cfg.dtype`` on ``device``."""
+    dtype = torch_dtype(cfg.dtype)
+
+    def conv(tree):
+        if isinstance(tree, dict):
+            return {k: conv(v) for k, v in tree.items()}
+        return _tensor(tree, dtype, device)
+
+    return conv(params_np)

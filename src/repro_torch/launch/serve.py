@@ -1,0 +1,251 @@
+"""Serving driver: paged continuous batching on CUDA.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch llama-7b --batch 8 --requests 8 --prompt-len 512 --gen 64 \\
+        --prefill-chunk 128 --block-size 16
+
+Counterpart of ``repro.launch.serve`` with its default engine, the paged
+one (:class:`repro_torch.serve.engine.PagedEngine`): a global pool of
+fixed-size KV blocks, per-request block tables, chunked prefill
+interleaved with decode waves, decode batches assembled per wave from the
+live sequences.  KV exhaustion degrades through the admission queue (shed
+/ deferred-then-expired) instead of crashing.  Weights are random, drawn
+from ``--seed``.
+
+The driver runs on CUDA unless ``--device cpu`` asks for the CPU; with no
+card and no such request it raises.  The static-batch engine
+(``--engine dense``) and multi-device meshes (``--mesh``) are not ported
+yet and raise.
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from dataclasses import dataclass, field
+from typing import Callable
+
+import numpy as np
+import torch
+
+from repro_torch.configs.registry import get_config
+from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset
+from repro_torch.models.api import build_model
+from repro_torch.models.transformer import paged_supported
+from repro_torch.serve.engine import PagedEngine
+
+
+@dataclass
+class Request:
+    rid: int
+    prompt: np.ndarray
+    max_new: int
+    out_tokens: list = field(default_factory=list)
+    t_submit: float = 0.0
+    t_first: float = 0.0
+    t_done: float = 0.0
+    status: str = "queued"    # queued | done | expired | shed
+
+
+class AdmissionQueue:
+    """Bounded FIFO admission with per-request queue deadlines.
+
+    Pure host-side policy, so overload behaviour is unit-testable:
+    ``submit`` sheds beyond ``max_queue`` pending entries, ``take_wave``
+    first expires entries whose queue wait exceeds ``deadline_s`` and then
+    hands out up to ``batch`` survivors in FIFO order.  ``max_queue=0`` /
+    ``deadline_s=0`` disable the respective limit.  Rejected requests are
+    kept (with their status marker) on the ``shed`` / ``expired`` lists.
+
+    The paged engine adds two verbs for its KV-pool OOM policy:
+    ``shed_now`` (request can never fit — reject outright) and ``defer``
+    (request does not fit *yet* — requeue at the FRONT with its original
+    ``t_submit``, so under sustained pressure the deadline expires it).
+    """
+
+    def __init__(self, max_queue: int = 0, deadline_s: float = 0.0):
+        self.max_queue = max_queue
+        self.deadline_s = deadline_s
+        self.pending: list[Request] = []
+        self.shed: list[Request] = []
+        self.expired: list[Request] = []
+
+    def __len__(self) -> int:
+        return len(self.pending)
+
+    def submit(self, req: Request, now: float | None = None) -> bool:
+        """Admit ``req`` (True) or shed it (False) when the queue is full."""
+        if req.t_submit == 0.0:
+            req.t_submit = time.time() if now is None else now
+        if self.max_queue and len(self.pending) >= self.max_queue:
+            req.status = "shed"
+            self.shed.append(req)
+            return False
+        req.status = "queued"
+        self.pending.append(req)
+        return True
+
+    def shed_now(self, req: Request) -> None:
+        """Reject a request the engine cannot ever serve (KV OOM-shed)."""
+        req.status = "shed"
+        self.shed.append(req)
+
+    def defer(self, req: Request) -> None:
+        """Requeue at the front, keeping t_submit (deadline still ticking)."""
+        req.status = "queued"
+        self.pending.insert(0, req)
+
+    def _expire(self, now: float) -> None:
+        if not self.deadline_s:
+            return
+        keep = []
+        for r in self.pending:
+            if now - r.t_submit > self.deadline_s:
+                r.status = "expired"
+                self.expired.append(r)
+            else:
+                keep.append(r)
+        self.pending = keep
+
+    def take_wave(self, batch: int, now: float | None = None
+                  ) -> list[Request]:
+        """Expire overdue entries, then pop up to ``batch`` requests."""
+        self._expire(time.time() if now is None else now)
+        wave = self.pending[:batch]
+        del self.pending[:batch]
+        return wave
+
+
+def resolve_device(name: str) -> torch.device:
+    """The device an entry point runs on: CUDA unless the caller asked for
+    the CPU.  Never falls back: CUDA without a card raises."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass --device cpu "
+                           "to run on the CPU")
+    return dev
+
+
+def run_paged(cfg, bundle, params, queue: AdmissionQueue, *,
+              batch: int, block_size: int, pool_blocks: int,
+              max_context: int, prefill_chunk: int,
+              temperature: float = 0.0, seed: int = 0) -> dict:
+    """Serve everything in ``queue`` on the device ``params`` live on."""
+    engine = PagedEngine(bundle, params, queue, batch=batch,
+                         block_size=block_size, pool_blocks=pool_blocks,
+                         max_context=max_context,
+                         prefill_chunk=prefill_chunk,
+                         temperature=temperature, seed=seed)
+    t0 = time.time()
+    stats = engine.run()
+    wall = time.time() - t0
+    out = _summary("paged", engine.done, queue, wall,
+                   stats["decode_calls"], temperature)
+    out["decode_wave_ms_mean"] = stats["decode_wave_ms_mean"]
+    out["kv"] = {k: stats[k] for k in
+                 ("prefill_chunks", "oom_shed", "oom_deferrals",
+                  "kv_occupancy_mean", "kv_occupancy_peak")}
+    return out
+
+
+def _summary(engine: str, done, queue: AdmissionQueue, wall: float,
+             decode_calls: int, temperature: float) -> dict:
+    total_new = sum(len(r.out_tokens) for r in done)
+    ttfts = [r.t_first - r.t_submit for r in done]
+    ttft = float(np.mean(ttfts)) if done else 0.0
+    ttft_p50 = float(np.median(ttfts)) if done else 0.0
+    print(f"[serve:{engine}] {len(done)} requests, {total_new} tokens in "
+          f"{wall:.2f}s  ({total_new / max(wall, 1e-9):.1f} tok/s, "
+          f"mean TTFT {ttft:.2f}s, {decode_calls} decode calls, "
+          f"temperature {temperature:g})", flush=True)
+    if queue.shed or queue.expired:
+        print(f"[serve:{engine}] degraded: {len(queue.shed)} shed, "
+              f"{len(queue.expired)} expired", flush=True)
+    return {"engine": engine, "requests": len(done), "tokens": total_new,
+            "wall_s": wall, "tok_per_s": total_new / max(wall, 1e-9),
+            "ttft_mean_s": ttft, "ttft_p50_s": ttft_p50,
+            "decode_calls": decode_calls, "temperature": temperature,
+            "outputs": {r.rid: list(r.out_tokens) for r in done},
+            "shed": [r.rid for r in queue.shed],
+            "expired": [r.rid for r in queue.expired]}
+
+
+def prepare(argv=None) -> Callable[[], dict]:
+    """Parse the CLI flags and build the model once.  The returned function
+    serves the flags' requests afresh each time it is called (a new queue,
+    a new pool) and returns the run's summary."""
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--arch", default="llama-100m")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--device", default="cuda",
+                    help="cuda (default) or cpu; no silent fallback")
+    ap.add_argument("--mesh", default="smoke",
+                    help="only the one-device default is ported")
+    ap.add_argument("--engine", default="paged", choices=["paged", "dense"])
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--max-queue", type=int, default=0,
+                    help="shed request submissions beyond this many "
+                         "pending entries (0 = unbounded)")
+    ap.add_argument("--deadline-s", type=float, default=0.0,
+                    help="expire requests that wait in the queue longer "
+                         "than this before admission (0 = none)")
+    ap.add_argument("--block-size", type=int, default=16,
+                    help="tokens per KV block")
+    ap.add_argument("--pool-blocks", type=int, default=0,
+                    help="total pool blocks incl. the null block (0 = "
+                         "sized for --batch full sequences)")
+    ap.add_argument("--prefill-chunk", type=int, default=0,
+                    help="prompt tokens prefilled per engine tick (0 = "
+                         "whole prompt at once)")
+    args = ap.parse_args(argv)
+
+    if args.engine != "paged":
+        raise NotImplementedError("--engine dense is not yet ported to "
+                                  "repro_torch")
+    if args.mesh != "smoke":
+        raise NotImplementedError("--mesh is not yet ported to repro_torch "
+                                  "(one device only)")
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch, smoke=args.smoke)
+    ok, why = paged_supported(cfg)
+    if not ok:
+        raise NotImplementedError(f"paged engine unavailable for "
+                                  f"{args.arch}: {why}")
+    bundle = build_model(cfg)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = bundle.init(gen)
+    data = SyntheticLMDataset(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=args.prompt_len,
+        global_batch=args.requests, seed=args.seed))
+    prompts = data.global_batch_at(0)["tokens"].numpy()
+    max_context = args.prompt_len + args.gen
+    pool_blocks = args.pool_blocks or (
+        1 + args.batch * -(-max_context // args.block_size))
+
+    def run() -> dict:
+        queue = AdmissionQueue(max_queue=args.max_queue,
+                               deadline_s=args.deadline_s)
+        for i in range(args.requests):
+            queue.submit(Request(rid=i, prompt=prompts[i],
+                                 max_new=args.gen, t_submit=time.time()))
+        return run_paged(cfg, bundle, params, queue, batch=args.batch,
+                         block_size=args.block_size,
+                         pool_blocks=pool_blocks, max_context=max_context,
+                         prefill_chunk=args.prefill_chunk,
+                         temperature=args.temperature, seed=args.seed)
+
+    return run
+
+
+def serve(argv=None) -> dict:
+    """The CLI: build the model and serve the requests once."""
+    return prepare(argv)()
+
+
+if __name__ == "__main__":
+    serve()

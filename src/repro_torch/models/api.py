@@ -1,0 +1,66 @@
+"""Model factory: the decoder bundle of the paged serving path.
+
+Counterpart of ``repro.models.api``.  So far only the decoder family's
+``init`` and its three paged fields are ported; other families raise.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.models import attention as attn
+from repro_torch.models import transformer
+from repro_torch.models.config import ModelConfig
+
+
+@dataclass(frozen=True)
+class ModelBundle:
+    cfg: ModelConfig
+    init: Callable[..., Any]        # (generator, device=None) -> params
+    # Paged serving path (block-table KV; repro_torch.serve).  None for
+    # configs the paged cache does not cover (transformer.paged_supported).
+    init_paged_cache: Callable[..., Any] | None = None   # (num_blocks, block_size, device) -> PagedKV
+    paged_prefill_chunk: Callable[..., Any] | None = None  # (params, pool, tokens, table, ctx_len) -> logits
+    paged_decode_step: Callable[..., Any] | None = None  # (params, pool, token, lengths, tables, live) -> logits
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def _decoder_bundle(cfg: ModelConfig) -> ModelBundle:
+    def init(gen: torch.Generator, device=None):
+        """Draw on the generator's device, then move: one seed gives the
+        same weights whichever device serves them."""
+        params = transformer.init_decoder(gen, cfg)
+        return params if device is None else _to(params, torch.device(device))
+
+    paged: dict[str, Any] = {}
+    if transformer.paged_supported(cfg)[0]:
+        paged = {
+            "init_paged_cache": lambda num_blocks, block_size, device=None:
+                attn.init_paged_kv(cfg.n_layers, num_blocks, block_size,
+                                   cfg.n_kv_heads, cfg.hd,
+                                   transformer.torch_dtype(cfg.dtype),
+                                   device),
+            "paged_prefill_chunk": lambda params, pool, tokens, table,
+                ctx_len: transformer.decoder_prefill_chunk_paged(
+                    params, pool, tokens, table, ctx_len, cfg),
+            "paged_decode_step": lambda params, pool, token, lengths,
+                tables, live: transformer.decoder_decode_step_paged(
+                    params, pool, token, lengths, tables, live, cfg),
+        }
+    return ModelBundle(cfg=cfg, init=init, **paged)
+
+
+def build_model(cfg: ModelConfig) -> ModelBundle:
+    if cfg.family != "decoder":
+        raise NotImplementedError(
+            f"model family {cfg.family!r} is not yet ported to repro_torch "
+            "(ported: decoder)")
+    return _decoder_bundle(cfg)

@@ -1,0 +1,243 @@
+"""Decoder-only transformer: the paged serving path.
+
+Counterpart of ``repro.models.transformer`` for the decoder family, so far
+only what paged serving runs: init, the two paged programs (one prefill
+chunk of one prompt; one decode wave over a batch) and their blocks.  The
+parameter schema is the JAX package's: nested dicts with the layer stack
+on a leading axis, weights ``(in, out)``.  The layer loop is a Python loop
+over that axis where the JAX code scans.
+
+The pool is updated in place (the JAX programs return a new pool).  Torch
+indexing does not clamp as XLA's does, so every index that could leave
+its table is routed explicitly.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import ops as kernel_ops
+from repro_torch.models import attention as attn
+from repro_torch.models.common import (apply_rope, dense_init, embed_init,
+                                       rms_norm)
+from repro_torch.models.config import ModelConfig
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
+
+
+# ---------------------------------------------------------------------------
+# Init
+# ---------------------------------------------------------------------------
+
+
+def init_decoder(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    """Random init on the generator's device, layers stacked on axis 0."""
+    dtype = torch_dtype(cfg.dtype)
+    L, d, hd, ff = cfg.n_layers, cfg.d_model, cfg.hd, cfg.d_ff
+    Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=gen.device)
+
+    def dense(*shape):
+        return dense_init(gen, shape, dtype=dtype)
+
+    a = {"wq": dense(L, d, Hq * hd), "wk": dense(L, d, Hkv * hd),
+         "wv": dense(L, d, Hkv * hd), "wo": dense(L, Hq * hd, d)}
+    if cfg.qkv_bias:
+        a.update(bq=zeros(L, Hq * hd), bk=zeros(L, Hkv * hd),
+                 bv=zeros(L, Hkv * hd))
+    return {
+        "embed": embed_init(gen, (cfg.padded_vocab, d), dtype),
+        "layers": {
+            "ln1": zeros(L, d), "ln2": zeros(L, d), "attn": a,
+            "mlp": {"w_gate": dense(L, d, ff), "w_up": dense(L, d, ff),
+                    "w_down": dense(L, ff, d)},
+        },
+        "final_norm": zeros(d),
+        "lm_head": dense(d, cfg.padded_vocab),
+    }
+
+
+def layer_params(params: dict, i: int) -> dict:
+    """Layer ``i``'s slice of the stacked layer tree (views, no copies)."""
+    def pick(tree):
+        return ({k: pick(v) for k, v in tree.items()}
+                if isinstance(tree, dict) else tree[i])
+    return pick(params["layers"])
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+
+def _rope_q_k(cfg: ModelConfig, q, k, positions):
+    """Apply (partial) rotary embeddings to q and k: the first
+    ``int(hd * rope_pct) // 2 * 2`` dims rotate, the rest pass through."""
+    hd = q.shape[-1]
+    rot = int(hd * cfg.rope_pct) // 2 * 2                # even # of rotary dims
+    if rot < hd:
+        q = torch.cat([apply_rope(q[..., :rot], positions, cfg.rope_theta),
+                       q[..., rot:]], dim=-1)
+        k = torch.cat([apply_rope(k[..., :rot], positions, cfg.rope_theta),
+                       k[..., rot:]], dim=-1)
+        return q, k
+    return (apply_rope(q, positions, cfg.rope_theta),
+            apply_rope(k, positions, cfg.rope_theta))
+
+
+def _qkv(h, pa, cfg: ModelConfig, positions):
+    """Projections + bias + rotary: h (B, S, d) -> q (B, S, Hq, hd),
+    k/v (B, S, Hkv, hd)."""
+    B, S, _ = h.shape
+    q, k, v = h @ pa["wq"], h @ pa["wk"], h @ pa["wv"]
+    if cfg.qkv_bias:
+        q, k, v = q + pa["bq"], k + pa["bk"], v + pa["bv"]
+    q = q.reshape(B, S, cfg.n_heads, cfg.hd)
+    k = k.reshape(B, S, cfg.n_kv_heads, cfg.hd)
+    v = v.reshape(B, S, cfg.n_kv_heads, cfg.hd)
+    q, k = _rope_q_k(cfg, q, k, positions)
+    return q, k, v
+
+
+def mlp_block(x, p) -> torch.Tensor:
+    """Dense SwiGLU."""
+    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+
+
+def _logits(params, x) -> torch.Tensor:
+    """Logits over the PADDED vocabulary (greedy argmax takes that width)."""
+    return x @ params["lm_head"]
+
+
+# ---------------------------------------------------------------------------
+# Paged serving: block-table prefill chunks + batched decode
+# ---------------------------------------------------------------------------
+
+
+def paged_supported(cfg: ModelConfig) -> tuple[bool, str]:
+    """Whether the paged serving path can run this config: the plain GQA
+    decoder with dense MLPs (partial rotary and QKV bias included)."""
+    if cfg.family != "decoder":
+        return False, f"family {cfg.family!r} has no paged cache layout"
+    if cfg.attn_type == "mla":
+        return False, "MLA latent cache not yet paged"
+    if cfg.mrope or cfg.vision_tokens:
+        return False, "multimodal position handling not paged"
+    if cfg.sliding_window or cfg.local_global_period:
+        return False, "sliding-window masks not paged"
+    if cfg.attn_softcap:
+        return False, "logit softcap not fused into the paged kernel"
+    if cfg.moe is not None:
+        return False, "MoE layers not yet ported"
+    if cfg.tie_embeddings or cfg.emb_scale:
+        return False, "tied or scaled embeddings not yet ported"
+    return True, ""
+
+
+def _paged_scatter(kp, vp, k_new, v_new, blk, off) -> None:
+    """Write per-token K/V into pool blocks, in place.
+
+    kp/vp: (nb, bs, Hkv, hd); k_new/v_new: (N, Hkv, hd); blk/off: (N,)
+    int64.  Duplicate (blk, off) pairs occur only for tokens aimed at the
+    null block 0 (dead decode lanes, prefill pad tokens past the table);
+    on CUDA which duplicate lands is unspecified, which is harmless only
+    because block 0 is never read unmasked.
+    """
+    kp[blk, off] = k_new.to(kp.dtype)
+    vp[blk, off] = v_new.to(vp.dtype)
+
+
+def decoder_prefill_chunk_paged(params, pool: attn.PagedKV,
+                                tokens: torch.Tensor, table: torch.Tensor,
+                                ctx_len: int, cfg: ModelConfig
+                                ) -> torch.Tensor:
+    """Prefill one chunk of one prompt into the paged pool (in place).
+
+    tokens: (1, c) int — the engine pads the last chunk to ``c``; table:
+    (W,) int32, the request's block table padded with the null block;
+    ``ctx_len``: tokens already prefilled.  Returns logits (1, c, Vp) over
+    the whole chunk, so the host can read the last real prompt position of
+    a padded final chunk.
+
+    Attending over the whole gathered table is correct: gathered slot i
+    holds absolute position i for every live slot, and every garbage slot
+    (null-block padding, stale pool contents past the chunk's end) sits at
+    a position past the last query, so the causal mask with
+    ``q_offset=ctx_len`` removes it.  Writes need one guard the mask cannot
+    give: a padded final chunk can run past the table (ceil(P/c)*c > W*bs),
+    and those pad tokens are routed to the null block explicitly.
+    """
+    c = tokens.shape[1]
+    W = table.shape[0]
+    bs = pool.block_size
+    dev = tokens.device
+    p_abs = ctx_len + torch.arange(c, device=dev)                # (c,)
+    word = p_abs // bs
+    tbl = table.long()
+    blk = torch.where(word < W, tbl[word.clamp(max=W - 1)],
+                      torch.zeros_like(word))
+    off = p_abs % bs
+    positions = p_abs[None, :]                                   # (1, c)
+    x = params["embed"][tokens]                                   # (1, c, d)
+    for i in range(cfg.n_layers):
+        p = layer_params(params, i)
+        kp, vp = pool.k[i], pool.v[i]
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        q, k, v = _qkv(h, p["attn"], cfg, positions)
+        _paged_scatter(kp, vp, k[0], v[0], blk, off)
+        kg = kp[tbl].reshape(1, W * bs, cfg.n_kv_heads, cfg.hd)
+        vg = vp[tbl].reshape(1, W * bs, cfg.n_kv_heads, cfg.hd)
+        # one KV block over the whole gathered table: the JAX program uses
+        # kv_block=bs; only the summation order differs
+        out = attn.blocked_attention(q, kg, vg, q_offset=ctx_len,
+                                     kv_block=W * bs)
+        x = x + out.reshape(1, c, cfg.n_heads * cfg.hd) @ p["attn"]["wo"]
+        x = x + mlp_block(rms_norm(x, p["ln2"], cfg.norm_eps), p["mlp"])
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _logits(params, x)
+
+
+def decoder_decode_step_paged(params, pool: attn.PagedKV,
+                              token: torch.Tensor, lengths: torch.Tensor,
+                              tables: torch.Tensor, live: torch.Tensor,
+                              cfg: ModelConfig) -> torch.Tensor:
+    """One decode wave over a batch of paged sequences (pool in place).
+
+    token: (B,) int last sampled tokens; lengths: (B,) int32 tokens already
+    in each sequence's cache (the new token's position); tables: (B, W)
+    int32 block tables padded with the null block; live: (B,) bool — dead
+    lanes write to the null block and attend over zero keys, so their
+    attention output is exactly zero.  Returns logits (B, Vp).
+    """
+    B = token.shape[0]
+    W = tables.shape[1]
+    bs = pool.block_size
+    dev = token.device
+    lengths = lengths.int()
+    word = (lengths // bs).long()
+    # a lane past its table (the engine never sends one) writes to the null
+    # block rather than aliasing table[W-1]; the kernel then outputs NaN
+    # for it, since its length exceeds W*bs
+    blk = torch.where(live & (word < W), tables.long()[
+        torch.arange(B, device=dev), word.clamp(max=W - 1)], 0)
+    off = torch.where(live, lengths % bs, 0).long()
+    attend = torch.where(live, lengths + 1, 0).int()               # (B,)
+    positions = lengths[:, None]                                   # (B, 1)
+    x = params["embed"][token][:, None, :]                         # (B, 1, d)
+    for i in range(cfg.n_layers):
+        p = layer_params(params, i)
+        kp, vp = pool.k[i], pool.v[i]
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        q, k, v = _qkv(h, p["attn"], cfg, positions)
+        _paged_scatter(kp, vp, k[:, 0], v[:, 0], blk, off)
+        out = kernel_ops.paged_attention(q[:, 0].contiguous(), kp, vp,
+                                         tables, attend)
+        x = x + out.reshape(B, 1, cfg.n_heads * cfg.hd) @ p["attn"]["wo"]
+        x = x + mlp_block(rms_norm(x, p["ln2"], cfg.norm_eps), p["mlp"])
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _logits(params, x)[:, 0]
