@@ -6,17 +6,17 @@
 Phases; any failure raises and the script exits non-zero:
 
 1. print the card's name and power limit as nvidia-smi gives them;
-2. build every CUDA kernel of the serving path from ``src/repro_torch/csrc``
+2. build every CUDA kernel of the ported paths from ``src/repro_torch/csrc``
    with nvcc for sm_90a (one nvcc per source, all at once) and print the
    build time and the compiler's register report;
-3. hold each kernel against its plain-PyTorch version on the card, in fp32
-   (atol = rtol = 2e-5) and bf16 (atol 3e-2, rtol 5e-2), at the llama-7b
-   decode shape (B 8, Hq = Hkv = 32, hd 128, bs 16, length 576),
-   stablelm-12b's (Hq 32 / Hkv 8, hd 160), and a batch with a dead lane
-   (exactly 0 out) and partial blocks;
-4. time each kernel with CUDA events at the llama-7b shape in bf16, beside
-   its bound, its plain version, and ``scaled_dot_product_attention`` over
-   the same K/V already gathered (a yardstick the port never calls);
+3. hold the paged-attention kernel against its plain-PyTorch version on the
+   card, in fp32 (atol = rtol = 2e-5) and bf16 (atol 3e-2, rtol 5e-2), at
+   the llama-7b decode shape (B 8, Hq = Hkv = 32, hd 128, bs 16, length
+   576), stablelm-12b's (Hq 32 / Hkv 8, hd 160), and a batch with a dead
+   lane (exactly 0 out) and partial blocks;
+4. time it with CUDA events at the llama-7b shape in bf16, beside its
+   bound, its plain version, and ``scaled_dot_product_attention`` over the
+   same K/V already gathered (a yardstick the port never calls);
 5. serve the fp32 smoke llama through ``run_paged`` on CUDA and on the CPU
    from the same weights: greedy tokens must be identical, and the CUDA run
    must have launched the kernel;
@@ -25,7 +25,27 @@ Phases; any failure raises and the script exits non-zero:
    batch 8, chunked prefill 128, block size 16; every request must finish
    with 64 tokens and the kernel must have launched once per layer per
    decode wave;
-7. print the kernels line, then ``{"ok": true, "device": {...}}`` last.
+7. hold each optimizer kernel (project, project_colnorms, tangent,
+   adam_lowrank_norms, fused_update) against its plain version on the card
+   at the three llama-7b matrix shapes (m, n) = (4096, 4096), (4096,
+   11008), (4096, 32000), rank 1024, a batch of 2 matrices, G in fp32 and
+   bf16, with the tolerances of ``OPT_REL`` (max error over the largest
+   entry: fp32 sums of 4096 to 32000 terms in another order);
+8. time each optimizer kernel at (4096, 11008, r 1024) with bf16 G beside
+   its bound (bytes and fp32 operations written out), its plain version
+   and, where one exists, the PyTorch expression for the same product with
+   TF32 off (a yardstick the port never calls);
+9. train the fp32 smoke llama 6 steps (rank 32, update interval 3, kernels
+   on) on CUDA and on the CPU from the same params, warm-started state and
+   batches: loss histories within ``SMOKE_LOSS_ATOL``; the CUDA run must
+   launch every optimizer kernel, the CPU run none;
+10. time one SVD of a (4096, 4096) and a (4096, 11008) fp32 matrix per
+   cuSOLVER driver (the warm start runs 226 of them and uses gesvd), then
+   train llama-7b through ``repro_torch.launch.train.train`` (4 steps,
+   update interval 2: plain steps 0, 1, 3 and a tracking step at 2; rank
+   1024, remat full, batch 2 x 512): finite losses, 3 launches per
+   low-rank leaf per plain step and 5 per tracking step;
+11. print the kernels line, then ``{"ok": true, "device": {...}}`` last.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero and prints no result.
@@ -33,6 +53,7 @@ non-zero and prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -104,7 +125,9 @@ def phase_build() -> None:
     from repro_torch.kernels import build
 
     t0 = time.perf_counter()
-    report = build.build(["paged_attention"])
+    report = build.build(["paged_attention", "grassmann_project",
+                          "grassmann_tangent", "adam_lowrank_norms",
+                          "fused_update"])
     for name, r in report.items():
         regs = [ln.strip() for ln in r["ptxas"].splitlines() if "Used" in ln]
         print(f"[build] {name}.cu: nvcc {r['seconds']:.1f}s; {regs}",
@@ -275,6 +298,310 @@ def phase_serve_7b() -> dict:
     return {"launches": launches, "decode_calls": out["decode_calls"]}
 
 
+# ---------------------------------------------------------------------------
+# The training slice: optimizer kernels and the train step
+# ---------------------------------------------------------------------------
+
+OPT_KERNELS = {   # name -> (CUDA source, def line of the TPU kernel)
+    "project": ("grassmann_project.cu", 117),
+    "project_colnorms": ("grassmann_project.cu", 274),
+    "tangent": ("grassmann_tangent.cu", 192),
+    "adam_lowrank_norms": ("adam_lowrank_norms.cu", 696),
+    "fused_update": ("fused_update.cu", 558),
+}
+# max |kernel - plain| over max |plain|: fp32 sums of 4096 to 32000 terms in
+# another order; the tangent's two terms cancel.  A bf16 update may also
+# differ by one bf16 ulp where the two fp32 values round apart.
+OPT_REL = {"project": 2e-5, "project_colnorms": 2e-5, "tangent": 1e-4,
+           "adam_lowrank_norms": 2e-5, "fused_update": 2e-5}
+OPT_SHAPES = [(4096, 4096), (4096, 11008), (4096, 32000)]
+RANK_7B = 1024
+TIMED = (4096, 11008)
+SMOKE_LOSS_ATOL = 1e-4   # fp32 smoke llama, 6 steps, CUDA vs CPU sum orders
+N_LOWRANK_LEAVES = 9     # wq wk wv wo w_gate w_up w_down embed lm_head
+
+
+def _opt_inputs(m, n, r, gdtype, seed):
+    """A batch of 2 matrices: orthonormal S, G in ``gdtype``, Adam states,
+    phi and two different per-matrix clips, all on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    return dict(S=torch.linalg.qr(rn(2, m, r))[0].contiguous(),
+                G=rn(2, m, n).to(gdtype), M=0.1 * rn(2, r, n),
+                V=0.01 * rn(2, r, n).abs(), phi=rn(2, n).abs(),
+                clip=torch.tensor([0.9, 0.25], device="cuda"))
+
+
+def _opt_calls(x, impl):
+    """name -> zero-argument call of ``impl`` (the kernel wrappers or the
+    plain versions) on the inputs ``x``; A and Gto come from the plain
+    versions so every kernel sees the same operands."""
+    from repro_torch.kernels import grassmann as gk
+    from repro_torch.kernels import ref
+
+    S, G, M, V, phi, clip = (x[k] for k in ("S", "G", "M", "V", "phi",
+                                            "clip"))
+    A, _ = ref.project_colnorms_ref(S, G)
+    Gto = ref.adam_lowrank_norms_ref(A, M, V, 3, 0.9, 0.999, 1e-8)[2]
+    if impl == "kernel":
+        return {
+            "project": lambda: gk.project(S, G),
+            "project_colnorms": lambda: gk.project_colnorms(S, G),
+            "tangent": lambda: gk.tangent(G, A, S),
+            "adam_lowrank_norms": lambda: gk.adam_lowrank_norms(A, M, V, 3),
+            "fused_update": lambda: gk.fused_update(
+                G, S, A, Gto, phi, 0.01, clip, out_dtype=G.dtype)}
+    return {
+        "project": lambda: ref.project_ref(S, G),
+        "project_colnorms": lambda: ref.project_colnorms_ref(S, G),
+        "tangent": lambda: ref.tangent_ref(G, A, S),
+        "adam_lowrank_norms": lambda: ref.adam_lowrank_norms_ref(
+            A, M, V, 3, 0.9, 0.999, 1e-8),
+        "fused_update": lambda: ref.fused_update_ref(
+            G, S, A, Gto, phi, 0.01, clip, out_dtype=G.dtype)}
+
+
+def _opt_error(got, want) -> tuple[float, float]:
+    """(max abs error, max error over the largest entry); for a bf16 output
+    the first bf16 ulp of each entry is forgiven in the second."""
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    abs_err, rel = 0.0, 0.0
+    for g, w in zip(got, want):
+        bf16 = g.dtype == torch.bfloat16
+        g, w = g.float(), w.float()
+        d = (g - w).abs()
+        abs_err = max(abs_err, d.max().item())
+        if bf16:
+            _, e = torch.frexp(w)
+            ulp = torch.where(w == 0, torch.zeros_like(w),
+                              torch.ldexp(torch.ones_like(w), e - 8))
+            d = torch.clamp_min(d - ulp, 0.0)
+        rel = max(rel, (d.max() / w.abs().max().clamp_min(1e-30)).item())
+    return abs_err, rel
+
+
+def phase_check_optimizer() -> dict:
+    """Every optimizer kernel against its plain version at the three 7b
+    matrix shapes, G fp32 and bf16.  Returns name -> max abs error at the
+    timed shape in bf16."""
+    errs = {}
+    for i, (m, n) in enumerate(OPT_SHAPES):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = _opt_inputs(m, n, RANK_7B, dtype, SEED + i)
+            kern, plain = _opt_calls(x, "kernel"), _opt_calls(x, "plain")
+            line = []
+            for name in OPT_KERNELS:
+                got = kern[name]()
+                torch.cuda.synchronize()
+                abs_err, rel = _opt_error(got, plain[name]())
+                if rel > OPT_REL[name]:
+                    raise AssertionError(
+                        f"{name} at ({m}, {n}, r {RANK_7B}) {dtype}: error "
+                        f"{rel:.3e} of the largest entry > {OPT_REL[name]:g}")
+                if (m, n) == TIMED and dtype == torch.bfloat16:
+                    errs[name] = abs_err
+                line.append(f"{name} {abs_err:.2e} ({rel:.1e})")
+            del x, kern, plain
+            print(f"[check] ({m}, {n}, r {RANK_7B}) x2 {dtype}: max abs err "
+                  f"(of largest entry) " + ", ".join(line), flush=True)
+    return errs
+
+
+def phase_time_optimizer() -> dict:
+    """Each optimizer kernel at (4096, 11008, r 1024), 2 matrices, bf16 G,
+    beside its bound, its plain version and the PyTorch yardstick."""
+    m, n = TIMED
+    r, b, g = RANK_7B, 2, 2          # matrices, bytes per bf16 element
+    x = _opt_inputs(m, n, r, torch.bfloat16, SEED)
+    kern, plain = _opt_calls(x, "kernel"), _opt_calls(x, "plain")
+    S, G = x["S"], x["G"]
+    A = plain["project"]()
+    library = {"project": lambda: S.mT @ G.float(),
+               "tangent": lambda: -2.0 * (G.float() @ A.mT)
+               + 2.0 * (S @ (A @ A.mT))}
+    # bytes each function must move (inputs once, outputs once) and the
+    # fp32 operations it needs, per the whole batch
+    work = {
+        "project": (b * (4 * m * r + g * m * n + 4 * r * n),
+                    b * 2 * r * m * n),
+        "project_colnorms": (b * (4 * m * r + g * m * n + 4 * r * n + 4 * n),
+                             b * (2 * r * m * n + 2 * m * n)),
+        "tangent": (b * (g * m * n + 4 * r * n + 8 * m * r),
+                    b * (2 * r * m * n + 2 * r * r * n + 2 * m * r * r)),
+        "adam_lowrank_norms": (b * (24 * r * n + 8 * n), b * 16 * r * n),
+        "fused_update": (b * (2 * g * m * n + 4 * m * r + 8 * r * n + 4 * n
+                              + 12),
+                         b * (2 * r * m * n + 2 * r * n + 3 * m * n)),
+    }
+    out = {}
+    for name in OPT_KERNELS:
+        nbytes, flops = work[name]
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / FP32_FLOPS * 1e3
+        res = {"ms": _time_ms(kern[name], iters=10, repeats=3),
+               "plain_ms": _time_ms(plain[name], iters=10, repeats=3),
+               "library_ms": (_time_ms(library[name], iters=10, repeats=3)
+                              if name in library else None),
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "bytes": nbytes, "flops": flops}
+        out[name] = res
+        lib = ("-" if res["library_ms"] is None
+               else f"{res['library_ms']:.4f} ms")
+        print(f"[time] {name} ({m}, {n}, r {r}) x{b} bf16 G: kernel "
+              f"{res['ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
+              f"({res['bound_by']}: {nbytes / 1e6:.1f} MB, "
+              f"{flops / 1e9:.1f} GFLOP fp32), plain {res['plain_ms']:.4f} "
+              f"ms, torch yardstick {lib}", flush=True)
+    return out
+
+
+def _state_to(state, device):
+    from repro_torch.core.subtrack import OptState, tree_map
+
+    return OptState(step=state.step, n_updates=state.n_updates,
+                    inner=tree_map(lambda st: type(st)(
+                        *(t.to(device) for t in st)), state.inner))
+
+
+def phase_train_smoke() -> None:
+    """fp32 smoke llama on CUDA and on the CPU from the same params,
+    warm-started state and batches."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.api import get_optimizer
+    from repro_torch.core.subtrack import tree_map
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import TrainState, make_warm_start
+    from repro_torch.launch.train import run
+    from repro_torch.models.api import build_model
+    from repro_torch.optim.schedules import cosine_with_warmup
+
+    steps, k = 6, 3
+    cfg = get_config("llama-100m", smoke=True).with_(dtype="float32")
+    bundle = build_model(cfg)
+    opt = get_optimizer("subtrack", rank=32, update_interval=k, eta=2e-5,
+                        use_kernels=True)
+    data = SyntheticLMDataset(DataConfig(vocab_size=cfg.vocab_size,
+                                         seq_len=64, global_batch=4,
+                                         seed=SEED))
+    batches = [data.global_batch_at(s) for s in range(steps)]
+    params = bundle.init(torch.Generator().manual_seed(SEED))
+    warm, _ = make_warm_start(bundle, opt)(
+        TrainState(params=params, opt=opt.init(params)), batches[0])
+
+    def go(device):
+        ops.reset_launch_counts()
+        out = run(cfg, tree_map(lambda t: t.to(device, copy=True), params),
+                  lambda s: batches[s], optimizer=opt, steps=steps,
+                  lr_at=cosine_with_warmup(1e-3, steps, 2), log_every=steps,
+                  opt_state=_state_to(warm.opt, device))
+        return [h["loss"] for h in out["history"]], ops.launch_counts()
+
+    cuda_losses, cuda_counts = go("cuda")
+    cpu_losses, cpu_counts = go("cpu")
+    diff = max(abs(a - b) for a, b in zip(cuda_losses, cpu_losses))
+    if not diff <= SMOKE_LOSS_ATOL:
+        raise AssertionError(f"smoke training: CUDA {cuda_losses} vs CPU "
+                             f"{cpu_losses} (max diff {diff:.3e})")
+    tracking = sum(1 for s in range(steps) if s and s % k == 0)
+    plain = steps - tracking
+    want = {"project_colnorms": N_LOWRANK_LEAVES * steps,
+            "tangent": N_LOWRANK_LEAVES * tracking,
+            "project": N_LOWRANK_LEAVES * tracking,
+            "adam_lowrank_norms": N_LOWRANK_LEAVES * steps,
+            "fused_update": N_LOWRANK_LEAVES * steps, "paged_attention": 0}
+    if cuda_counts != want or any(cpu_counts.values()):
+        raise AssertionError(f"smoke training launches: CUDA {cuda_counts} "
+                             f"(want {want}), CPU {cpu_counts}")
+    print(f"[smoke] fp32 smoke llama, {steps} steps ({plain} plain, "
+          f"{tracking} tracking): losses CUDA vs CPU max diff {diff:.2e} "
+          f"(budget {SMOKE_LOSS_ATOL:g}); CUDA launches {cuda_counts}",
+          flush=True)
+
+
+def phase_time_svd() -> None:
+    """One warm-start SVD per cuSOLVER driver at two llama-7b matrix
+    shapes, full rank and of rank 1024 (a gradient of 1024 tokens): wall
+    time and the orthonormality of U.  The warm start uses gesvd."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for m, n in ((4096, 4096), (4096, 11008)):
+        full = torch.randn(m, n, generator=gen, device="cuda")
+        low = (torch.randn(m, RANK_7B, generator=gen, device="cuda")
+               @ torch.randn(RANK_7B, n, generator=gen, device="cuda"))
+        eye = torch.eye(m, device="cuda")
+        for kind, X in (("full rank", full), (f"rank {RANK_7B}", low)):
+            for driver in (None, "gesvd", "gesvda"):
+                torch.linalg.svd(full[:256, :512], full_matrices=False,
+                                 driver=driver)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                try:
+                    U = torch.linalg.svd(X, full_matrices=False,
+                                         driver=driver)[0]
+                    torch.cuda.synchronize()
+                except torch.linalg.LinAlgError as e:
+                    if driver == "gesvd":
+                        raise
+                    print(f"[svd] ({m}, {n}) {kind} driver {driver}: "
+                          f"failed ({str(e)[:60]})", flush=True)
+                    continue
+                dt = time.perf_counter() - t0
+                orth = (U.mT @ U - eye).abs().max().item()
+                print(f"[svd] ({m}, {n}) fp32 {kind} driver "
+                      f"{driver or 'default'}: {dt:.3f} s, max |U^T U - I| "
+                      f"{orth:.1e}", flush=True)
+        del full, low, U
+
+
+def phase_train_7b() -> dict:
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train
+
+    steps, k = 4, 2
+    gc.collect()
+    torch.cuda.empty_cache()          # the earlier phases' blocks
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out = train(["--arch", "llama-7b", "--optimizer", "subtrack",
+                 "--use-kernels", "--steps", str(steps), "--update-interval",
+                 str(k), "--warmup", "2", "--batch", "2", "--seq", "512",
+                 "--seed", str(SEED), "--log-every", "1"])
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hist = out["history"]
+    if not all(h["loss"] is not None and math.isfinite(h["loss"])
+               for h in hist):
+        raise AssertionError(f"llama-7b: losses {out['losses']}")
+    tracking = [h["step"] for h in hist if h["subspace_update"]]
+    if tracking != [2]:
+        raise AssertionError(f"llama-7b: tracking steps {tracking}")
+    n_plain = steps - 1
+    want = {"project_colnorms": N_LOWRANK_LEAVES * steps,
+            "tangent": N_LOWRANK_LEAVES, "project": N_LOWRANK_LEAVES,
+            "adam_lowrank_norms": N_LOWRANK_LEAVES * steps,
+            "fused_update": N_LOWRANK_LEAVES * steps, "paged_attention": 0}
+    if launches != want:
+        raise AssertionError(f"llama-7b launches {launches}, want {want} "
+                             f"(3 per leaf per plain step, 5 per tracking)")
+    plain_s = [h["dt"] for h in hist if not h["subspace_update"]]
+    track_s = [h["dt"] for h in hist if h["subspace_update"]][0]
+    tokens = out["tokens_per_step"]
+    print(f"[train] llama-7b bf16, rank {out['rank']}, batch 2 x 512: "
+          f"warm start {out['warm_start_s']:.2f}s (loss "
+          f"{out['warm_loss']:.4f}); losses {out['losses']}; plain steps "
+          f"{[round(t, 3) for t in plain_s]} s (step 0 cold), tracking step "
+          f"{track_s:.3f} s; {tokens / (sum(plain_s[1:]) / len(plain_s[1:])):.1f}"
+          f" tok/s on warm plain steps; peak memory {peak / 2**30:.2f} GiB; "
+          f"launches {launches}", flush=True)
+    return {"launches": launches, "plain_steps": n_plain,
+            "tracking_steps": 1}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -290,6 +617,11 @@ def main() -> int:
     timing = phase_time_paged_attention()
     phase_serve_smoke()
     served = phase_serve_7b()
+    opt_err = phase_check_optimizer()
+    opt_time = phase_time_optimizer()
+    phase_train_smoke()
+    phase_time_svd()
+    trained = phase_train_7b()
     kernels = [{
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_attention.cu",
@@ -301,6 +633,16 @@ def main() -> int:
         "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"], "library_ms": timing["library_ms"],
     }]
+    for name, (src, line) in OPT_KERNELS.items():
+        t = opt_time[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{src}",
+            "replaces": f"src/repro/kernels/grassmann.py:{line}",
+            "launches": trained["launches"][name],
+            "max_abs_err": opt_err[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -32,6 +32,13 @@ _PAPER_MODELS = {
     "llama-100m": _llama("llama-100m", 12, 640, 10, 1708),
 }
 
+# paper Table 10 low-rank ranks per model size
+PAPER_RANKS = {
+    "llama-60m": 128, "llama-130m": 256, "llama-350m": 256,
+    "llama-1b": 512, "llama-3b": 512, "llama-7b": 1024,
+    "llama-100m": 128,
+}
+
 # assigned decoder archs on the paged serving path
 _ASSIGNED = {
     # hf:Qwen/Qwen1.5-4B

@@ -1,0 +1,360 @@
+"""SubTrack++ as a tree-level gradient transform, plus the low-rank
+baselines the paper compares against, sharing the same machinery.
+
+Counterpart of ``repro.core.subtrack`` on one device.  The protocol is the
+JAX package's:
+
+* ``init(params)`` — zero state per leaf (params: nested dicts of tensors);
+* ``warm_start(state, grads)`` — installs S_0 from the first gradient
+  (Alg. 1 line 1);
+* ``update(grads, state, params, lr, do_subspace_update)`` — returns
+  ``(updates, new_state)``; updates are added to the params.
+  ``do_subspace_update`` is a Python bool picked per step by the loop.
+
+Each low-rank leaf runs as ONE batched call over its stack dims (one kernel
+launch per leaf with ``use_kernels``).  Same-shape leaves are not
+concatenated into a bucket as the JAX package does on one device: the
+concatenation would copy every gradient, parameter and state of the bucket
+(tens of GB at llama-7b), and per-matrix results are the same either way.
+There are no mesh regimes, no grad-fused taps and no health report here
+yet; ``method="grass"`` raises "not yet ported".
+
+Flag matrix (as the JAX package):
+    SubTrack++           method=grassmann, projection_aware=True,  recovery=True
+    Grassmannian-only    method=grassmann, projection_aware=False, recovery=False
+    GaLore               method=svd,       projection_aware=False, recovery=False
+    Fira                 method=svd,       projection_aware=False, recovery=True
+    GoLore               method=random,    projection_aware=False, recovery=False
+    OSD                  method=osd,       projection_aware=False, recovery=False
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+from repro_torch.core import plan as plan_lib
+from repro_torch.core import subspace as sub
+from repro_torch.core.lowrank_adam import (AdamHP, MatrixOptState,
+                                           dense_adam_step,
+                                           init_dense_state,
+                                           init_matrix_state,
+                                           lowrank_adam_step,
+                                           rotate_moments_dense,
+                                           rotate_moments_rank1)
+
+
+@dataclass(frozen=True)
+class LowRankConfig:
+    """Everything that defines a low-rank optimizer variant."""
+
+    rank: int = 128
+    update_interval: int = 200          # paper Table 10 (k)
+    eta: float = 10.0                   # SubTrack++ step size (Table 10)
+    method: str = "grassmann"
+    projection_aware: bool = True
+    recovery: bool = True
+    init: str = "svd"                   # subspace warm start (Eq. 1)
+    rank1_rotation: bool = False        # O(rn) rotation on the torch path
+    fused_tangent: bool = True
+    power_iters: int = 24
+    exact_top1: bool = False
+    reorth_interval: int = 0            # QR scrub every N updates (0 = off)
+    use_kernels: bool = False           # the fused kernel hot path
+    osd_lr: float = 1e-2
+    adam: AdamHP = field(default_factory=AdamHP)
+    weight_decay: float = 0.0
+
+
+class OptState(NamedTuple):
+    step: int          # number of updates applied
+    n_updates: int     # number of subspace refreshes done
+    inner: Any         # dict tree of MatrixOptState / DenseOptState
+
+
+class GradientTransform(NamedTuple):
+    init: Callable[[Any], OptState]
+    warm_start: Callable[[OptState, Any], OptState]
+    update: Callable[..., tuple[Any, OptState]]
+    state_bytes: Callable[[Any], int]
+    config: Any
+
+
+def _get_backend(cfg: LowRankConfig):
+    if not cfg.use_kernels:
+        return None
+    from repro_torch.kernels import ops as kernel_ops
+
+    return kernel_ops
+
+
+def tree_map(fn, tree, *rest):
+    """Map over nested dicts; everything that is not a dict is a leaf."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of nested dicts, in :func:`tree_map`'s order."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in tree_leaves(v)]
+    return [tree]
+
+
+# ---------------------------------------------------------------------------
+# Per-leaf step functions (batched over the leaf's stack dims)
+# ---------------------------------------------------------------------------
+
+
+def _plain_matrix_step(cfg: LowRankConfig, hp: AdamHP, G, st, step: int,
+                       lr: float, param, out_dtype):
+    out = lowrank_adam_step(G, st, step, hp, recovery=cfg.recovery,
+                            backend=_get_backend(cfg), lr=lr,
+                            weight_decay=cfg.weight_decay, param=param,
+                            out_dtype=out_dtype)
+    return out.delta, out.state
+
+
+def _refresh_subspace(cfg: LowRankConfig, G, st: MatrixOptState, step: int,
+                      n_updates: int, backend=None):
+    """The new basis per the configured method: (S_new, rank1_info, gsq,
+    diag), rank1_info = (cos_theta, v) where the rank-1 rotation applies."""
+    rank = st.S.shape[-1]
+    if cfg.method == "grassmann":
+        res = sub.track_subspace(st.S, G, eta=cfg.eta,
+                                 fused_tangent=cfg.fused_tangent,
+                                 exact_top1=cfg.exact_top1,
+                                 power_iters=cfg.power_iters,
+                                 backend=backend)
+        if cfg.reorth_interval:
+            S_new = res.S_new
+            if n_updates % cfg.reorth_interval == cfg.reorth_interval - 1:
+                S_new = sub.reorthonormalize(S_new)
+            # the rank-1 identity does not survive a QR scrub
+            return S_new, None, res.gsq, res.diag
+        return res.S_new, (res.cos_theta, res.v), res.gsq, res.diag
+    if cfg.method == "svd":
+        return _per_matrix(lambda g: sub.refresh_svd(g, rank), G), None, \
+            None, None
+    if cfg.method == "random":
+        return sub.refresh_random(G, rank, step=step), None, None, None
+    if cfg.method == "osd":
+        G32 = G.float()
+        GGS = G32 @ (G32.mT @ st.S)
+        corr = GGS - st.S @ (st.S.mT @ GGS)
+        return sub.reorthonormalize(st.S + cfg.osd_lr * corr).contiguous(), \
+            None, None, None
+    if cfg.method == "none":
+        lead = st.S.shape[:-2]
+        return st.S, (torch.ones(lead, device=st.S.device),
+                      torch.zeros(lead + (rank,), device=st.S.device)), \
+            None, None
+    if cfg.method == "grass":
+        raise NotImplementedError("method 'grass' is not yet ported to "
+                                  "repro_torch")
+    raise ValueError(f"unknown subspace method {cfg.method!r}")
+
+
+def _tracking_matrix_step(cfg: LowRankConfig, hp: AdamHP, G, st, step: int,
+                          n_updates: int, lr: float, param, out_dtype):
+    """The 1-of-k subspace-update step: refresh -> rank-1 (M, V) rotation
+    -> the plain steps' epilogue on the new basis (the front end's column
+    norms feed the Eq. 12 clip).  Without kernels: the paper-literal
+    unfused schedule."""
+    backend = _get_backend(cfg)
+    # the kernels cast per tile: no (m, n) fp32 copy on the kernel path
+    Gc = G if backend is not None else G.float()
+    S_new, rank1_info, gsq, _ = _refresh_subspace(cfg, Gc, st, step,
+                                                  n_updates, backend)
+    rotated = None
+    if cfg.projection_aware:
+        if rank1_info is not None and (cfg.rank1_rotation
+                                       or backend is not None):
+            cos_t, v = rank1_info
+            rotated = rotate_moments_rank1(cos_t, v, st.M, st.V, step, hp)
+        else:
+            Q = sub.change_of_basis(S_new, st.S)
+            rotated = rotate_moments_dense(Q, st.M, st.V, step, hp)
+    out = lowrank_adam_step(Gc, st, step, hp, rotated=rotated, S_new=S_new,
+                            recovery=cfg.recovery, backend=backend, lr=lr,
+                            weight_decay=cfg.weight_decay, param=param,
+                            out_dtype=out_dtype, precomputed_gsq=gsq)
+    return out.delta, out.state
+
+
+def _per_matrix(fn, G):
+    """Apply a per-matrix function one matrix at a time over the stack,
+    so a whole stack never needs an fp32 copy (the warm-start SVD)."""
+    lead, (m, n) = G.shape[:-2], G.shape[-2:]
+    outs = [fn(g) for g in G.reshape(-1, m, n)]
+    return torch.stack(outs).reshape(lead + outs[0].shape)
+
+
+def _warm_matrix_state(cfg: LowRankConfig, G, st: MatrixOptState):
+    if cfg.method == "grass":
+        raise NotImplementedError("method 'grass' is not yet ported to "
+                                  "repro_torch")
+    rank = st.S.shape[-1]
+    S = _per_matrix(lambda g: sub.init_subspace(g.float(), rank, cfg.init),
+                    G)
+    return st._replace(S=S.contiguous())
+
+
+# ---------------------------------------------------------------------------
+# The tree-level transform
+# ---------------------------------------------------------------------------
+
+
+def _leaf_init(plan: plan_lib.ParamPlan, p: torch.Tensor):
+    if plan.mode == "dense":
+        return init_dense_state(tuple(p.shape), device=p.device)
+    return init_matrix_state(plan.m, plan.n, plan.rank,
+                             stack=tuple(p.shape[:-2]), device=p.device)
+
+
+def lowrank_optimizer(cfg: LowRankConfig) -> GradientTransform:
+    """Build the SubTrack++ / GaLore / Fira / ... optimizer for a dict tree
+    of parameters on one device."""
+    hp = cfg.adam
+
+    def init(params) -> OptState:
+        plans = plan_lib.make_plans(params, cfg.rank)
+        return OptState(step=0, n_updates=0,
+                        inner=tree_map(_leaf_init, plans, params))
+
+    def warm_start(state: OptState, grads) -> OptState:
+        plans = plan_lib.make_plans(grads, cfg.rank)
+
+        def leaf(plan, g, st):
+            if plan.mode == "dense":
+                return st
+            return _warm_matrix_state(cfg, plan_lib.canonical_grad(g, plan),
+                                      st)
+
+        return state._replace(inner=tree_map(leaf, plans, grads,
+                                             state.inner))
+
+    def update(grads, state: OptState, params, lr: float,
+               do_subspace_update: bool = False, *, apply: bool = False):
+        """(updates, new_state); updates are added to the params.  With
+        ``apply=True`` each leaf's update is added into its parameter in
+        place as soon as it is computed and ``updates`` is None: the
+        trainer never holds a whole tree of updates (13.5 GB at
+        llama-7b)."""
+        plans = plan_lib.make_plans(grads, cfg.rank)
+        step, n_upd = state.step, state.n_updates
+        lr32 = torch.tensor(lr, dtype=torch.float32)
+
+        def leaf(plan, g, st, p):
+            upd, new_st = leaf_update(plan, g, st, p)
+            if apply:
+                p.add_(upd)
+                return None, new_st
+            return upd, new_st
+
+        def leaf_update(plan, g, st, p):
+            if plan.mode == "dense":
+                delta, new_st = dense_adam_step(g, st, step, hp)
+                upd = (-lr32 * delta).to(p.dtype)
+                if cfg.weight_decay:
+                    upd = upd - (lr32 * cfg.weight_decay
+                                 * p.float()).to(p.dtype)
+                return upd, new_st
+            g2 = plan_lib.canonical_grad(g, plan)
+            p2 = plan_lib.canonical_grad(p, plan) if cfg.weight_decay \
+                else None
+            if do_subspace_update:
+                delta, new_st = _tracking_matrix_step(
+                    cfg, hp, g2, st, step, n_upd, lr, p2, p.dtype)
+            else:
+                delta, new_st = _plain_matrix_step(cfg, hp, g2, st, step, lr,
+                                                   p2, p.dtype)
+            return plan_lib.uncanonical_update(delta, plan), new_st
+
+        pairs = tree_map(leaf, plans, grads, state.inner, params)
+        updates = None if apply else tree_map(lambda pr: pr[0], pairs)
+        inner = tree_map(lambda pr: pr[1], pairs)
+        return updates, OptState(step=step + 1,
+                                 n_updates=n_upd + int(do_subspace_update),
+                                 inner=inner)
+
+    def state_bytes(params) -> int:
+        plans = plan_lib.make_plans(params, cfg.rank)
+        return sum(plan_lib.state_bytes(plan, tuple(p.shape))
+                   for plan, p in zip(tree_leaves(plans),
+                                      tree_leaves(params)))
+
+    return GradientTransform(init=init, warm_start=warm_start, update=update,
+                             state_bytes=state_bytes, config=cfg)
+
+
+# ---------------------------------------------------------------------------
+# Named constructors for the paper's method zoo
+# ---------------------------------------------------------------------------
+
+
+def _build(overrides: dict) -> GradientTransform:
+    for key in ("mesh", "param_specs", "row_state", "bucket_leaves"):
+        if overrides.pop(key, None) is not None:
+            raise NotImplementedError(f"{key!r} (multi-device execution) is "
+                                      "not yet ported to repro_torch")
+    return lowrank_optimizer(LowRankConfig(**overrides))
+
+
+def subtrack(**overrides) -> GradientTransform:
+    """SubTrack++ (full): Grassmann tracking + projection-aware + recovery."""
+    return _build(overrides)
+
+
+def subtrack_fast(**overrides) -> GradientTransform:
+    overrides.setdefault("rank1_rotation", True)
+    overrides.setdefault("fused_tangent", True)
+    return _build(overrides)
+
+
+def grassmann_only(**overrides) -> GradientTransform:
+    overrides.setdefault("projection_aware", False)
+    overrides.setdefault("recovery", False)
+    return _build(overrides)
+
+
+def galore(**overrides) -> GradientTransform:
+    overrides.setdefault("method", "svd")
+    overrides.setdefault("projection_aware", False)
+    overrides.setdefault("recovery", False)
+    return _build(overrides)
+
+
+def fira(**overrides) -> GradientTransform:
+    overrides.setdefault("method", "svd")
+    overrides.setdefault("projection_aware", False)
+    overrides.setdefault("recovery", True)
+    return _build(overrides)
+
+
+def golore(**overrides) -> GradientTransform:
+    overrides.setdefault("method", "random")
+    overrides.setdefault("projection_aware", False)
+    overrides.setdefault("recovery", False)
+    overrides.setdefault("init", "randomized")
+    return _build(overrides)
+
+
+def osd(**overrides) -> GradientTransform:
+    overrides.setdefault("method", "osd")
+    overrides.setdefault("projection_aware", False)
+    overrides.setdefault("recovery", False)
+    return _build(overrides)
+
+
+def apollo(**overrides) -> GradientTransform:
+    """GoLore's subspace policy with the recovery scaling."""
+    overrides.setdefault("method", "random")
+    overrides.setdefault("projection_aware", False)
+    overrides.setdefault("recovery", True)
+    overrides.setdefault("init", "randomized")
+    return _build(overrides)

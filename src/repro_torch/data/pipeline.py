@@ -1,8 +1,9 @@
 """Synthetic LM token source: a Zipf marginal with a Markov skeleton.
 
-Counterpart of ``repro.data.pipeline`` for what the serving driver draws
-(``launch/serve.py`` prompts).  A batch is a pure function of
-``(seed, step)``: every draw comes from a ``torch.Generator`` seeded from
+Counterpart of ``repro.data.pipeline``: the serving driver's prompts and
+the training driver's batches, with the host-side batch validation.  A
+batch is a pure function of ``(seed, step)``: every draw comes from a
+``torch.Generator`` seeded from
 those two numbers, where the JAX package folds them into a threefry key.
 So the structure is the same (Zipf-skewed marginal; with probability
 ``markov_strength`` token t+1 is a fixed function of token t) but the
@@ -59,3 +60,72 @@ class SyntheticLMDataset:
                 % cfg.vocab_size
             tokens[:, t] = torch.where(follow[:, t - 1], succ, base[:, t - 1])
         return {"tokens": tokens}
+
+
+def batch_for_model(model_cfg, shape, dataset: SyntheticLMDataset,
+                    step: int) -> dict:
+    """The full train batch for a model: decoder tokens only so far (the
+    vision and encoder-decoder stub inputs come with those families)."""
+    if model_cfg.vision_tokens or model_cfg.mrope \
+            or model_cfg.family != "decoder":
+        raise NotImplementedError(f"batches for {model_cfg.name} (vision or "
+                                  "encoder-decoder inputs) are not yet "
+                                  "ported to repro_torch")
+    return dataset.global_batch_at(step)
+
+
+# ---------------------------------------------------------------------------
+# Resilient batch fetch
+# ---------------------------------------------------------------------------
+
+
+class BatchError(RuntimeError):
+    """A fetched batch failed validation (corrupt tokens)."""
+
+
+def validate_batch(batch: dict, vocab_size: int) -> None:
+    """Host-side gate before any embedding lookup: token ids must be
+    integers in [0, vocab_size).  XLA clamps an out-of-range index
+    silently; torch raises on the CPU and asserts on the device, so the
+    check runs first, on the host copy."""
+    toks = batch.get("tokens")
+    if toks is None:
+        raise BatchError("batch has no 'tokens' entry")
+    if toks.is_floating_point() or toks.is_complex() \
+            or toks.dtype == torch.bool:
+        raise BatchError(f"tokens dtype {toks.dtype} is not integral")
+    lo, hi = int(toks.min()), int(toks.max())
+    if lo < 0 or hi >= vocab_size:
+        raise BatchError(
+            f"token ids outside [0, {vocab_size}): min={lo} max={hi}")
+
+
+def fetch_batch(model_cfg, dataset: SyntheticLMDataset, step: int, *,
+                retries: int = 3, backoff_s: float = 0.01,
+                mutate=None) -> tuple[dict | None, bool]:
+    """Fetch + validate global batch ``step`` with bounded retry.
+
+    Returns ``(batch, ok)``; a batch that still fails after ``retries``
+    retries (exponential backoff with jitter) returns ``(None, False)``,
+    a skip marker for the loop.  ``mutate`` is applied to the assembled
+    batch before validation on every attempt."""
+    import random
+    import time as _time
+
+    err: Exception | None = None
+    for attempt in range(retries + 1):
+        try:
+            batch = batch_for_model(model_cfg, None, dataset, step)
+            if mutate is not None:
+                batch = mutate(batch)
+            validate_batch(batch, model_cfg.vocab_size)
+            return batch, True
+        except (BatchError, OSError, ValueError) as e:
+            err = e
+            if attempt < retries:
+                _time.sleep(backoff_s * (2 ** attempt)
+                            * (1.0 + random.random()))
+    print(f"[data] batch {step} unusable after {retries + 1} attempts "
+          f"({type(err).__name__}: {err}) — returning skip marker",
+          flush=True)
+    return None, False

@@ -1,4 +1,5 @@
-"""Parameters from the JAX package, as the port's tensors.
+"""Parameters and optimizer state from the JAX package, as the port's
+tensors.
 
 The JAX package keeps parameters as a pytree of arrays with the layer
 stack on axis 0 and weights stored ``(in, out)`` for ``x @ w``; the port
@@ -34,3 +35,24 @@ def params_from_jax(params_np, cfg: ModelConfig, device="cpu") -> dict:
         return _tensor(tree, dtype, device)
 
     return conv(params_np)
+
+
+def opt_state_from_jax(state_np, device="cpu"):
+    """JAX ``OptState`` (step, n_updates, and a tree of per-leaf
+    ``MatrixOptState`` / ``DenseOptState`` holding numpy arrays, e.g.
+    ``jax.tree.map(np.asarray, state)``) -> the port's ``OptState``, fp32 on
+    ``device``, so both packages can start from the same S, M and V."""
+    from repro_torch.core.lowrank_adam import DenseOptState, MatrixOptState
+    from repro_torch.core.subtrack import OptState
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        fields = getattr(node, "_fields", ())
+        cls = MatrixOptState if "S" in fields else DenseOptState
+        return cls(*(_tensor(getattr(node, f), torch.float32, device)
+                     for f in cls._fields))
+
+    return OptState(step=int(state_np.step),
+                    n_updates=int(state_np.n_updates),
+                    inner=conv(state_np.inner))

@@ -1,0 +1,277 @@
+"""SubTrack++ optimizer kernels: Python bindings of the CUDA sources.
+
+    project, project_colnorms   csrc/grassmann_project.cu
+    tangent                     csrc/grassmann_tangent.cu
+    adam_lowrank_norms          csrc/adam_lowrank_norms.cu
+    fused_update                csrc/fused_update.cu
+
+They replace the Pallas TPU kernels of the same names in
+``repro.kernels.grassmann``; what each computes is its oracle in
+:mod:`repro_torch.kernels.ref`, and the note at the top of each ``.cu``
+file says how the design differs from the TPU's and what bounds it on
+the H100.  Every kernel takes a leading batch dim (one matrix per index,
+one launch for a whole layer stack) and accumulates in fp32 on CUDA
+cores.  There is no shape gate: ragged tiles are masked in the kernels
+(the TPU's 256-multiples were MXU/VMEM limits).
+
+Inputs the kernels read in place through strides: the gradient G and,
+in ``fused_update``, the parameter and the output, so the transposed
+canonical view of a ``(.., n, m)`` leaf needs no copy.  Every other
+operand (S, A, Gt, Gto, M, V, phi) must be contiguous fp32; anything else
+raises ``ValueError``.  Each wrapper runs on PyTorch's current stream,
+raises ``RuntimeError`` when its launch reports an error, and counts its
+launches in ``<wrapper>.launches``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+_vp, _i, _ll, _f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                    ctypes.c_float)
+_SIGNATURES = {
+    "grassmann_project": ("grassmann_project_launch",
+                          [_vp] * 4 + [_i] * 6 + [_ll] * 3 + [_vp]),
+    "grassmann_tangent": ("grassmann_tangent_launch",
+                          [_vp] * 5 + [_i] * 5 + [_ll] * 3 + [_vp]),
+    "adam_lowrank_norms": ("adam_lowrank_norms_launch",
+                           [_vp] * 8 + [_i] * 3 + [_f] * 7 + [_vp]),
+    "fused_update": ("fused_update_launch",
+                     [_vp] * 11 + [_i] * 8 + [_vp]),
+}
+
+
+@functools.cache
+def _lib(name: str) -> ctypes.CDLL:
+    lib = build.load(name)
+    fn_name, argtypes = _SIGNATURES[name]
+    fn = getattr(lib, fn_name)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _launch(name: str, *args) -> None:
+    lib = _lib(name)
+    err = getattr(lib, _SIGNATURES[name][0])(*args)
+    if err:
+        raise RuntimeError(f"{name} launch failed: "
+                           f"{lib.repro_cuda_error_string(err).decode()}")
+
+
+def _device(**tensors) -> torch.device:
+    """The one CUDA device every given tensor lies on, or raise."""
+    devs = {t.device for t in tensors.values() if t is not None}
+    if len(devs) != 1 or next(iter(devs)).type != "cuda":
+        raise ValueError("the kernel needs every tensor on one CUDA device; "
+                         f"got {sorted(str(d) for d in devs)}")
+    return next(iter(devs))
+
+
+def _fp32_contiguous(**tensors) -> None:
+    for name, t in tensors.items():
+        if t is None:
+            continue
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32; got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def _shape(name: str, t: torch.Tensor, want: tuple) -> None:
+    if tuple(t.shape) != tuple(want):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}; expected "
+                         f"{tuple(want)}")
+
+
+def _float_dtype(name: str, t: torch.Tensor) -> int:
+    if t.dtype not in _DTYPES:
+        raise ValueError(f"{name} must be float32 or bfloat16; got {t.dtype}")
+    return _DTYPES[t.dtype]
+
+
+def _stack3(t: torch.Tensor) -> torch.Tensor:
+    """(..., a, b) -> (batch, a, b); a view for 2-D and 3-D tensors."""
+    return t.unsqueeze(0) if t.dim() == 2 else t.reshape(-1, *t.shape[-2:])
+
+
+def _stream(dev: torch.device) -> int:
+    with torch.cuda.device(dev):
+        return torch.cuda.current_stream().cuda_stream
+
+
+def _project(S: torch.Tensor, G: torch.Tensor, norms: bool):
+    if G.dim() < 2:
+        raise ValueError(f"G must be (..., m, n); got {tuple(G.shape)}")
+    lead, (m, n) = tuple(G.shape[:-2]), tuple(G.shape[-2:])
+    r = S.shape[-1]
+    _shape("S", S, lead + (m, r))
+    _fp32_contiguous(S=S)
+    dtype = _float_dtype("G", G)
+    dev = _device(S=S, G=G)
+    G3 = _stack3(G)
+    batch = G3.shape[0]
+    A = torch.empty((batch, r, n), dtype=torch.float32, device=dev)
+    gsq = (torch.empty((batch, n), dtype=torch.float32, device=dev)
+           if norms else None)
+    _launch("grassmann_project", S.data_ptr(), G3.data_ptr(), A.data_ptr(),
+            gsq.data_ptr() if norms else None, dtype, int(norms), batch, m,
+            n, r, *G3.stride(), _stream(dev))
+    return A.reshape(lead + (r, n)), (gsq.reshape(lead + (n,))
+                                      if norms else None)
+
+
+def project(S: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
+    """A = S^T G.  S (..., m, r) fp32; G (..., m, n) fp32 or bf16, any
+    strides -> (..., r, n) fp32."""
+    A, _ = _project(S, G, norms=False)
+    project.launches += 1
+    return A
+
+
+def project_colnorms(S: torch.Tensor, G: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(A = S^T G, ||G_:,j||^2) from one read of G -> ((..., r, n),
+    (..., n)) fp32."""
+    out = _project(S, G, norms=True)
+    project_colnorms.launches += 1
+    return out
+
+
+def tangent(G: torch.Tensor, A: torch.Tensor,
+            S: torch.Tensor) -> torch.Tensor:
+    """T = -2 G A^T + 2 S (A A^T) -> (..., m, r) fp32.  The (r, r) Gram is
+    formed before the launch, as the TPU wrapper forms it outside its
+    kernel (``repro/kernels/grassmann.py:205``)."""
+    if G.dim() < 2:
+        raise ValueError(f"G must be (..., m, n); got {tuple(G.shape)}")
+    lead, (m, n) = tuple(G.shape[:-2]), tuple(G.shape[-2:])
+    r = S.shape[-1]
+    _shape("S", S, lead + (m, r))
+    _shape("A", A, lead + (r, n))
+    _fp32_contiguous(S=S, A=A)
+    dtype = _float_dtype("G", G)
+    dev = _device(G=G, A=A, S=S)
+    C2 = 2.0 * (A @ A.mT)                       # (..., r, r), tiny
+    G3 = _stack3(G)
+    batch = G3.shape[0]
+    T = torch.empty((batch, m, r), dtype=torch.float32, device=dev)
+    _launch("grassmann_tangent", G3.data_ptr(), A.data_ptr(), S.data_ptr(),
+            C2.data_ptr(), T.data_ptr(), dtype, batch, m, n, r,
+            *G3.stride(), _stream(dev))
+    tangent.launches += 1
+    return T.reshape(lead + (m, r))
+
+
+def bias_corrections(step: int, beta1: float, beta2: float,
+                     bias_correction: bool = True) -> tuple[float, float]:
+    """(1 / (1 - beta1^t), 1 / (1 - beta2^t)) with t = step + 1, in fp32
+    as the reference computes them (``repro/kernels/grassmann.py:713``)."""
+    if not bias_correction:
+        return 1.0, 1.0
+    t = torch.tensor(float(step) + 1.0, dtype=torch.float32)
+    return (float(1.0 / (1.0 - beta1 ** t)), float(1.0 / (1.0 - beta2 ** t)))
+
+
+def adam_lowrank_norms(Gt: torch.Tensor, M: torch.Tensor, V: torch.Tensor,
+                       step: int, *, beta1: float = 0.9, beta2: float = 0.999,
+                       eps: float = 1e-8, bias_correction: bool = True):
+    """(M', V', Gto, ||Gt_:,j||^2, ||Gto_:,j||^2) from one (r, n) pass.
+    Gt, M, V (..., r, n) fp32 contiguous; ``step`` the 0-based Python int
+    count of updates applied so far."""
+    _fp32_contiguous(Gt=Gt, M=M, V=V)
+    _shape("M", M, Gt.shape)
+    _shape("V", V, Gt.shape)
+    if Gt.dim() < 2:
+        raise ValueError(f"Gt must be (..., r, n); got {tuple(Gt.shape)}")
+    dev = _device(Gt=Gt, M=M, V=V)
+    lead, (r, n) = tuple(Gt.shape[:-2]), tuple(Gt.shape[-2:])
+    batch = _stack3(Gt).shape[0]
+    M1, V1, Gto = (torch.empty_like(Gt) for _ in range(3))
+    gtsq, gtosq = (torch.empty(lead + (n,), dtype=torch.float32, device=dev)
+                   for _ in range(2))
+    bc1, bc2 = bias_corrections(step, beta1, beta2, bias_correction)
+    _launch("adam_lowrank_norms", Gt.data_ptr(), M.data_ptr(), V.data_ptr(),
+            M1.data_ptr(), V1.data_ptr(), Gto.data_ptr(), gtsq.data_ptr(),
+            gtosq.data_ptr(), batch, r, n, beta1, 1.0 - beta1, beta2,
+            1.0 - beta2, bc1, bc2, eps, _stream(dev))
+    adam_lowrank_norms.launches += 1
+    return M1, V1, Gto, gtsq, gtosq
+
+
+def _per_matrix_column(x, lead: tuple, dev) -> torch.Tensor:
+    """A per-matrix scalar (float or tensor of the batch shape) as a flat
+    fp32 vector on the device, without a host sync."""
+    if torch.is_tensor(x):
+        return x.to(device=dev, dtype=torch.float32).expand(lead).reshape(-1)
+    return torch.full(lead, float(x), dtype=torch.float32,
+                      device=dev).reshape(-1)
+
+
+def fused_update(G, S, Gt, Gto, phi, coef, clip, *, out_dtype=None,
+                 param=None, wd_coef=None) -> torch.Tensor:
+    """upd = -coef (S Gto + (G - S Gt) phi clip) [- wd_coef param] written
+    once in ``out_dtype``.  ``G=None`` (with Gt, phi None) is the
+    no-recovery variant.  coef, clip and wd_coef are per-matrix: floats or
+    tensors of the batch shape, passed to the kernel as a (batch, 3) device
+    array.  G and ``param`` may be strided views; the update is allocated
+    in G's layout (else the parameter's), so a transposed canonical view
+    of a leaf comes back in the leaf's own layout."""
+    recovery, decay = G is not None, param is not None
+    if S.dim() < 2 or Gto.dim() < 2:
+        raise ValueError("S and Gto must be (..., m, r) and (..., r, n)")
+    lead, (m, r) = tuple(S.shape[:-2]), tuple(S.shape[-2:])
+    n = Gto.shape[-1]
+    out_dtype = out_dtype or torch.float32
+    _shape("Gto", Gto, lead + (r, n))
+    _fp32_contiguous(S=S, Gto=Gto, Gt=Gt, phi=phi)
+    if recovery:
+        _shape("G", G, lead + (m, n))
+        _shape("Gt", Gt, lead + (r, n))
+        _shape("phi", phi, lead + (n,))
+    if decay:
+        _shape("param", param, lead + (m, n))
+        if param.dtype != out_dtype:
+            raise ValueError(f"param dtype {param.dtype} differs from the "
+                             f"output dtype {out_dtype}")
+    if out_dtype not in _DTYPES:
+        raise ValueError(f"output dtype must be float32 or bfloat16; got "
+                         f"{out_dtype}")
+    g_dtype = _float_dtype("G", G) if recovery else 0
+    dev = _device(S=S, Gto=Gto, G=G, Gt=Gt, phi=phi, param=param)
+    batch = _stack3(S).shape[0]
+    scalars = torch.stack([_per_matrix_column(x, lead, dev)
+                           for x in (coef, clip,
+                                     0.0 if wd_coef is None else wd_coef)],
+                          dim=-1).contiguous()
+    G3 = _stack3(G) if recovery else None
+    P3 = _stack3(param) if decay else None
+    like = G3 if recovery else P3
+    out3 = (torch.empty_like(like, dtype=out_dtype) if like is not None
+            else torch.empty((batch, m, n), dtype=out_dtype, device=dev))
+    strides = [(ctypes.c_longlong * 3)(*(t.stride() if t is not None
+                                         else (0, 0, 0)))
+               for t in (G3, P3, out3)]
+    _launch("fused_update", S.data_ptr(), Gto.data_ptr(),
+            Gt.data_ptr() if recovery else None,
+            phi.data_ptr() if recovery else None, scalars.data_ptr(),
+            G3.data_ptr() if recovery else None, strides[0],
+            P3.data_ptr() if decay else None, strides[1], out3.data_ptr(),
+            strides[2], g_dtype, _DTYPES[out_dtype], int(recovery),
+            int(decay), batch, m, n, r, _stream(dev))
+    fused_update.launches += 1
+    return out3.reshape(lead + (m, n))
+
+
+for _fn in (project, project_colnorms, tangent, adam_lowrank_norms,
+            fused_update):
+    _fn.launches = 0          # kernel launches since the last reset

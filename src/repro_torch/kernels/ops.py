@@ -5,6 +5,18 @@ kernel's plain-PyTorch oracle (:mod:`repro_torch.kernels.ref`); any other
 tensor goes to the kernel wrapper, which launches the CUDA kernel or
 raises.  A CUDA tensor never takes the oracle, and there is no shape gate.
 
+The optimizer's fused hot path (``repro_torch.core.lowrank_adam``) runs
+three launches per low-rank leaf on a plain step:
+
+    project_colnorms(S, G)       -> (A (r, n), ||G_:,j||^2)  one read of G
+    adam_lowrank_norms(...)      -> (M', V', Gto, ||Gt||^2, ||Gto||^2)
+    fused_update(...)            -> the update in the parameter dtype
+
+and five on a tracking step: ``project_tangent_colnorms`` (on CUDA the
+two launches ``project_colnorms`` + ``tangent``), then ``project`` with
+the new basis, ``adam_lowrank_norms`` and ``fused_update``.  Every
+argument may carry leading stack dims: one launch covers a layer stack.
+
 Each kernel wrapper counts its launches in a plain integer
 (``<wrapper>.launches``); :func:`launch_counts` reads them and
 :func:`reset_launch_counts` zeroes them, so a run can show that its main
@@ -15,10 +27,18 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import grassmann
 from repro_torch.kernels import paged_attention as paged
 from repro_torch.kernels import ref
 
-_WRAPPERS = {"paged_attention": paged.paged_attention}
+_WRAPPERS = {
+    "paged_attention": paged.paged_attention,
+    "project": grassmann.project,
+    "project_colnorms": grassmann.project_colnorms,
+    "tangent": grassmann.tangent,
+    "adam_lowrank_norms": grassmann.adam_lowrank_norms,
+    "fused_update": grassmann.fused_update,
+}
 
 
 def launch_counts() -> dict[str, int]:
@@ -39,3 +59,71 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
         return ref.paged_attention_ref(q, k_pool, v_pool, block_tables,
                                        lengths)
     return paged.paged_attention(q, k_pool, v_pool, block_tables, lengths)
+
+
+def project(S: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
+    """A = S^T G (Eq. 2-3) -> (..., r, n) fp32.  Kernel:
+    ``csrc/grassmann_project.cu``; oracle: ``ref.project_ref``."""
+    if G.device.type == "cpu":
+        return ref.project_ref(S, G)
+    return grassmann.project(S, G)
+
+
+def project_colnorms(S: torch.Tensor, G: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor]:
+    """(A = S^T G, ||G_:,j||^2).  Kernel: ``csrc/grassmann_project.cu``
+    (norm switch on); oracle: ``ref.project_colnorms_ref``."""
+    if G.device.type == "cpu":
+        return ref.project_colnorms_ref(S, G)
+    return grassmann.project_colnorms(S, G)
+
+
+def tangent(G: torch.Tensor, A: torch.Tensor,
+            S: torch.Tensor) -> torch.Tensor:
+    """Grassmann tangent T = -2 G A^T + 2 S (A A^T) (Eq. 4) -> (..., m, r).
+    Kernel: ``csrc/grassmann_tangent.cu``; oracle: ``ref.tangent_ref``."""
+    if G.device.type == "cpu":
+        return ref.tangent_ref(G, A, S)
+    return grassmann.tangent(G, A, S)
+
+
+def project_tangent_colnorms(S: torch.Tensor, G: torch.Tensor
+                             ) -> tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """Tracking-step front end (A, ||G_:,j||^2, T).  On the CPU: the
+    oracle.  On CUDA: always the two-launch composite project_colnorms then
+    tangent, which the JAX package runs for m > 2048
+    (``repro/kernels/ops.py:160-163``).  The single-launch kernel, and the
+    m-limit its shared-memory panels set on Hopper, come with the next
+    slice; at llama-7b every leaf has m = 4096 and takes the composite on
+    the TPU too."""
+    if G.device.type == "cpu":
+        return ref.project_tangent_colnorms_ref(S, G)
+    A, gsq = grassmann.project_colnorms(S, G)
+    return A, gsq, grassmann.tangent(G, A, S)
+
+
+def adam_lowrank_norms(Gt: torch.Tensor, M: torch.Tensor, V: torch.Tensor,
+                       step: int, *, beta1: float = 0.9, beta2: float = 0.999,
+                       eps: float = 1e-8, bias_correction: bool = True):
+    """(M', V', Gto, ||Gt_:,j||^2, ||Gto_:,j||^2).  Kernel:
+    ``csrc/adam_lowrank_norms.cu``; oracle: ``ref.adam_lowrank_norms_ref``."""
+    if Gt.device.type == "cpu":
+        return ref.adam_lowrank_norms_ref(Gt, M, V, step, beta1, beta2, eps,
+                                          bias_correction)
+    return grassmann.adam_lowrank_norms(Gt, M, V, step, beta1=beta1,
+                                        beta2=beta2, eps=eps,
+                                        bias_correction=bias_correction)
+
+
+def fused_update(G, S, Gt, Gto, phi, coef, clip, *, out_dtype=None,
+                 param=None, wd_coef=None) -> torch.Tensor:
+    """The hot-path epilogue, written in ``out_dtype``.  Kernel:
+    ``csrc/fused_update.cu``; oracle: ``ref.fused_update_ref``."""
+    if S.device.type == "cpu":
+        return ref.fused_update_ref(G, S, Gt, Gto, phi, coef, clip,
+                                    out_dtype=out_dtype, param=param,
+                                    wd_coef=wd_coef)
+    return grassmann.fused_update(G, S, Gt, Gto, phi, coef, clip,
+                                  out_dtype=out_dtype, param=param,
+                                  wd_coef=wd_coef)

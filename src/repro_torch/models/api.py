@@ -1,7 +1,8 @@
-"""Model factory: the decoder bundle of the paged serving path.
+"""Model factory: the decoder bundle (training loss and paged serving).
 
 Counterpart of ``repro.models.api``.  So far only the decoder family's
-``init`` and its three paged fields are ported; other families raise.
+``init``, ``loss`` and its three paged fields are ported; other families
+raise.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from repro_torch.models.config import ModelConfig
 class ModelBundle:
     cfg: ModelConfig
     init: Callable[..., Any]        # (generator, device=None) -> params
+    loss: Callable[..., Any] | None = None   # (params, batch, remat=) -> (loss, metrics)
     # Paged serving path (block-table KV; repro_torch.serve).  None for
     # configs the paged cache does not cover (transformer.paged_supported).
     init_paged_cache: Callable[..., Any] | None = None   # (num_blocks, block_size, device) -> PagedKV
@@ -55,7 +57,10 @@ def _decoder_bundle(cfg: ModelConfig) -> ModelBundle:
                 tables, live: transformer.decoder_decode_step_paged(
                     params, pool, token, lengths, tables, live, cfg),
         }
-    return ModelBundle(cfg=cfg, init=init, **paged)
+    def loss(params, batch, remat="full"):
+        return transformer.decoder_loss(params, batch, cfg, remat)
+
+    return ModelBundle(cfg=cfg, init=init, loss=loss, **paged)
 
 
 def build_model(cfg: ModelConfig) -> ModelBundle:

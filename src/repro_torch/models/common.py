@@ -1,6 +1,8 @@
-"""Shared building blocks: RMS norm, rotary embeddings, initializers.
+"""Shared building blocks: RMS norm, rotary embeddings, initializers and
+the loss.
 
-Counterpart of ``repro.models.common`` (the serving slice's part of it).
+Counterpart of ``repro.models.common`` (the decoder's part of it; the
+grad-fused ``tapped_matmul`` comes with its kernel).
 Parameters are plain nested dicts of tensors, with the layer stack on a
 leading axis as in the JAX package, and weights stored ``(in, out)`` for
 ``x @ w``.  Random init draws from an explicit ``torch.Generator`` where
@@ -77,3 +79,37 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: torch.Tensor | None = None,
+                  vocab_size: int | None = None) -> torch.Tensor:
+    """Token-mean cross entropy, fp32 statistics, vocab-padding-safe: the
+    padded logit columns are masked to -1e30 so the logsumexp is exact."""
+    logits = logits.float()
+    vp = logits.shape[-1]
+    if vocab_size is not None and vocab_size < vp:
+        pad = torch.arange(vp, device=logits.device) >= vocab_size
+        logits = logits.masked_fill(pad, -1e30)
+    lse = torch.logsumexp(logits, dim=-1)
+    label_logit = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = lse - label_logit
+    if mask is not None:
+        mask = mask.float()
+        return (nll * mask).sum() / torch.clamp_min(mask.sum(), 1.0)
+    return nll.mean()
+
+
+def shift_labels(tokens: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Next-token targets aligned with the full sequence: (labels, mask),
+    the last position masked."""
+    labels = torch.cat([tokens[:, 1:], torch.zeros_like(tokens[:, :1])],
+                       dim=1)
+    mask = torch.cat([torch.ones_like(tokens[:, 1:]),
+                      torch.zeros_like(tokens[:, :1])], dim=1)
+    return labels, mask

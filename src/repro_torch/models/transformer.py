@@ -1,8 +1,10 @@
-"""Decoder-only transformer: the paged serving path.
+"""Decoder-only transformer: the training forward and the paged serving
+path.
 
-Counterpart of ``repro.models.transformer`` for the decoder family, so far
-only what paged serving runs: init, the two paged programs (one prefill
-chunk of one prompt; one decode wave over a batch) and their blocks.  The
+Counterpart of ``repro.models.transformer`` for the plain GQA decoder with
+dense MLPs: init, the training forward and loss (``decoder_forward``,
+``decoder_loss``), and the two paged programs (one prefill chunk of one
+prompt; one decode wave over a batch) and their blocks.  The
 parameter schema is the JAX package's: nested dicts with the layer stack
 on a leading axis, weights ``(in, out)``.  The layer loop is a Python loop
 over that axis where the JAX code scans.
@@ -16,11 +18,12 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import attention as attn
-from repro_torch.models.common import (apply_rope, dense_init, embed_init,
-                                       rms_norm)
+from repro_torch.models.common import (apply_rope, cross_entropy, dense_init,
+                                       embed_init, rms_norm, shift_labels)
 from repro_torch.models.config import ModelConfig
 
 
@@ -112,6 +115,78 @@ def mlp_block(x, p) -> torch.Tensor:
 def _logits(params, x) -> torch.Tensor:
     """Logits over the PADDED vocabulary (greedy argmax takes that width)."""
     return x @ params["lm_head"]
+
+
+# ---------------------------------------------------------------------------
+# Training forward (full sequence, under autograd)
+# ---------------------------------------------------------------------------
+
+
+def gqa_block(x, p, cfg: ModelConfig, positions) -> torch.Tensor:
+    """Causal GQA self-attention over the whole sequence -> (B, S, d).
+    ``blocked_attention`` takes every query at once; the JAX package's
+    query blocking changes no query's result."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(x, p, cfg, positions)
+    out = attn.blocked_attention(q, k, v, kv_block=cfg.kv_block)
+    return out.reshape(B, S, cfg.n_heads * cfg.hd) @ p["wo"]
+
+
+def _unstack_layers(tree) -> list[dict]:
+    """The stacked layer tree as one dict of views per layer.  ``unbind``
+    (not per-layer indexing) so the backward stacks each leaf's per-layer
+    gradients once instead of scattering every layer into a zeroed
+    full-stack buffer."""
+    if isinstance(tree, dict):
+        per_key = {k: _unstack_layers(v) for k, v in tree.items()}
+        n = len(next(iter(per_key.values())))
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return list(torch.unbind(tree, dim=0))
+
+
+def decoder_forward(params, tokens: torch.Tensor, cfg: ModelConfig,
+                    remat: str = "full") -> tuple[torch.Tensor, torch.Tensor]:
+    """Full-sequence forward -> (logits (B, S, Vp), aux loss ()).
+
+    ``remat="full"`` recomputes each layer in the backward
+    (``torch.utils.checkpoint``, non-reentrant), as the JAX package's
+    ``jax.checkpoint`` around the scanned block; ``"none"`` keeps every
+    activation.  Only the plain GQA decoder with dense MLPs is ported."""
+    ok, why = paged_supported(cfg)
+    if not ok:
+        raise NotImplementedError(f"training {cfg.name} is not yet ported "
+                                  f"to repro_torch: {why}")
+    if remat not in ("full", "none"):
+        raise NotImplementedError(f"remat={remat!r} is not yet ported to "
+                                  "repro_torch (full, none)")
+    B, S = tokens.shape
+    positions = torch.arange(S, device=tokens.device)[None, :]
+
+    def block(x, p):
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        x = x + gqa_block(h, p["attn"], cfg, positions)
+        return x + mlp_block(rms_norm(x, p["ln2"], cfg.norm_eps), p["mlp"])
+
+    x = params["embed"][tokens]
+    for p in _unstack_layers(params["layers"]):
+        if remat == "full":
+            x = torch.utils.checkpoint.checkpoint(block, x, p,
+                                                  use_reentrant=False)
+        else:
+            x = block(x, p)
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _logits(params, x), torch.zeros((), device=x.device)
+
+
+def decoder_loss(params, batch: dict, cfg: ModelConfig,
+                 remat: str = "full"):
+    """(loss, {"ce_loss", "aux_loss"}): next-token cross entropy over the
+    real vocabulary, the last position masked."""
+    tokens = batch["tokens"]
+    logits, aux = decoder_forward(params, tokens, cfg, remat)
+    labels, mask = shift_labels(tokens)
+    loss = cross_entropy(logits, labels, mask, cfg.vocab_size)
+    return loss + aux, {"ce_loss": loss, "aux_loss": aux}
 
 
 # ---------------------------------------------------------------------------

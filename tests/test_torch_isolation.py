@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from repro_torch.launch import serve as tserve
+from repro_torch.launch import train as ttrain
 
 SRC = Path(__file__).resolve().parent.parent / "src"
 
@@ -32,7 +33,7 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
                          capture_output=True, text=True, timeout=120)
     assert run.returncode == 0, run.stderr
     n_modules, leaked = run.stdout.split(" ", 1)
-    assert int(n_modules) >= 20
+    assert int(n_modules) >= 34
     assert leaked.strip() == "[]"
 
 
@@ -53,3 +54,27 @@ def test_serve_raises_without_cuda_unless_cpu_is_asked_for(monkeypatch):
 def test_serve_parts_not_ported_yet_raise(argv, match):
     with pytest.raises(NotImplementedError, match=match):
         tserve.serve(argv + ["--smoke", "--device", "cpu"])
+
+
+def test_train_raises_without_cuda_unless_cpu_is_asked_for(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["--smoke", "--rank", "32", "--steps", "1", "--batch", "2",
+            "--seq", "8"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttrain.train(argv)
+    assert ttrain.train(argv + ["--device", "cpu"])["device"] == "cpu"
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["--mesh", "host"], "--mesh"),
+    (["--checkpoint-dir", "ckpt"], "--checkpoint-dir"),
+    (["--inject", "nan-grad@3"], "--inject"),
+    (["--grad-fused"], "--grad-fused"),
+    (["--remat", "dots"], "--remat dots"),
+    (["--optimizer", "adamw"], "adamw"),
+    (["--optimizer", "badam"], "badam"),
+    (["--arch", "gemma2-27b"], "not yet ported"),
+])
+def test_train_parts_not_ported_yet_raise(argv, match):
+    with pytest.raises(NotImplementedError, match=match):
+        ttrain.train(argv + ["--smoke", "--device", "cpu", "--steps", "1"])

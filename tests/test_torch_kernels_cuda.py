@@ -102,3 +102,169 @@ def test_rejects_non_contiguous_and_mixed_devices(cuda):
                         kp, vp, tables, lengths)
     with pytest.raises(ValueError, match="CUDA device"):
         paged_attention(q, kp, vp, tables, lengths.cpu())
+
+
+# ---------------------------------------------------------------------------
+# The optimizer kernels of the training slice
+# ---------------------------------------------------------------------------
+#
+# Tolerances: max |kernel - oracle| over max |oracle|, per output.  fp32
+# sums over m = 4096 or n = 32000 terms are taken in another order by the
+# kernels (128-wide tiles, fmaf) than by the oracle's GEMM: 2e-5 for the
+# projections, the norms and Adam; 1e-4 for the tangent, whose two terms
+# cancel.  A bf16 update: one bf16 ulp of the oracle's value plus 2e-5 of
+# the largest entry (the fp32 value's own error before its rounding).
+
+from repro_torch.kernels import grassmann as gk  # noqa: E402
+
+REL = {"project": 2e-5, "tangent": 1e-4, "adam": 2e-5, "update": 2e-5}
+SHAPES_7B = [(4096, 4096), (4096, 11008), (4096, 32000)]
+
+
+def _rel_err(got, want) -> float:
+    got, want = got.float(), want.float()
+    return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)
+            ).item()
+
+
+def _bf16_close(got, want, rel):
+    g, w = got.float(), want.float()
+    _, e = torch.frexp(w)
+    ulp = torch.where(w == 0, torch.zeros_like(w),
+                      torch.ldexp(torch.ones_like(w), e - 8))
+    assert ((g - w).abs() <= ulp + rel * w.abs().max()).all()
+
+
+def _opt_case(B, m, n, r, gdtype, device, seed=0, transposed=False):
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rn(*s):
+        return torch.randn(*s, generator=gen, device=device)
+
+    S = torch.linalg.qr(rn(B, m, r))[0].contiguous()
+    G = (rn(B, n, m).to(gdtype).mT if transposed
+         else rn(B, m, n).to(gdtype))
+    return S, G, rn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,n,r,transposed", [
+    (256, 512, 32, False), (200, 333, 70, False), (130, 1000, 129, True),
+    (4096, 11008, 1024, False), (4096, 4096, 1024, True)])
+def test_projection_and_tangent_kernels_match_oracles(cuda, gdtype, m, n, r,
+                                                       transposed):
+    S, G, _ = _opt_case(2, m, n, r, gdtype, cuda, transposed=transposed)
+    A, gsq = gk.project_colnorms(S, G)
+    Ar, gr = ref.project_colnorms_ref(S, G)
+    torch.cuda.synchronize()
+    assert _rel_err(A, Ar) < REL["project"]
+    assert _rel_err(gsq, gr) < REL["project"]
+    assert _rel_err(gk.project(S, G), Ar) < REL["project"]
+    T = gk.tangent(G, Ar, S)
+    assert _rel_err(T, ref.tangent_ref(G, Ar, S)) < REL["tangent"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [11008, 32000, 1000])
+def test_adam_norms_kernel_matches_oracle(cuda, n):
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    Gt, M = (torch.randn(2, 1024, n, generator=gen, device=cuda)
+             for _ in range(2))
+    V = torch.rand(2, 1024, n, generator=gen, device=cuda)
+    for step in (0, 7):
+        got = gk.adam_lowrank_norms(Gt, M, V, step)
+        want = ref.adam_lowrank_norms_ref(Gt, M, V, step, 0.9, 0.999, 1e-8)
+        for g, w in zip(got, want):
+            assert _rel_err(g, w) < REL["adam"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("recovery", [True, False])
+@pytest.mark.parametrize("decay", [True, False])
+@pytest.mark.parametrize("m,n,r,transposed", [
+    (200, 333, 70, False), (4096, 11008, 1024, False),
+    (4096, 11008, 1024, True)])
+def test_fused_update_kernel_matches_oracle(cuda, gdtype, recovery, decay,
+                                            m, n, r, transposed):
+    """All four variants; differing per-matrix clips (a single scalar for
+    the stack would pass any test whose clips are all 1); the update comes
+    back in the parameter's own (possibly transposed) layout."""
+    S, G, rn = _opt_case(2, m, n, r, gdtype, cuda, seed=1,
+                         transposed=transposed)
+    Gt, Gto = rn(2, r, n), rn(2, r, n)
+    phi = rn(2, n).abs()
+    clip = torch.tensor([0.9, 0.25], device=cuda)
+    P = (rn(2, n, m).mT if transposed else rn(2, m, n)).to(gdtype)
+    kw = dict(out_dtype=gdtype, param=P if decay else None,
+              wd_coef=torch.tensor([1e-3, 5e-3], device=cuda) if decay
+              else None)
+    args = (G if recovery else None, S, Gt if recovery else None, Gto,
+            phi if recovery else None, 0.01, clip if recovery else 1.0)
+    got = gk.fused_update(*args, **kw)
+    want = ref.fused_update_ref(*args, **kw)
+    torch.cuda.synchronize()
+    if recovery:
+        assert got.stride() == G.stride()
+    if gdtype == torch.bfloat16:
+        _bf16_close(got, want, REL["update"])
+    else:
+        assert _rel_err(got, want) < REL["update"]
+    if recovery:
+        # the clips really are per matrix: matrix 1 with matrix 0's clip
+        # gives another update
+        alt = ref.fused_update_ref(*args[:6], clip[[0, 0]], **kw)
+        assert _rel_err(got[1], alt[1]) > 10 * REL["update"]
+
+
+@pytest.mark.cuda
+def test_optimizer_kernels_reject_what_they_do_not_take(cuda):
+    S, G, rn = _opt_case(2, 64, 96, 16, torch.float32, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        gk.project(S.mT.contiguous().mT, G)
+    A = gk.project(S, G)
+    with pytest.raises(ValueError, match="contiguous"):
+        gk.tangent(G, A.mT.contiguous().mT, S)
+    with pytest.raises(ValueError, match="contiguous"):
+        gk.adam_lowrank_norms(A.mT.contiguous().mT, A, A, 0)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        gk.project(S, G.half())
+    with pytest.raises(ValueError, match="CUDA device"):
+        gk.project(S, G.cpu())
+    with pytest.raises(ValueError, match="shape"):
+        gk.fused_update(G, S, A, A, rn(2, 95), 0.1, 1.0)
+
+
+@pytest.mark.cuda
+def test_optimizer_dispatch_counts_launches(cuda):
+    S, G, _ = _opt_case(3, 64, 96, 16, torch.bfloat16, cuda)
+    ops.reset_launch_counts()
+    A, gsq, T = ops.project_tangent_colnorms(S, G)
+    Gt = ops.project(S, G)
+    M1, V1, Gto, gtsq, gtosq = ops.adam_lowrank_norms(Gt, Gt, Gt.abs(), 0)
+    ops.fused_update(G, S, Gt, Gto, gtsq, 0.1, torch.ones(3, device=cuda),
+                     out_dtype=torch.bfloat16)
+    counts = ops.launch_counts()
+    assert counts == {"paged_attention": 0, "project": 1,
+                      "project_colnorms": 1, "tangent": 1,
+                      "adam_lowrank_norms": 1, "fused_update": 1}
+
+
+@pytest.mark.cuda
+def test_warm_start_svd_on_the_card_spans_the_cpu_subspace(cuda):
+    """The warm start's SVD (cuSOLVER gesvd on the card) gives an
+    orthonormal basis of the same top-r subspace as the CPU's LAPACK SVD,
+    also for a rank-deficient gradient (fewer tokens than rows)."""
+    from repro_torch.core.subspace import init_subspace_svd
+
+    gen = torch.Generator().manual_seed(0)
+    G = torch.randn(3, 512, 1024, generator=gen)
+    G[:, :, :64] *= 10.0             # a clear gap after the top 64
+    G[2] = G[2, :, :80] @ torch.randn(80, 1024, generator=gen) / 9.0  # rank 80
+    S_cpu = init_subspace_svd(G, 64)
+    S = init_subspace_svd(G.to(cuda), 64)
+    eye = torch.eye(64, device=cuda)
+    assert (S.mT @ S - eye).abs().max().item() < 1e-5
+    torch.testing.assert_close((S @ S.mT).cpu(), S_cpu @ S_cpu.mT,
+                               atol=1e-4, rtol=0)

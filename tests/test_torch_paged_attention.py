@@ -110,7 +110,8 @@ def test_ops_dispatch_on_cpu_takes_the_oracle_and_counts_nothing():
     via_ops = ops.paged_attention(*args)
     torch.testing.assert_close(via_ops, tref.paged_attention_ref(*args),
                                atol=0, rtol=0)
-    assert ops.launch_counts() == {"paged_attention": 0}
+    counts = ops.launch_counts()
+    assert counts["paged_attention"] == 0 and not any(counts.values())
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():

@@ -91,7 +91,8 @@ def test_greedy_tokens_match_both_jax_engines(variant):
         assert all(len(t) == GEN for t in got["outputs"].values())
         assert got["kv"]["prefill_chunks"] == 3 * (3 if chunk else 1)
         assert got["decode_calls"] > 0
-    assert ops.launch_counts() == {"paged_attention": 0}   # CPU: the oracle
+    counts = ops.launch_counts()                 # CPU: the oracle
+    assert counts["paged_attention"] == 0 and not any(counts.values())
 
 
 def test_pool_exhaustion_sheds_and_defers():
