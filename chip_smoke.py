@@ -35,17 +35,31 @@ Phases; any failure raises and the script exits non-zero:
    its bound (bytes and fp32 operations written out), its plain version
    and, where one exists, the PyTorch expression for the same product with
    TF32 off (a yardstick the port never calls);
-9. train the fp32 smoke llama 6 steps (rank 32, update interval 3, kernels
-   on) on CUDA and on the CPU from the same params, warm-started state and
-   batches: loss histories within ``SMOKE_LOSS_ATOL``; the CUDA run must
-   launch every optimizer kernel, the CPU run none;
-10. time one SVD of a (4096, 4096) and a (4096, 11008) fp32 matrix per
+9. hold grad_tap against its plain version at llama-7b's tapped shapes (b
+   1024, r 1024; (m, n) = (4096, 4096), (4096, 11008), (4096, 32000) and
+   w_down's swapped orientation with dW stored in the leaf's layout), a
+   ragged case and b = 4096, x/dy fp32 and bf16 (``TAP_REL``), and time it
+   at (4096, 11008) beside its bound (dW's bf16 products at the bf16 tensor
+   cores' peak, the rest at the fp32 peak), its plain version and the
+   PyTorch expression ``x.float().T @ dy.float()``, ``S.T @ dW``,
+   ``(dW*dW).sum(0)``; time its first kernel (P = x S) alone too;
+10. train the fp32 smoke llama 6 steps (rank 32, update interval 3, kernels
+   on) through ``run`` on CUDA and on the CPU from the same params,
+   warm-started state and batches, plain and grad-fused: loss histories
+   within ``SMOKE_LOSS_ATOL`` of each other (CUDA vs CPU, and grad-fused vs
+   plain on CUDA); exact launch counts on CUDA, none on the CPU;
+11. time one SVD of a (4096, 4096) and a (4096, 11008) fp32 matrix per
    cuSOLVER driver (the warm start runs 226 of them and uses gesvd), then
    train llama-7b through ``repro_torch.launch.train.train`` (4 steps,
    update interval 2: plain steps 0, 1, 3 and a tracking step at 2; rank
    1024, remat full, batch 2 x 512): finite losses, 3 launches per
    low-rank leaf per plain step and 5 per tracking step;
-11. print the kernels line, then ``{"ok": true, "device": {...}}`` last.
+12. continue from that run's state for 4 grad-fused llama-7b steps through
+   ``run(..., grad_fused=True)`` (plain 0, 1, 3; tracking 2): finite
+   losses, per plain step 225 grad_tap calls (two kernels each; the count
+   is of calls), 1 project_colnorms, 9 adam_lowrank_norms and 9
+   fused_update, the plain path's 45 on the tracking step;
+13. print the kernels line, then ``{"ok": true, "device": {...}}`` last.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero and prints no result.
@@ -68,6 +82,7 @@ sys.path.insert(0, str(ROOT / "src"))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
+BF16_FLOPS = 989e12            # H100 SXM dense bf16 on the tensor cores
 TOL = {torch.float32: dict(atol=2e-5, rtol=2e-5),
        torch.bfloat16: dict(atol=3e-2, rtol=5e-2)}
 SEED = 0
@@ -127,7 +142,7 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     report = build.build(["paged_attention", "grassmann_project",
                           "grassmann_tangent", "adam_lowrank_norms",
-                          "fused_update"])
+                          "fused_update", "grad_tap"])
     for name, r in report.items():
         regs = [ln.strip() for ln in r["ptxas"].splitlines() if "Used" in ln]
         print(f"[build] {name}.cu: nvcc {r['seconds']:.1f}s; {regs}",
@@ -319,6 +334,7 @@ RANK_7B = 1024
 TIMED = (4096, 11008)
 SMOKE_LOSS_ATOL = 1e-4   # fp32 smoke llama, 6 steps, CUDA vs CPU sum orders
 N_LOWRANK_LEAVES = 9     # wq wk wv wo w_gate w_up w_down embed lm_head
+N_UNTAPPED_LOWRANK = 1   # embed: a lookup, not a matmul the backward can tap
 
 
 def _opt_inputs(m, n, r, gdtype, seed):
@@ -460,6 +476,120 @@ def phase_time_optimizer() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The grad-fused slice: grad_tap
+# ---------------------------------------------------------------------------
+
+TAP_REL = 2e-5     # fp32 sums of b (dW) or of b and m (A) in another order
+TAP_CASES = {      # name -> (b, m, n, r): llama-7b's sites and edge cases
+    "wq (4096, 4096)": (1024, 4096, 4096, RANK_7B),
+    "w_gate (4096, 11008)": (1024, 4096, 11008, RANK_7B),
+    "lm_head (4096, 32000)": (1024, 4096, 32000, RANK_7B),
+    "ragged (1000, 4001, 3001, 1000)": (1000, 4001, 3001, 1000),
+    "b 4096 (4096, 4096)": (4096, 4096, 4096, RANK_7B),
+}
+
+
+def _tap_inputs(b, m, n, r, dtype, seed):
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    return (rn(b, m).to(dtype), rn(b, n).to(dtype),
+            torch.linalg.qr(rn(m, r))[0].contiguous())
+
+
+def phase_check_grad_tap() -> float:
+    """grad_tap against its plain version at llama-7b's tapped shapes (w_down
+    swapped, its dW stored in the leaf's layout), a ragged case and b = 4096,
+    x/dy fp32 and bf16 (dW in the same dtype).  Returns the max abs error
+    at the timed shape in bf16."""
+    from repro_torch.kernels import grassmann as gk
+    from repro_torch.kernels import ref
+
+    cases = dict(TAP_CASES)
+    cases["w_down swapped (11008 -> 4096)"] = (1024, 4096, 11008, RANK_7B)
+    err_timed = 0.0
+    for i, (name, (b, m, n, r)) in enumerate(cases.items()):
+        for dtype in (torch.float32, torch.bfloat16):
+            x, dy, S = _tap_inputs(b, m, n, r, dtype, SEED + i)
+            if name.startswith("w_down"):
+                # the leaf is (11008, 4096); the backward calls
+                # grad_tap(dy, x) and asks for dW^T in the leaf's layout
+                got = gk.grad_tap(x, dy, S, out_dtype=dtype,
+                                  transposed_out=True)
+                if not got[0].mT.is_contiguous():
+                    raise AssertionError("w_down dW not in the leaf layout")
+            else:
+                got = gk.grad_tap(x, dy, S, out_dtype=dtype)
+            torch.cuda.synchronize()
+            dW, tap = got
+            want = ref.grad_tap_ref(x, dy, S)
+            line = []
+            for part, g, w in zip(("dW", "A", "gsq"),
+                                  (dW, tap[:-1], tap[-1]), want):
+                abs_err, rel = _opt_error(g, w)
+                if rel > TAP_REL:
+                    raise AssertionError(
+                        f"grad_tap {name} {dtype} {part}: error {rel:.3e} "
+                        f"of the largest entry > {TAP_REL:g}")
+                if name.startswith("w_gate") and dtype == torch.bfloat16:
+                    err_timed = max(err_timed, abs_err)
+                line.append(f"{part} {abs_err:.2e} ({rel:.1e})")
+            del x, dy, S, got, dW, tap, want
+            print(f"[check] grad_tap {name} b {b} r {r} {dtype}: max abs err "
+                  f"(of largest entry) " + ", ".join(line), flush=True)
+    return err_timed
+
+
+def phase_time_grad_tap() -> dict:
+    """grad_tap at one (4096, 11008) site, b 1024, r 1024, bf16 x/dy and
+    dW, beside its bound, its plain version and the PyTorch expression; and
+    its first kernel (P = x S) alone."""
+    from repro_torch.kernels import grassmann as gk
+    from repro_torch.kernels import ref
+
+    b, m, n, r = TAP_CASES["w_gate (4096, 11008)"]
+    x, dy, S = _tap_inputs(b, m, n, r, torch.bfloat16, SEED)
+
+    def library():
+        dW = x.float().T @ dy.float()
+        return dW, S.T @ dW, (dW * dW).sum(0)
+
+    # bytes the function must move: x, dy, S read once; dW (bf16), A and
+    # gsq written once.  Operations, each at the card's peak for its
+    # operands' type: dW = x^T dy has bf16 x bf16 products (exact in fp32,
+    # bf16 tensor cores); P = x S, A = P^T dy and the squares of the norms
+    # take an fp32 operand (CUDA cores)
+    nbytes = 2 * b * m + 2 * b * n + 4 * m * r + 2 * m * n + 4 * r * n + 4 * n
+    flops_bf16 = 2 * b * m * n
+    flops_fp32 = 2 * b * m * r + 2 * b * r * n + 2 * m * n
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (flops_bf16 / BF16_FLOPS + flops_fp32 / FP32_FLOPS) * 1e3
+    res = {"ms": _time_ms(lambda: gk.grad_tap(x, dy, S,
+                                              out_dtype=torch.bfloat16),
+                          iters=10, repeats=3),
+           "xs_ms": _time_ms(lambda: gk.grad_tap_xs(x, dy, S), iters=10,
+                             repeats=3),
+           "plain_ms": _time_ms(lambda: ref.grad_tap_ref(x, dy, S),
+                                iters=10, repeats=3),
+           "library_ms": _time_ms(library, iters=10, repeats=3),
+           "bound_ms": max(t_bytes, t_ops),
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+    xs_bound = max((2 * b * m + 4 * m * r + 4 * b * r) / HBM_BYTES_PER_S,
+                   2 * b * m * r / FP32_FLOPS) * 1e3
+    print(f"[time] grad_tap ({m}, {n}, b {b}, r {r}) bf16 x/dy/dW: kernel "
+          f"{res['ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
+          f"({res['bound_by']}: {nbytes / 1e6:.1f} MB, "
+          f"{flops_bf16 / 1e9:.1f} GFLOP bf16 + {flops_fp32 / 1e9:.1f} "
+          f"GFLOP fp32), plain {res['plain_ms']:.4f} ms, torch expression "
+          f"{res['library_ms']:.4f} ms; of it P = x S alone "
+          f"{res['xs_ms']:.4f} ms (bound {xs_bound:.4f} ms, "
+          f"{2 * b * m * r / 1e9:.1f} GFLOP fp32)", flush=True)
+    return res
+
+
 def _state_to(state, device):
     from repro_torch.core.subtrack import OptState, tree_map
 
@@ -468,9 +598,29 @@ def _state_to(state, device):
                         *(t.to(device) for t in st)), state.inner))
 
 
+def _launches_want(steps: int, tracking: int, tapped_sites: int = 0
+                   ) -> dict:
+    """Exact launch counts of ``steps`` train steps, ``tracking`` of them
+    tracking steps: 3 launches per low-rank leaf on a plain step, 5 on a
+    tracking step; a grad-fused plain step (``tapped_sites`` > 0) launches
+    grad_tap once per tapped matmul and project_colnorms only for the
+    untapped low-rank leaf (embed)."""
+    plain = steps - tracking
+    return {"paged_attention": 0,
+            "project_colnorms": N_LOWRANK_LEAVES * tracking
+            + (N_UNTAPPED_LOWRANK if tapped_sites else N_LOWRANK_LEAVES)
+            * plain,
+            "tangent": N_LOWRANK_LEAVES * tracking,
+            "project": N_LOWRANK_LEAVES * tracking,
+            "adam_lowrank_norms": N_LOWRANK_LEAVES * steps,
+            "fused_update": N_LOWRANK_LEAVES * steps,
+            "grad_tap": tapped_sites * plain}
+
+
 def phase_train_smoke() -> None:
     """fp32 smoke llama on CUDA and on the CPU from the same params,
-    warm-started state and batches."""
+    warm-started state and batches, through ``run`` (what the CLI runs),
+    plain and with the grad-fused backward."""
     from repro_torch.configs.registry import get_config
     from repro_torch.core.api import get_optimizer
     from repro_torch.core.subtrack import tree_map
@@ -494,34 +644,43 @@ def phase_train_smoke() -> None:
     warm, _ = make_warm_start(bundle, opt)(
         TrainState(params=params, opt=opt.init(params)), batches[0])
 
-    def go(device):
+    def go(device, grad_fused):
         ops.reset_launch_counts()
         out = run(cfg, tree_map(lambda t: t.to(device, copy=True), params),
                   lambda s: batches[s], optimizer=opt, steps=steps,
                   lr_at=cosine_with_warmup(1e-3, steps, 2), log_every=steps,
-                  opt_state=_state_to(warm.opt, device))
+                  opt_state=_state_to(warm.opt, device),
+                  grad_fused=grad_fused)
         return [h["loss"] for h in out["history"]], ops.launch_counts()
 
-    cuda_losses, cuda_counts = go("cuda")
-    cpu_losses, cpu_counts = go("cpu")
-    diff = max(abs(a - b) for a, b in zip(cuda_losses, cpu_losses))
-    if not diff <= SMOKE_LOSS_ATOL:
-        raise AssertionError(f"smoke training: CUDA {cuda_losses} vs CPU "
-                             f"{cpu_losses} (max diff {diff:.3e})")
     tracking = sum(1 for s in range(steps) if s and s % k == 0)
-    plain = steps - tracking
-    want = {"project_colnorms": N_LOWRANK_LEAVES * steps,
-            "tangent": N_LOWRANK_LEAVES * tracking,
-            "project": N_LOWRANK_LEAVES * tracking,
-            "adam_lowrank_norms": N_LOWRANK_LEAVES * steps,
-            "fused_update": N_LOWRANK_LEAVES * steps, "paged_attention": 0}
-    if cuda_counts != want or any(cpu_counts.values()):
-        raise AssertionError(f"smoke training launches: CUDA {cuda_counts} "
-                             f"(want {want}), CPU {cpu_counts}")
-    print(f"[smoke] fp32 smoke llama, {steps} steps ({plain} plain, "
-          f"{tracking} tracking): losses CUDA vs CPU max diff {diff:.2e} "
-          f"(budget {SMOKE_LOSS_ATOL:g}); CUDA launches {cuda_counts}",
-          flush=True)
+    sites = 7 * cfg.n_layers + 1
+    runs = {}
+    for grad_fused in (False, True):
+        cuda_losses, cuda_counts = go("cuda", grad_fused)
+        cpu_losses, cpu_counts = go("cpu", grad_fused)
+        runs[grad_fused] = cuda_losses
+        diff = max(abs(a - b) for a, b in zip(cuda_losses, cpu_losses))
+        name = "grad-fused" if grad_fused else "plain"
+        if not diff <= SMOKE_LOSS_ATOL:
+            raise AssertionError(f"smoke training ({name}): CUDA "
+                                 f"{cuda_losses} vs CPU {cpu_losses} (max "
+                                 f"diff {diff:.3e})")
+        want = _launches_want(steps, tracking, sites if grad_fused else 0)
+        if cuda_counts != want or any(cpu_counts.values()):
+            raise AssertionError(f"smoke training ({name}) launches: CUDA "
+                                 f"{cuda_counts} (want {want}), CPU "
+                                 f"{cpu_counts}")
+        print(f"[smoke] fp32 smoke llama {name}, {steps} steps "
+              f"({steps - tracking} plain, {tracking} tracking): losses CUDA "
+              f"vs CPU max diff {diff:.2e} (budget {SMOKE_LOSS_ATOL:g}); "
+              f"CUDA launches {cuda_counts}", flush=True)
+    diff = max(abs(a - b) for a, b in zip(runs[True], runs[False]))
+    if not diff <= SMOKE_LOSS_ATOL:
+        raise AssertionError(f"smoke training on CUDA: grad-fused "
+                             f"{runs[True]} vs plain {runs[False]}")
+    print(f"[smoke] fp32 smoke llama on CUDA: grad-fused vs plain losses max "
+          f"diff {diff:.2e} (budget {SMOKE_LOSS_ATOL:g})", flush=True)
 
 
 def phase_time_svd() -> None:
@@ -581,10 +740,7 @@ def phase_train_7b() -> dict:
     if tracking != [2]:
         raise AssertionError(f"llama-7b: tracking steps {tracking}")
     n_plain = steps - 1
-    want = {"project_colnorms": N_LOWRANK_LEAVES * steps,
-            "tangent": N_LOWRANK_LEAVES, "project": N_LOWRANK_LEAVES,
-            "adam_lowrank_norms": N_LOWRANK_LEAVES * steps,
-            "fused_update": N_LOWRANK_LEAVES * steps, "paged_attention": 0}
+    want = _launches_want(steps, 1)
     if launches != want:
         raise AssertionError(f"llama-7b launches {launches}, want {want} "
                              f"(3 per leaf per plain step, 5 per tracking)")
@@ -599,7 +755,100 @@ def phase_train_7b() -> dict:
           f" tok/s on warm plain steps; peak memory {peak / 2**30:.2f} GiB; "
           f"launches {launches}", flush=True)
     return {"launches": launches, "plain_steps": n_plain,
-            "tracking_steps": 1}
+            "tracking_steps": 1, "state": out["state"]}
+
+
+def phase_train_7b_grad_fused(trained: dict) -> dict:
+    """Four more llama-7b steps with the grad-fused backward, through
+    ``run`` (what the CLI runs with --grad-fused), from phase 10's own
+    warm-started and trained state and the next batches of its stream:
+    plain steps 0, 1 and 3, tracking step 2.  Exact launches: per plain
+    step grad_tap 225 (7 sites x 32 layers + lm_head), project_colnorms 1
+    (embed), adam_lowrank_norms 9, fused_update 9; a tracking step takes
+    the plain backward and its 45 launches."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.api import get_optimizer
+    from repro_torch.data.pipeline import (DataConfig, SyntheticLMDataset,
+                                           fetch_batch)
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import run
+    from repro_torch.optim.schedules import cosine_with_warmup
+
+    steps, k, done, batch, seq = 4, 2, 4, 2, 512
+    cfg = get_config("llama-7b")
+    opt = get_optimizer("subtrack", rank=RANK_7B, update_interval=k,
+                        eta=10.0, use_kernels=True)
+    data = SyntheticLMDataset(DataConfig(vocab_size=cfg.vocab_size,
+                                         seq_len=seq, global_batch=batch,
+                                         seed=SEED))
+    # where the peak falls: device memory peaks of each step's forward,
+    # backward and clip (up to the optimizer call) and of its optimizer
+    mem: list[dict] = []
+
+    def update(*args, **kw):
+        mem.append({"backward": torch.cuda.max_memory_allocated(),
+                    "at_update": torch.cuda.memory_allocated()})
+        torch.cuda.reset_peak_memory_stats()
+        res = opt.update(*args, **kw)
+        mem[-1]["update"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        return res
+
+    def batch_at(s):
+        b, ok = fetch_batch(cfg, data, done + s)
+        if not ok:
+            raise AssertionError(f"llama-7b: batch {done + s} rejected")
+        return b
+
+    sched = cosine_with_warmup(1e-3, done + steps, 2)
+    # take phase 10's state out of ``trained`` and keep no reference to its
+    # moments here: ``run`` frees them after the first step (12.5 GiB)
+    state = trained.pop("state")
+    params, opt_state = state.params, [state.opt]
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out = run(cfg, params, batch_at, optimizer=opt._replace(update=update),
+              steps=steps,
+              lr_at=lambda s: sched(done + s), log_every=1,
+              opt_state=opt_state.pop(), grad_fused=True)
+    launches = ops.launch_counts()
+    peak = max(max(m["backward"], m["update"]) for m in mem)
+    hist = out["history"]
+    losses = [h["loss"] for h in hist]
+    if not all(x is not None and math.isfinite(x) for x in losses):
+        raise AssertionError(f"llama-7b grad-fused: losses {losses}")
+    tracking = [h["step"] for h in hist if h["subspace_update"]]
+    if tracking != [2]:
+        raise AssertionError(f"llama-7b grad-fused: tracking steps {tracking}")
+    if out["state"].opt.step != done + steps:
+        raise AssertionError(f"optimizer step {out['state'].opt.step}")
+    want = _launches_want(steps, 1, 7 * cfg.n_layers + 1)
+    if launches != want:
+        raise AssertionError(f"llama-7b grad-fused launches {launches}, want "
+                             f"{want}")
+    plain_s = [h["dt"] for h in hist if not h["subspace_update"]]
+    track_s = [h["dt"] for h in hist if h["subspace_update"]][0]
+    warm = plain_s[1:]
+    tok_s = batch * seq / (sum(warm) / len(warm))
+    print(f"[train] llama-7b bf16 grad-fused, rank {RANK_7B}, batch {batch} x "
+          f"{seq}, continuing phase 10's state at step {done}: losses "
+          f"{losses}; plain steps {[round(t, 3) for t in plain_s]} s (step 0 "
+          f"cold), tracking step {track_s:.3f} s; {tok_s:.1f} tok/s on warm "
+          f"plain steps; peak memory {peak / 2**30:.2f} GiB; launches "
+          f"{launches}", flush=True)
+    gib = 2**30
+    for h, m in zip(hist, mem):
+        print(f"[memory] grad-fused step {h['step']}"
+              f"{' (tracking)' if h['subspace_update'] else ''}: peak "
+              f"{m['backward'] / gib:.2f} GiB up to the optimizer (forward, "
+              f"backward, clip), {m['at_update'] / gib:.2f} GiB held on "
+              f"entering it, peak {m['update'] / gib:.2f} GiB in it",
+              flush=True)
+    return {"launches": launches, "plain_s": plain_s, "tracking_s": track_s,
+            "tok_s": tok_s, "peak_gib": peak / 2**30}
 
 
 def main() -> int:
@@ -619,9 +868,12 @@ def main() -> int:
     served = phase_serve_7b()
     opt_err = phase_check_optimizer()
     opt_time = phase_time_optimizer()
+    tap_err = phase_check_grad_tap()
+    tap_time = phase_time_grad_tap()
     phase_train_smoke()
     phase_time_svd()
     trained = phase_train_7b()
+    fused = phase_train_7b_grad_fused(trained)
     kernels = [{
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_attention.cu",
@@ -643,6 +895,15 @@ def main() -> int:
             "max_abs_err": opt_err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    kernels.append({
+        "name": "grad_tap", "route": "cuda",
+        "source": "src/repro_torch/csrc/grad_tap.cu",
+        "replaces": "src/repro/kernels/grassmann.py:406",
+        "launches": fused["launches"]["grad_tap"],
+        "max_abs_err": tap_err, "ms": tap_time["ms"],
+        "plain_ms": tap_time["plain_ms"], "bound_ms": tap_time["bound_ms"],
+        "bound_by": tap_time["bound_by"],
+        "library_ms": tap_time["library_ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

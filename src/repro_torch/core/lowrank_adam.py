@@ -137,7 +137,8 @@ def _limiter(lam_norm, lam_prev, zeta: float):
 
 
 def _fused_step(G, st, step, hp, rotated, S, recovery, backend, lr,
-                weight_decay, param, out_dtype, gsq=None) -> MatrixStepOut:
+                weight_decay, param, out_dtype, gsq=None,
+                proj=None) -> MatrixStepOut:
     """Single-pass hot-path schedule, replicated program only:
 
         project_colnorms     Gt = S^T G (+ ||G_:,j||^2)
@@ -147,10 +148,16 @@ def _fused_step(G, st, step, hp, rotated, S, recovery, backend, lr,
     The Eq. 12 clip is known before the epilogue from the exact identity
     ||Lam||^2 = sum_j phi_j^2 (||G_:,j||^2 - ||Gt_:,j||^2).  A tracking
     step passes ``gsq`` (harvested by its front end; basis-independent),
-    and the projection onto the new basis runs through ``project``.  The
-    JAX package's sharded branches (``sel_gather`` of the Grass regime,
-    the row and row-rs rounds) come with the multi-GPU slice."""
-    if gsq is None:
+    and the projection onto the new basis runs through ``project``.  A
+    grad-fused plain step passes both ``proj`` and ``gsq`` (the backward's
+    tap) and skips the projection pass over G.  The JAX package's sharded
+    branches (``sel_gather`` of the Grass regime, the row and row-rs
+    rounds) come with the multi-GPU slice."""
+    if proj is not None:
+        # a row slice of the stacked (r+1, n) tap: the kernels take it
+        # contiguous
+        Gt = proj.contiguous()
+    elif gsq is None:
         Gt, gsq = backend.project_colnorms(S, G)
     else:
         Gt = backend.project(S, G)
@@ -200,7 +207,10 @@ def lowrank_adam_step(G, st: MatrixOptState, step: int, hp: AdamHP, *,
     (:mod:`repro_torch.kernels.ops`) and ``lr`` this is the fused schedule
     (:func:`_fused_step`); without a backend the paper-literal unfused
     schedule in plain PyTorch.  ``step`` is the Python int count of
-    updates applied so far."""
+    updates applied so far.  ``precomputed_proj`` (S^T G on the current
+    basis) and ``precomputed_gsq`` (||G_:,j||^2) together are the
+    grad-fused plain step's tap; ``precomputed_gsq`` alone is the
+    tracking step's harvested norms."""
     S = st.S if S_new is None else S_new
     out_dtype = out_dtype or torch.float32
     if backend is not None:
@@ -208,9 +218,10 @@ def lowrank_adam_step(G, st: MatrixOptState, step: int, hp: AdamHP, *,
             raise NotImplementedError(
                 "the unfused kernel schedule (backproject, recovery) is not "
                 "yet ported: pass lr for the fused one")
+        proj = precomputed_proj if precomputed_gsq is not None else None
         return _fused_step(G, st, step, hp, rotated, S, recovery, backend,
                            lr, weight_decay, param, out_dtype,
-                           gsq=precomputed_gsq)
+                           gsq=precomputed_gsq, proj=proj)
 
     G = G.float()
     Gt = precomputed_proj if precomputed_proj is not None else S.mT @ G

@@ -16,8 +16,8 @@ launch per leaf with ``use_kernels``).  Same-shape leaves are not
 concatenated into a bucket as the JAX package does on one device: the
 concatenation would copy every gradient, parameter and state of the bucket
 (tens of GB at llama-7b), and per-matrix results are the same either way.
-There are no mesh regimes, no grad-fused taps and no health report here
-yet; ``method="grass"`` raises "not yet ported".
+There are no mesh regimes and no health report here yet;
+``method="grass"`` raises "not yet ported".
 
 Flag matrix (as the JAX package):
     SubTrack++           method=grassmann, projection_aware=True,  recovery=True
@@ -111,11 +111,19 @@ def tree_leaves(tree) -> list:
 
 
 def _plain_matrix_step(cfg: LowRankConfig, hp: AdamHP, G, st, step: int,
-                       lr: float, param, out_dtype):
+                       lr: float, param, out_dtype, tap=None):
+    """``tap``, when given, is the grad-fused (..., r+1, n) [A; colnorms]
+    panel of the backward (``models.common.tapped_matmul``): rows [0:r]
+    are S^T G, row r the per-column ||G||^2, handed down as the
+    precomputed pair so the step never projects G for them."""
+    pp = pg = None
+    if tap is not None:
+        pp, pg = tap[..., :-1, :], tap[..., -1, :]
     out = lowrank_adam_step(G, st, step, hp, recovery=cfg.recovery,
                             backend=_get_backend(cfg), lr=lr,
                             weight_decay=cfg.weight_decay, param=param,
-                            out_dtype=out_dtype)
+                            out_dtype=out_dtype, precomputed_proj=pp,
+                            precomputed_gsq=pg)
     return out.delta, out.state
 
 
@@ -239,24 +247,27 @@ def lowrank_optimizer(cfg: LowRankConfig) -> GradientTransform:
                                              state.inner))
 
     def update(grads, state: OptState, params, lr: float,
-               do_subspace_update: bool = False, *, apply: bool = False):
+               do_subspace_update: bool = False, *, apply: bool = False,
+               taps=None):
         """(updates, new_state); updates are added to the params.  With
         ``apply=True`` each leaf's update is added into its parameter in
         place as soon as it is computed and ``updates`` is None: the
         trainer never holds a whole tree of updates (13.5 GB at
-        llama-7b)."""
+        llama-7b).  ``apply=True`` also consumes ``grads`` and ``taps``:
+        each leaf's entry is set to None once its update is applied, so
+        the gradients (13.5 GB) and taps (6.6 GB) are freed leaf by leaf
+        while the new moments are made.
+
+        ``taps`` (optional) mirrors ``grads`` with None or, at a tapped
+        leaf, the grad-fused (..., r+1, n) [A; colnorms] panel of the
+        backward (canonical orientation).  A tapped low-rank leaf's plain
+        step consumes it instead of projecting G; tracking steps ignore
+        the taps, as do dense leaves."""
         plans = plan_lib.make_plans(grads, cfg.rank)
         step, n_upd = state.step, state.n_updates
         lr32 = torch.tensor(lr, dtype=torch.float32)
 
-        def leaf(plan, g, st, p):
-            upd, new_st = leaf_update(plan, g, st, p)
-            if apply:
-                p.add_(upd)
-                return None, new_st
-            return upd, new_st
-
-        def leaf_update(plan, g, st, p):
+        def leaf_update(plan, g, st, p, tap):
             if plan.mode == "dense":
                 delta, new_st = dense_adam_step(g, st, step, hp)
                 upd = (-lr32 * delta).to(p.dtype)
@@ -272,12 +283,30 @@ def lowrank_optimizer(cfg: LowRankConfig) -> GradientTransform:
                     cfg, hp, g2, st, step, n_upd, lr, p2, p.dtype)
             else:
                 delta, new_st = _plain_matrix_step(cfg, hp, g2, st, step, lr,
-                                                   p2, p.dtype)
+                                                   p2, p.dtype, tap)
             return plan_lib.uncanonical_update(delta, plan), new_st
 
-        pairs = tree_map(leaf, plans, grads, state.inner, params)
-        updates = None if apply else tree_map(lambda pr: pr[0], pairs)
-        inner = tree_map(lambda pr: pr[1], pairs)
+        def walk(plans, grads, inner, params, taps):
+            """(updates, new states) over one level of the trees."""
+            updates, states = {}, {}
+            for k, plan in plans.items():
+                if isinstance(plan, dict):
+                    updates[k], states[k] = walk(plan, grads[k], inner[k],
+                                                 params[k], taps[k])
+                    continue
+                upd, states[k] = leaf_update(plan, grads[k], inner[k],
+                                             params[k], taps[k])
+                if apply:
+                    params[k].add_(upd)
+                    grads[k] = taps[k] = upd = None     # release them now
+                updates[k] = upd
+            return updates, states
+
+        if taps is None:
+            taps = tree_map(lambda _: None, plans)
+        updates, inner = walk(plans, grads, state.inner, params, taps)
+        if apply:
+            updates = None
         return updates, OptState(step=step + 1,
                                  n_updates=n_upd + int(do_subspace_update),
                                  inner=inner)

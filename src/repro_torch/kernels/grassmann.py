@@ -4,23 +4,27 @@
     tangent                     csrc/grassmann_tangent.cu
     adam_lowrank_norms          csrc/adam_lowrank_norms.cu
     fused_update                csrc/fused_update.cu
+    grad_tap                    csrc/grad_tap.cu
 
 They replace the Pallas TPU kernels of the same names in
 ``repro.kernels.grassmann``; what each computes is its oracle in
 :mod:`repro_torch.kernels.ref`, and the note at the top of each ``.cu``
 file says how the design differs from the TPU's and what bounds it on
-the H100.  Every kernel takes a leading batch dim (one matrix per index,
-one launch for a whole layer stack) and accumulates in fp32 on CUDA
+the H100.  Every kernel but ``grad_tap`` (called per layer from the
+backward) takes a leading batch dim (one matrix per index, one launch
+for a whole layer stack) and accumulates in fp32 on CUDA
 cores.  There is no shape gate: ragged tiles are masked in the kernels
 (the TPU's 256-multiples were MXU/VMEM limits).
 
 Inputs the kernels read in place through strides: the gradient G and,
 in ``fused_update``, the parameter and the output, so the transposed
-canonical view of a ``(.., n, m)`` leaf needs no copy.  Every other
+canonical view of a ``(.., n, m)`` leaf needs no copy; in ``grad_tap``,
+x, dy and the dW it writes.  Every other
 operand (S, A, Gt, Gto, M, V, phi) must be contiguous fp32; anything else
 raises ``ValueError``.  Each wrapper runs on PyTorch's current stream,
 raises ``RuntimeError`` when its launch reports an error, and counts its
-launches in ``<wrapper>.launches``.
+launches in ``<wrapper>.launches`` (``grad_tap`` counts its calls, of two
+kernels each).
 """
 
 from __future__ import annotations
@@ -45,6 +49,7 @@ _SIGNATURES = {
                            [_vp] * 8 + [_i] * 3 + [_f] * 7 + [_vp]),
     "fused_update": ("fused_update_launch",
                      [_vp] * 11 + [_i] * 8 + [_vp]),
+    "grad_tap": ("grad_tap_launch", [_vp] * 6 + [_i] * 7 + [_ll] * 6 + [_vp]),
 }
 
 
@@ -57,6 +62,9 @@ def _lib(name: str) -> ctypes.CDLL:
     fn.restype = ctypes.c_int
     lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    if name == "grad_tap":
+        lib.grad_tap_scratch_bytes.argtypes = [_i] * 4
+        lib.grad_tap_scratch_bytes.restype = _ll
     return lib
 
 
@@ -272,6 +280,62 @@ def fused_update(G, S, Gt, Gto, phi, coef, clip, *, out_dtype=None,
     return out3.reshape(lead + (m, n))
 
 
+def _grad_tap(x, dy, S, out_dtype, transposed_out, stages):
+    if x.dim() != 2 or dy.dim() != 2:
+        raise ValueError(f"x and dy must be (b, m) and (b, n); got "
+                         f"{tuple(x.shape)} and {tuple(dy.shape)}")
+    (b, m), n = tuple(x.shape), dy.shape[1]
+    if dy.shape[0] != b:
+        raise ValueError(f"x has {b} rows, dy {dy.shape[0]}")
+    if S.dim() != 2 or S.shape[0] != m:
+        raise ValueError(f"S must be ({m}, r); got {tuple(S.shape)}")
+    r = S.shape[1]
+    _fp32_contiguous(S=S)
+    dtype = _float_dtype("x", x)
+    if dy.dtype != x.dtype:
+        raise ValueError(f"x is {x.dtype} but dy is {dy.dtype}")
+    if out_dtype not in _DTYPES:
+        raise ValueError(f"dW dtype must be float32 or bfloat16; got "
+                         f"{out_dtype}")
+    dev = _device(x=x, dy=dy, S=S)
+    dW = (torch.empty((n, m), dtype=out_dtype, device=dev).mT
+          if transposed_out else
+          torch.empty((m, n), dtype=out_dtype, device=dev))
+    tap = torch.empty((r + 1, n), dtype=torch.float32, device=dev)
+    scratch = torch.empty((_lib("grad_tap").grad_tap_scratch_bytes(
+                              b, m, n, r),),
+                          dtype=torch.uint8, device=dev)
+    _launch("grad_tap", x.data_ptr(), dy.data_ptr(), S.data_ptr(),
+            dW.data_ptr(), tap.data_ptr(), scratch.data_ptr(), dtype,
+            _DTYPES[out_dtype], stages, b, m, n, r, *x.stride(),
+            *dy.stride(), *dW.stride(), _stream(dev))
+    return dW, tap
+
+
+def grad_tap(x: torch.Tensor, dy: torch.Tensor, S: torch.Tensor, *,
+             out_dtype: torch.dtype = torch.float32,
+             transposed_out: bool = False):
+    """(dW = x^T dy, tap = [A; gsq]) from one call: x (b, m) and dy (b, n)
+    of one float dtype, any strides; S (m, r) fp32 contiguous -> dW (m, n)
+    in ``out_dtype`` and the (r+1, n) fp32 tap, rows [0:r] A = S^T dW and
+    row r the column norms ||dW_:,j||^2, both from the fp32 dW.
+    ``transposed_out`` stores dW in (n, m) row-major memory and returns the
+    (m, n) view of it, so a transposed leaf's gradient lands in the leaf's
+    own layout.  Any b: the token extent streams through the tiles.  One
+    call launches two kernels (P = x S, then the dW and A tiles) and counts
+    once."""
+    out = _grad_tap(x, dy, S, out_dtype, transposed_out, stages=3)
+    grad_tap.launches += 1
+    return out
+
+
+def grad_tap_xs(x: torch.Tensor, dy: torch.Tensor, S: torch.Tensor) -> None:
+    """Only the first of grad_tap's two kernels, P = x S, on grad_tap's
+    inputs, so that it can be timed apart.  No path calls it, and it does
+    not count."""
+    _grad_tap(x, dy, S, torch.float32, False, stages=1)
+
+
 for _fn in (project, project_colnorms, tangent, adam_lowrank_norms,
-            fused_update):
+            fused_update, grad_tap):
     _fn.launches = 0          # kernel launches since the last reset

@@ -17,6 +17,10 @@ two launches ``project_colnorms`` + ``tangent``), then ``project`` with
 the new basis, ``adam_lowrank_norms`` and ``fused_update``.  Every
 argument may carry leading stack dims: one launch covers a layer stack.
 
+The grad-fused backward (``repro_torch.models.common.tapped_matmul``)
+calls :func:`grad_tap` once per tapped matmul; on such a plain step the
+optimizer skips ``project_colnorms`` for the tapped leaves.
+
 Each kernel wrapper counts its launches in a plain integer
 (``<wrapper>.launches``); :func:`launch_counts` reads them and
 :func:`reset_launch_counts` zeroes them, so a run can show that its main
@@ -38,6 +42,7 @@ _WRAPPERS = {
     "tangent": grassmann.tangent,
     "adam_lowrank_norms": grassmann.adam_lowrank_norms,
     "fused_update": grassmann.fused_update,
+    "grad_tap": grassmann.grad_tap,
 }
 
 
@@ -127,3 +132,21 @@ def fused_update(G, S, Gt, Gto, phi, coef, clip, *, out_dtype=None,
     return grassmann.fused_update(G, S, Gt, Gto, phi, coef, clip,
                                   out_dtype=out_dtype, param=param,
                                   wd_coef=wd_coef)
+
+
+def grad_tap(x: torch.Tensor, dy: torch.Tensor, S: torch.Tensor, *,
+             out_dtype: torch.dtype = torch.float32,
+             transposed_out: bool = False):
+    """Grad-fused backward epilogue: (dW = x^T dy in ``out_dtype``, the
+    (r+1, n) fp32 tap [A = S^T dW; ||dW_:,j||^2] from the fp32 dW).
+    Kernel: ``csrc/grad_tap.cu``; oracle: ``ref.grad_tap_ref``.  The JAX
+    dispatch falls back to a dW matmul + ``project_colnorms`` past the
+    TPU's ``MAX_GRAD_TAP_B`` or off its tile grid; the CUDA kernel streams
+    any b and masks ragged tiles, so there is no such case here.
+    ``transposed_out`` asks the kernel for dW stored as (n, m); on the CPU
+    the layout is the oracle's."""
+    if x.device.type == "cpu":
+        dW, A, gsq = ref.grad_tap_ref(x, dy, S)
+        return dW.to(out_dtype), torch.cat([A, gsq[None, :]], dim=0)
+    return grassmann.grad_tap(x, dy, S, out_dtype=out_dtype,
+                              transposed_out=transposed_out)

@@ -11,8 +11,8 @@ per leading index, as the kernels' grid z), casts each operand to fp32
 and follows the JAX oracle's order of operations.  Per-matrix scalars
 (``coef``, ``clip``, ``wd_coef``) are Python floats or tensors of the
 batch shape.  The oracles of the kernels not on a ported path
-(``backproject``, ``recovery``, ``grad_tap``, ``tangent_gram``,
-``adam_lowrank`` alone) come with their kernels.
+(``backproject``, ``recovery``, ``tangent_gram``, ``adam_lowrank``
+alone) come with their kernels.
 """
 
 from __future__ import annotations
@@ -73,6 +73,20 @@ def fused_update_ref(G, S, Gt, Gto, phi, coef, clip, *, out_dtype=None,
     if param is not None:
         upd = upd - _per_matrix(wd_coef, 2) * param.float()
     return upd.to(out_dtype or torch.float32)
+
+
+def grad_tap_ref(x: torch.Tensor, dy: torch.Tensor, S: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The grad-fused backward epilogue: the weight gradient and the
+    plain step's projection statistics of it, all fp32.
+
+        dW  = x^T dy            (..., m, n)
+        A   = S^T dW            (..., r, n)
+        gsq = sum_i dW[i, :]^2  (..., n)
+
+    x: (..., b, m); dy: (..., b, n); S: (..., m, r)."""
+    dW = x.float().mT @ dy.float()
+    return dW, S.float().mT @ dW, (dW * dW).sum(dim=-2)
 
 
 def adam_lowrank_ref(Gt, M, V, step, beta1: float, beta2: float, eps: float,

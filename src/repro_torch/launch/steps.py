@@ -7,8 +7,10 @@ by the loop.  Where the JAX step returns new arrays, the port updates in
 place to stay inside one card's memory at llama-7b: the clip scales the
 gradients in place, and the optimizer adds each leaf's update into its
 parameter as soon as it is computed (``update(..., apply=True)``), so no
-tree of updates is ever held.  Not ported yet: gradient accumulation, the
-grad-fused taps, fault injection and the quarantine gate
+tree of updates is ever held.  With ``grad_fused`` the plain steps take
+the grad-fused backward: the taggable matmuls emit each low-rank leaf's
+[A; colnorms] tap, which feeds the clip and the optimizer.  Not ported
+yet: gradient accumulation, fault injection and the quarantine gate
 (``guarded_apply``) of the health runtime.
 """
 
@@ -18,9 +20,11 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.core.lowrank_adam import MatrixOptState
 from repro_torch.core.subtrack import (GradientTransform, OptState,
                                        tree_leaves, tree_map)
 from repro_torch.models.api import ModelBundle
+from repro_torch.models.common import tap_seed
 
 
 class TrainState(NamedTuple):
@@ -40,11 +44,20 @@ def global_norm(tree) -> torch.Tensor:
     return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads, max_norm: float):
+def clip_by_global_norm(grads, max_norm: float, taps=None):
     """Scale every gradient by min(1, max_norm / ||grads||), in place.  A
     bf16 gradient is scaled in fp32 and rounded back, as the JAX package's
-    ``(g.astype(f32) * scale).astype(g.dtype)``.  Returns (grads, norm)."""
-    norm = global_norm(grads)
+    ``(g.astype(f32) * scale).astype(g.dtype)``.  ``taps`` (a tree
+    mirroring ``grads``, None at untapped leaves) lets a tapped leaf
+    contribute ``sum(tap[..., -1, :])``, its ||G||_F^2 from the backward,
+    instead of a reduction over G.  Returns (grads, norm)."""
+    if taps is None:
+        norm = global_norm(grads)
+    else:
+        sq = sum(torch.linalg.vector_norm(g, dtype=torch.float32) ** 2
+                 if t is None else t[..., -1, :].sum()
+                 for g, t in zip(tree_leaves(grads), tree_leaves(taps)))
+        norm = torch.sqrt(sq)
     scale = torch.clamp_max(max_norm / torch.clamp_min(norm, 1e-12), 1.0)
     for g in tree_leaves(grads):
         g.mul_(scale)
@@ -66,21 +79,120 @@ def value_and_grad(bundle: ModelBundle, params, batch, remat: str):
     return loss.detach(), metrics, _unflatten(params, list(grads))
 
 
+# ---------------------------------------------------------------------------
+# Grad-fused tap collection
+# ---------------------------------------------------------------------------
+#
+# The taggable matmul sites of the decoder (repro_torch.models.transformer):
+# the per-layer attention and MLP projections plus the untied lm_head.  (The
+# JAX package drops the attention sites of MLA and the MLP sites of MoE
+# configs; the port's decoder runs neither.)
+TAP_PATHS = ([("layers", "attn", k) for k in ("wq", "wk", "wv", "wo")]
+             + [("layers", "mlp", k) for k in ("w_gate", "w_up", "w_down")]
+             + [("lm_head",)])
+
+
+def _site_get(tree, path):
+    for k in path:
+        if not isinstance(tree, dict) or k not in tree:
+            return None
+        tree = tree[k]
+    return tree
+
+
+def _site_set(tree, path, val):
+    for k in path[:-1]:
+        tree = tree.setdefault(k, {})
+    tree[path[-1]] = val
+
+
+def _none_like(tree):
+    """The same nested-dict skeleton with every leaf None: the
+    all-untapped taps tree."""
+    if isinstance(tree, dict):
+        return {k: _none_like(v) for k, v in tree.items()}
+    return None
+
+
+def tapped_grads(bundle: ModelBundle, state: TrainState, batch,
+                 remat: str):
+    """(loss, metrics, grads, taps) from one backward over the params and
+    the zero seeds: the seeds' gradients are the per-leaf [A; colnorms]
+    panels (``tapped_matmul``).  ``taps`` mirrors the params, None at
+    every untapped leaf; it is None when no site is a low-rank leaf."""
+    sites = []
+    for path in TAP_PATHS:
+        p = _site_get(state.params, path)
+        st = _site_get(state.opt.inner, path)
+        if p is None or not isinstance(st, MatrixOptState):
+            continue  # absent leaf or dense plan
+        sites.append((path, st.S, st.M.shape[-1]))
+    if not sites:
+        return (*value_and_grad(bundle, state.params, batch, remat), None)
+
+    seeds = [tap_seed(S.shape[-1], n, S.shape[:-2], S.device
+                      ).requires_grad_() for _, S, n in sites]
+    taps_in: dict = {}
+    for (path, S, _), seed in zip(sites, seeds):
+        _site_set(taps_in, path, (S, seed))
+    leaves = tree_leaves(state.params)
+    for p in leaves:
+        p.requires_grad_(True)
+    try:
+        loss, metrics = bundle.loss_taps(state.params, batch, taps_in,
+                                         remat=remat)
+        out = torch.autograd.grad(loss, leaves + seeds)
+    finally:
+        for p in leaves:
+            p.requires_grad_(False)
+    grads = _unflatten(state.params, list(out[:len(leaves)]))
+    taps = _none_like(state.params)
+    for (path, _, _), tap in zip(sites, out[len(leaves):]):
+        _site_set(taps, path, tap)
+    metrics = {k: v.detach() for k, v in metrics.items()}
+    return loss.detach(), metrics, grads, taps
+
+
 def make_train_step(bundle: ModelBundle, optimizer: GradientTransform, *,
-                    clip_norm: float = 1.0, remat: str = "full"):
+                    clip_norm: float = 1.0, remat: str = "full",
+                    grad_fused: bool = False):
     """train_step(state, batch, lr, *, do_subspace_update=False) ->
     (state, metrics).  The parameters of ``state`` are updated in place;
-    the returned state carries them and the new optimizer state."""
+    the returned state carries them and the new optimizer state.
+
+    ``grad_fused`` runs the k-1-of-k plain steps through the grad-fused
+    backward (:func:`tapped_grads`): the taps serve the global-norm clip
+    and the optimizer's plain step in place of a projection pass over G.
+    Tracking steps take the plain backward.  A bundle without
+    ``loss_taps`` raises rather than fall back."""
+    if grad_fused and bundle.loss_taps is None:
+        raise NotImplementedError(f"{bundle.cfg.name} exposes no taggable "
+                                  "matmuls for the grad-fused backward")
 
     def train_step(state: TrainState, batch, lr: float, *,
                    do_subspace_update: bool = False):
-        loss, metrics, grads = value_and_grad(bundle, state.params, batch,
-                                              remat)
-        grads, gnorm = clip_by_global_norm(grads, clip_norm)
+        taps = None
+        if grad_fused and not do_subspace_update:
+            loss, metrics, grads, taps = tapped_grads(bundle, state, batch,
+                                                      remat)
+        else:
+            loss, metrics, grads = value_and_grad(bundle, state.params,
+                                                  batch, remat)
+        grads, gnorm = clip_by_global_norm(grads, clip_norm, taps=taps)
+        if taps is not None:
+            # the clip scaled G by s: A scales by s, the squared column
+            # norms by s^2 (in place)
+            s = torch.clamp_max(clip_norm / torch.clamp_min(gnorm, 1e-12),
+                                1.0)
+            for t in tree_leaves(taps):
+                if t is not None:
+                    t[..., :-1, :].mul_(s)
+                    t[..., -1, :].mul_(s * s)
         with torch.no_grad():
+            # apply=True consumes grads and taps leaf by leaf
             _, opt = optimizer.update(grads, state.opt, state.params, lr,
                                       do_subspace_update=do_subspace_update,
-                                      apply=True)
+                                      apply=True, taps=taps)
         metrics = dict(metrics, loss=loss, grad_norm=gnorm, lr=lr)
         return TrainState(params=state.params, opt=opt), metrics
 

@@ -1,7 +1,7 @@
 """Training driver: SubTrack++ on one GPU.
 
     PYTHONPATH=src python -m repro_torch.launch.train \\
-        --arch llama-7b --optimizer subtrack --use-kernels \\
+        --arch llama-7b --optimizer subtrack --use-kernels [--grad-fused] \\
         --steps 4 --update-interval 2 --warmup 2 --batch 2 --seq 512
 
 Counterpart of ``repro.launch.train`` on one device: the warm start
@@ -9,15 +9,19 @@ installs every subspace from the step-0 gradients (Alg. 1 line 1), then
 each step runs the plain or the tracking train step, with the JAX
 package's rule ``do_update = k and step > 0 and step % k == 0``.  With
 ``--use-kernels`` the optimizer runs the fused hot path through the
-hand-written CUDA kernels (``repro_torch.kernels.ops``).  Weights are
+hand-written CUDA kernels (``repro_torch.kernels.ops``).  With
+``--grad-fused`` the plain steps take the grad-fused backward: every
+taggable matmul forms its weight gradient through the ``grad_tap`` kernel,
+which also emits the [A; colnorms] panel that the clip and the
+optimizer's plain step consume in place of a projection pass.  Weights are
 random, drawn from ``--seed``; batches come from the synthetic Zipf +
 Markov stream and are validated on the host before any embedding lookup.
 
 The driver runs on CUDA unless ``--device cpu`` asks for the CPU; with no
 card and no such request it raises.  Not ported yet, and raising:
 ``--mesh`` other than the one-device default, ``--checkpoint-dir``,
-``--inject`` and ``--grad-fused`` (with the health sentinel, checkpoints
-and the grad-fused backward of later slices).
+``--inject``, ``--accum`` above 1 and ``--remat dots`` (with the health
+sentinel, checkpoints and gradient accumulation of later slices).
 """
 
 from __future__ import annotations
@@ -71,7 +75,9 @@ def _parse_args(argv) -> argparse.Namespace:
     ap.add_argument("--mesh", default="smoke")
     ap.add_argument("--checkpoint-dir", default="")
     ap.add_argument("--inject", default="")
-    ap.add_argument("--grad-fused", action="store_true")
+    ap.add_argument("--accum", type=int, default=1)
+    ap.add_argument("--grad-fused", action="store_true",
+                    help="plain steps take the grad-fused backward")
     return ap.parse_args(argv)
 
 
@@ -79,7 +85,7 @@ def _reject_unported(args: argparse.Namespace) -> None:
     unported = {"--mesh": args.mesh != "smoke",
                 "--checkpoint-dir": bool(args.checkpoint_dir),
                 "--inject": bool(args.inject),
-                "--grad-fused": args.grad_fused,
+                "--accum": args.accum != 1,
                 "--remat dots": args.remat == "dots"}
     for flag, given in unported.items():
         if given:
@@ -94,18 +100,21 @@ def _sync(device: torch.device) -> None:
 
 def run(cfg, params, batch_at: Callable[[int], dict | None], *, optimizer,
         steps: int, lr_at: Callable[[int], float], remat: str = "full",
-        log_every: int = 10, opt_state=None) -> dict:
+        log_every: int = 10, opt_state=None,
+        grad_fused: bool = False) -> dict:
     """Warm start from batch 0, then ``steps`` train steps on the device
     the params live on (updated in place).  ``batch_at(step)`` returns a
     validated batch dict of token tensors (moved to the device here), or
     None for a batch to step over.  ``opt_state``, when given, replaces
     the warm start (a test hands over the JAX package's warm-started
-    state, whose SVD signs the port's need not share).  Returns the loss
+    state, whose SVD signs the port's need not share).  ``grad_fused``
+    runs the plain steps through the grad-fused backward.  Returns the loss
     history, per-step wall times (each ends in a device sync), the
     warm-start time and the final train state."""
     device = tree_leaves(params)[0].device
     bundle = build_model(cfg)
-    train_step = make_train_step(bundle, optimizer, remat=remat)
+    train_step = make_train_step(bundle, optimizer, remat=remat,
+                                 grad_fused=grad_fused)
     k = optimizer.config.update_interval
 
     def on_device(batch):
@@ -114,6 +123,7 @@ def run(cfg, params, batch_at: Callable[[int], dict | None], *, optimizer,
     warm_loss = warm_s = None
     if opt_state is not None:
         state = TrainState(params=params, opt=opt_state)
+        opt_state = None    # hold the starting moments no longer than step 0
     else:
         state = TrainState(params=params, opt=optimizer.init(params))
         warm = make_warm_start(bundle, optimizer, remat=remat)
@@ -154,7 +164,8 @@ def run(cfg, params, batch_at: Callable[[int], dict | None], *, optimizer,
 
 def train(argv=None) -> dict:
     """The CLI: returns the run's summary (loss history, step times,
-    warm-start time, kernel launch counts)."""
+    warm-start time, kernel launch counts) and, under ``state``, the final
+    train state (not written to ``--metrics-out``)."""
     args = _parse_args(argv)
     _reject_unported(args)
     device = resolve_device(args.device)
@@ -167,6 +178,10 @@ def train(argv=None) -> dict:
     if args.use_kernels:
         print("[train] optimizer hot path: fused kernels (project_colnorms "
               "-> adam_lowrank_norms -> fused_update)", flush=True)
+    if args.grad_fused:
+        print("[train] grad-fused backward: taggable leaves emit "
+              "[A; colnorms] from the weight-gradient epilogue; plain "
+              "optimizer steps skip their projection read of G", flush=True)
     data = SyntheticLMDataset(DataConfig(
         vocab_size=cfg.vocab_size, seq_len=args.seq,
         global_batch=args.batch, seed=args.seed))
@@ -185,12 +200,14 @@ def train(argv=None) -> dict:
     ops.reset_launch_counts()
     out = run(cfg, params, batch_at, optimizer=optimizer, steps=args.steps,
               lr_at=cosine_with_warmup(args.lr, args.steps, args.warmup),
-              remat=args.remat, log_every=args.log_every)
+              remat=args.remat, log_every=args.log_every,
+              grad_fused=args.grad_fused)
     launches = ops.launch_counts()
     history = out["history"]
     taken = [h for h in history if h["loss"] is not None]
     summary = {
         "arch": cfg.name, "optimizer": args.optimizer, "rank": rank,
+        "grad_fused": args.grad_fused,
         "steps": args.steps, "device": str(device),
         "tokens_per_step": args.batch * args.seq,
         "final_loss": taken[-1]["loss"] if taken else None,
@@ -209,7 +226,7 @@ def train(argv=None) -> dict:
         Path(args.metrics_out).write_text(json.dumps(summary, indent=2))
     print(f"[train] done: {args.steps} steps, final loss "
           f"{summary['final_loss']}", flush=True)
-    return summary
+    return dict(summary, state=out["state"])
 
 
 if __name__ == "__main__":

@@ -1,8 +1,8 @@
 """Model factory: the decoder bundle (training loss and paged serving).
 
 Counterpart of ``repro.models.api``.  So far only the decoder family's
-``init``, ``loss`` and its three paged fields are ported; other families
-raise.
+``init``, ``loss``, ``loss_taps`` and its three paged fields are ported;
+other families raise.
 """
 
 from __future__ import annotations
@@ -22,6 +22,9 @@ class ModelBundle:
     cfg: ModelConfig
     init: Callable[..., Any]        # (generator, device=None) -> params
     loss: Callable[..., Any] | None = None   # (params, batch, remat=) -> (loss, metrics)
+    # (params, batch, taps, remat=) -> (loss, metrics), ``taps`` the
+    # grad-fused (S, seed) tree of transformer.decoder_forward
+    loss_taps: Callable[..., Any] | None = None
     # Paged serving path (block-table KV; repro_torch.serve).  None for
     # configs the paged cache does not cover (transformer.paged_supported).
     init_paged_cache: Callable[..., Any] | None = None   # (num_blocks, block_size, device) -> PagedKV
@@ -60,7 +63,11 @@ def _decoder_bundle(cfg: ModelConfig) -> ModelBundle:
     def loss(params, batch, remat="full"):
         return transformer.decoder_loss(params, batch, cfg, remat)
 
-    return ModelBundle(cfg=cfg, init=init, loss=loss, **paged)
+    def loss_taps(params, batch, taps, remat="full"):
+        return transformer.decoder_loss(params, batch, cfg, remat, taps)
+
+    return ModelBundle(cfg=cfg, init=init, loss=loss, loss_taps=loss_taps,
+                       **paged)
 
 
 def build_model(cfg: ModelConfig) -> ModelBundle:

@@ -1,8 +1,8 @@
 """Shared building blocks: RMS norm, rotary embeddings, initializers and
 the loss.
 
-Counterpart of ``repro.models.common`` (the decoder's part of it; the
-grad-fused ``tapped_matmul`` comes with its kernel).
+Counterpart of ``repro.models.common`` (the decoder's part of it, and
+the grad-fused ``tapped_matmul``).
 Parameters are plain nested dicts of tensors, with the layer stack on a
 leading axis as in the JAX package, and weights stored ``(in, out)`` for
 ``x @ w``.  Random init draws from an explicit ``torch.Generator`` where
@@ -37,6 +37,79 @@ def embed_init(gen: torch.Generator, shape,
     w = torch.empty(shape, dtype=torch.float32, device=gen.device)
     w.normal_(0.0, 1.0, generator=gen)
     return (w * 0.02).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Grad-fused matmul tap
+# ---------------------------------------------------------------------------
+#
+# ``tapped_matmul(x, w, s, seed)`` is exactly ``x @ w`` forward.  Its
+# backward forms the weight gradient through the grad_tap epilogue
+# (repro_torch.kernels.ops), which also emits A = S^T dW and the per-column
+# ||dW||^2, and returns them as the gradient of ``seed``: a zero
+# (r+1, n) fp32 tensor whose true gradient is zero.  One
+# ``torch.autograd.grad`` over (params, seeds) thus returns the taps beside
+# the gradients, and the optimizer's plain step consumes them instead of
+# projecting the full-width gradient again.  Without a tap the call sites
+# run the plain ``x @ w``.
+
+
+def tap_seed(rank: int, n: int, stack: tuple = (),
+             device=None) -> torch.Tensor:
+    """The zero (*stack, rank+1, n) fp32 seed whose gradient carries the
+    tap: rows [0:rank] are A = S^T G, row rank the per-column ||G||^2, in
+    the leaf's canonical orientation.  An expanded scalar, so a stacked
+    seed holds no memory; only its gradient does."""
+    return torch.zeros((), dtype=torch.float32, device=device).expand(
+        tuple(stack) + (rank + 1, n))
+
+
+class _TappedMatmul(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, s, seed):
+        ctx.save_for_backward(x, w, s)
+        return x @ w
+
+    @staticmethod
+    def backward(ctx, dy):
+        from repro_torch.kernels import ops  # kernels -> models stays acyclic
+
+        x, w, s = ctx.saved_tensors
+        dx = dy @ w.mT if ctx.needs_input_grad[0] else None
+        x2 = x.reshape(-1, x.shape[-1])
+        dy2 = dy.reshape(-1, dy.shape[-1])
+        if s.shape[0] == w.shape[0]:
+            # canonical orientation: G = dW (a, b)
+            dw, tap = ops.grad_tap(x2, dy2, s, out_dtype=w.dtype)
+        else:
+            # transposed plan: G = dW^T (b, a).  Swap the operands so the
+            # epilogue streams the canonical orientation, and store dW^T
+            # into the leaf's own (a, b) memory
+            dwT, tap = ops.grad_tap(dy2, x2, s, out_dtype=w.dtype,
+                                    transposed_out=True)
+            dw = dwT.mT
+        return dx, dw, None, tap
+
+
+def tapped_matmul(x: torch.Tensor, w: torch.Tensor, s: torch.Tensor,
+                  seed: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` whose backward also emits the SubTrack projection tap.
+
+    x: (..., a); w: (a, b); s: the leaf's (m, r) basis in canonical
+    orientation (``s.shape[0]`` tells whether dW or dW^T is projected);
+    seed: ``tap_seed(r, n)``.  dW reaches autograd in w's dtype; A and
+    the norms come from the fp32 dW before that rounding."""
+    return _TappedMatmul.apply(x, w, s, seed)
+
+
+def maybe_tapped_matmul(x: torch.Tensor, w: torch.Tensor,
+                        tap) -> torch.Tensor:
+    """``x @ w``, grad-fused when ``tap`` is an (s, seed) pair, the plain
+    product when it is None."""
+    if tap is None:
+        return x @ w
+    s, seed = tap
+    return tapped_matmul(x, w, s, seed)
 
 
 # ---------------------------------------------------------------------------

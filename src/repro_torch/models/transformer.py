@@ -23,7 +23,8 @@ import torch.utils.checkpoint
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (apply_rope, cross_entropy, dense_init,
-                                       embed_init, rms_norm, shift_labels)
+                                       embed_init, maybe_tapped_matmul,
+                                       rms_norm, shift_labels)
 from repro_torch.models.config import ModelConfig
 
 
@@ -93,11 +94,14 @@ def _rope_q_k(cfg: ModelConfig, q, k, positions):
             apply_rope(k, positions, cfg.rope_theta))
 
 
-def _qkv(h, pa, cfg: ModelConfig, positions):
+def _qkv(h, pa, cfg: ModelConfig, positions, taps=None):
     """Projections + bias + rotary: h (B, S, d) -> q (B, S, Hq, hd),
-    k/v (B, S, Hkv, hd)."""
+    k/v (B, S, Hkv, hd).  ``taps``: optional (S, seed) pairs by weight
+    name (grad-fused training)."""
     B, S, _ = h.shape
-    q, k, v = h @ pa["wq"], h @ pa["wk"], h @ pa["wv"]
+    taps = taps or {}
+    q, k, v = (maybe_tapped_matmul(h, pa[w], taps.get(w))
+               for w in ("wq", "wk", "wv"))
     if cfg.qkv_bias:
         q, k, v = q + pa["bq"], k + pa["bk"], v + pa["bv"]
     q = q.reshape(B, S, cfg.n_heads, cfg.hd)
@@ -107,14 +111,19 @@ def _qkv(h, pa, cfg: ModelConfig, positions):
     return q, k, v
 
 
-def mlp_block(x, p) -> torch.Tensor:
-    """Dense SwiGLU."""
-    return (F.silu(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+def mlp_block(x, p, taps=None) -> torch.Tensor:
+    """Dense SwiGLU; ``taps`` as in :func:`_qkv`."""
+    taps = taps or {}
+
+    def mm(h, w):
+        return maybe_tapped_matmul(h, p[w], taps.get(w))
+
+    return mm(F.silu(mm(x, "w_gate")) * mm(x, "w_up"), "w_down")
 
 
-def _logits(params, x) -> torch.Tensor:
+def _logits(params, x, tap=None) -> torch.Tensor:
     """Logits over the PADDED vocabulary (greedy argmax takes that width)."""
-    return x @ params["lm_head"]
+    return maybe_tapped_matmul(x, params["lm_head"], tap)
 
 
 # ---------------------------------------------------------------------------
@@ -122,14 +131,16 @@ def _logits(params, x) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def gqa_block(x, p, cfg: ModelConfig, positions) -> torch.Tensor:
+def gqa_block(x, p, cfg: ModelConfig, positions, taps=None) -> torch.Tensor:
     """Causal GQA self-attention over the whole sequence -> (B, S, d).
     ``blocked_attention`` takes every query at once; the JAX package's
-    query blocking changes no query's result."""
+    query blocking changes no query's result.  ``taps`` as in
+    :func:`_qkv`."""
     B, S, _ = x.shape
-    q, k, v = _qkv(x, p, cfg, positions)
+    q, k, v = _qkv(x, p, cfg, positions, taps)
     out = attn.blocked_attention(q, k, v, kv_block=cfg.kv_block)
-    return out.reshape(B, S, cfg.n_heads * cfg.hd) @ p["wo"]
+    return maybe_tapped_matmul(out.reshape(B, S, cfg.n_heads * cfg.hd),
+                               p["wo"], (taps or {}).get("wo"))
 
 
 def _unstack_layers(tree) -> list[dict]:
@@ -144,14 +155,35 @@ def _unstack_layers(tree) -> list[dict]:
     return list(torch.unbind(tree, dim=0))
 
 
+def _unstack_taps(layer_taps: dict, n_layers: int) -> list[dict]:
+    """The stacked per-layer taps ``{"attn": {"wq": (S, seed), ...},
+    "mlp": {...}}`` as one dict of (S_i, seed_i) views per layer, each
+    site unbound once, so each layer's backward emits its own panel into
+    the stacked seed's gradient."""
+    out: list[dict] = [{} for _ in range(n_layers)]
+    for grp, sites in layer_taps.items():
+        for name, (S, seed) in sites.items():
+            for i, pair in enumerate(zip(S.unbind(0), seed.unbind(0))):
+                out[i].setdefault(grp, {})[name] = pair
+    return out
+
+
 def decoder_forward(params, tokens: torch.Tensor, cfg: ModelConfig,
-                    remat: str = "full") -> tuple[torch.Tensor, torch.Tensor]:
+                    remat: str = "full", taps=None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward -> (logits (B, S, Vp), aux loss ()).
 
     ``remat="full"`` recomputes each layer in the backward
     (``torch.utils.checkpoint``, non-reentrant), as the JAX package's
     ``jax.checkpoint`` around the scanned block; ``"none"`` keeps every
-    activation.  Only the plain GQA decoder with dense MLPs is ported."""
+    activation.  Only the plain GQA decoder with dense MLPs is ported.
+
+    ``taps`` (optional) mirrors the taggable part of ``params``:
+    ``{"layers": {"attn": {"wq": (S, seed), ...}, "mlp": {...}},
+    "lm_head": (S, seed)}``, layer entries stacked on axis 0.  Those
+    matmuls run through :func:`repro_torch.models.common.tapped_matmul`,
+    whose backward emits the SubTrack projection statistics as the seeds'
+    gradients.  Without taps the model is the plain one."""
     ok, why = paged_supported(cfg)
     if not ok:
         raise NotImplementedError(f"training {cfg.name} is not yet ported "
@@ -162,28 +194,34 @@ def decoder_forward(params, tokens: torch.Tensor, cfg: ModelConfig,
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)[None, :]
 
-    def block(x, p):
+    def block(x, p, lt):
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
-        x = x + gqa_block(h, p["attn"], cfg, positions)
-        return x + mlp_block(rms_norm(x, p["ln2"], cfg.norm_eps), p["mlp"])
+        x = x + gqa_block(h, p["attn"], cfg, positions, lt.get("attn"))
+        return x + mlp_block(rms_norm(x, p["ln2"], cfg.norm_eps), p["mlp"],
+                             lt.get("mlp"))
 
     x = params["embed"][tokens]
-    for p in _unstack_layers(params["layers"]):
+    taps = taps or {}
+    per_layer = _unstack_layers(params["layers"])
+    layer_taps = _unstack_taps(taps.get("layers", {}), len(per_layer))
+    for p, lt in zip(per_layer, layer_taps):
         if remat == "full":
-            x = torch.utils.checkpoint.checkpoint(block, x, p,
+            x = torch.utils.checkpoint.checkpoint(block, x, p, lt,
                                                   use_reentrant=False)
         else:
-            x = block(x, p)
+            x = block(x, p, lt)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _logits(params, x), torch.zeros((), device=x.device)
+    return (_logits(params, x, taps.get("lm_head")),
+            torch.zeros((), device=x.device))
 
 
 def decoder_loss(params, batch: dict, cfg: ModelConfig,
-                 remat: str = "full"):
+                 remat: str = "full", taps=None):
     """(loss, {"ce_loss", "aux_loss"}): next-token cross entropy over the
-    real vocabulary, the last position masked."""
+    real vocabulary, the last position masked.  ``taps`` as in
+    :func:`decoder_forward`."""
     tokens = batch["tokens"]
-    logits, aux = decoder_forward(params, tokens, cfg, remat)
+    logits, aux = decoder_forward(params, tokens, cfg, remat, taps)
     labels, mask = shift_labels(tokens)
     loss = cross_entropy(logits, labels, mask, cfg.vocab_size)
     return loss + aux, {"ce_loss": loss, "aux_loss": aux}

@@ -65,11 +65,25 @@ def test_train_raises_without_cuda_unless_cpu_is_asked_for(monkeypatch):
     assert ttrain.train(argv + ["--device", "cpu"])["device"] == "cpu"
 
 
+def test_train_grad_fused_is_ported_and_stays_on_the_asked_device(
+        monkeypatch):
+    """--grad-fused runs (it raised "not yet ported" before its slice)
+    and, like every path, needs a card unless the CPU is asked for."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = ["--smoke", "--rank", "32", "--steps", "2", "--batch", "2",
+            "--seq", "8", "--grad-fused", "--use-kernels"]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ttrain.train(argv)
+    out = ttrain.train(argv + ["--device", "cpu"])
+    assert out["grad_fused"] and out["device"] == "cpu"
+    assert all(v == 0 for v in out["launch_counts"].values())
+
+
 @pytest.mark.parametrize("argv,match", [
     (["--mesh", "host"], "--mesh"),
     (["--checkpoint-dir", "ckpt"], "--checkpoint-dir"),
     (["--inject", "nan-grad@3"], "--inject"),
-    (["--grad-fused"], "--grad-fused"),
+    (["--accum", "2"], "--accum"),
     (["--remat", "dots"], "--remat dots"),
     (["--optimizer", "adamw"], "adamw"),
     (["--optimizer", "badam"], "badam"),

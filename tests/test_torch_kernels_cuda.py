@@ -248,7 +248,8 @@ def test_optimizer_dispatch_counts_launches(cuda):
     counts = ops.launch_counts()
     assert counts == {"paged_attention": 0, "project": 1,
                       "project_colnorms": 1, "tangent": 1,
-                      "adam_lowrank_norms": 1, "fused_update": 1}
+                      "adam_lowrank_norms": 1, "fused_update": 1,
+                      "grad_tap": 0}
 
 
 @pytest.mark.cuda
@@ -268,3 +269,144 @@ def test_warm_start_svd_on_the_card_spans_the_cpu_subspace(cuda):
     assert (S.mT @ S - eye).abs().max().item() < 1e-5
     torch.testing.assert_close((S @ S.mT).cpu(), S_cpu @ S_cpu.mT,
                                atol=1e-4, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# grad_tap (csrc/grad_tap.cu)
+# ---------------------------------------------------------------------------
+
+# max error over the largest entry: fp32 sums of b (dW) or b and m (A, by
+# way of P = x S) terms in another order than the oracle's
+TAP_REL = 2e-5
+
+
+def _tap_case(b, m, n, r, dtype, device, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def rn(*s):
+        return torch.randn(*s, generator=gen, device=device)
+
+    S = torch.linalg.qr(rn(m, r))[0].contiguous()
+    return rn(b, m).to(dtype), rn(b, n).to(dtype), S
+
+
+def _check_tap(got, want, out_dtype):
+    """got: the kernel's (dW, tap); want: the oracle's (dW, A, gsq)."""
+    dW, tap = got
+    dW_w, A_w, gsq_w = want
+    assert tap.shape == (A_w.shape[0] + 1, A_w.shape[1])
+    assert tap.is_contiguous() and tap.dtype == torch.float32
+    assert dW.dtype == out_dtype
+    A, gsq = tap[:-1], tap[-1]
+    if out_dtype == torch.bfloat16:
+        _bf16_close(dW, dW_w, TAP_REL)
+    else:
+        assert _rel_err(dW, dW_w) < TAP_REL
+    assert _rel_err(A, A_w) < TAP_REL
+    assert _rel_err(gsq, gsq_w) < TAP_REL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,m,n,r", [
+    (1024, 4096, 4096, 1024),       # wq wk wv wo at llama-7b
+    (1024, 4096, 11008, 1024),      # w_gate w_up, and w_down swapped
+    (1024, 4096, 32000, 1024),      # lm_head
+    (300, 200, 333, 40),            # ragged b, m, n and r
+    (4096, 512, 640, 64),           # b past the TPU's MAX_GRAD_TAP_B
+    (0, 64, 96, 16),                # no tokens: all zeros
+])
+def test_grad_tap_kernel_matches_oracle(cuda, dtype, b, m, n, r):
+    from repro_torch.kernels import grassmann as gk
+
+    x, dy, S = _tap_case(b, m, n, r, dtype, cuda)
+    want = ref.grad_tap_ref(x, dy, S)
+    got = gk.grad_tap(x, dy, S, out_dtype=dtype)
+    torch.cuda.synchronize()
+    _check_tap(got, want, dtype)
+    # the statistics are those of the fp32 dW, not of the rounded copy
+    A2, gsq2 = ref.project_colnorms_ref(S, want[0])
+    assert _rel_err(got[1][:-1], A2) < TAP_REL
+    assert _rel_err(got[1][-1], gsq2) < TAP_REL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_grad_tap_swapped_orientation_writes_the_leaf_layout(cuda, dtype):
+    """w_down (a = 11008 > b = 4096) is projected as its transpose: the
+    backward swaps x and dy and the kernel stores dW^T into the leaf's
+    (11008, 4096) row-major memory through the strided store."""
+    from repro_torch.kernels import grassmann as gk
+
+    tokens, a, bo, r = 1024, 11008, 4096, 1024
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    x = torch.randn(tokens, a, generator=gen, device=cuda).to(dtype)
+    dy = torch.randn(tokens, bo, generator=gen, device=cuda).to(dtype)
+    S = torch.linalg.qr(torch.randn(bo, r, generator=gen,
+                                    device=cuda))[0].contiguous()
+    dWT, tap = gk.grad_tap(dy, x, S, out_dtype=dtype, transposed_out=True)
+    torch.cuda.synchronize()
+    dw = dWT.mT
+    assert dw.shape == (a, bo) and dw.is_contiguous()
+    want = ref.grad_tap_ref(dy, x, S)
+    _check_tap((dWT, tap), want, dtype)
+    leaf_grad = x.float().mT @ dy.float()
+    if dtype == torch.bfloat16:
+        _bf16_close(dw, leaf_grad, TAP_REL)
+    else:
+        assert _rel_err(dw, leaf_grad) < TAP_REL
+
+
+@pytest.mark.cuda
+def test_grad_tap_reads_strided_operands(cuda):
+    from repro_torch.kernels import grassmann as gk
+
+    x, dy, S = _tap_case(256, 160, 200, 24, torch.float32, cuda, seed=5)
+    xs = x.mT.contiguous().mT                       # column-major x
+    dys = torch.cat([dy, dy], dim=1)[:, :dy.shape[1]]   # row stride 2n
+    got = gk.grad_tap(xs, dys, S)
+    _check_tap(got, ref.grad_tap_ref(x, dy, S), torch.float32)
+
+
+@pytest.mark.cuda
+def test_grad_tap_rejects_what_it_does_not_take(cuda):
+    from repro_torch.kernels import grassmann as gk
+
+    x, dy, S = _tap_case(64, 96, 80, 16, torch.float32, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        gk.grad_tap(x, dy, S.mT.contiguous().mT)
+    with pytest.raises(ValueError, match="float32"):
+        gk.grad_tap(x, dy, S.double())
+    with pytest.raises(ValueError, match="dy is"):
+        gk.grad_tap(x, dy.to(torch.bfloat16), S)
+    with pytest.raises(ValueError, match="rows"):
+        gk.grad_tap(x, dy[:10], S)
+    with pytest.raises(ValueError, match="S must be"):
+        gk.grad_tap(x, dy, S[:50])
+    with pytest.raises(ValueError, match="one CUDA device"):
+        gk.grad_tap(x.cpu(), dy, S)
+    with pytest.raises(ValueError, match="dW dtype"):
+        gk.grad_tap(x, dy, S, out_dtype=torch.float16)
+
+
+@pytest.mark.cuda
+def test_tapped_backward_launches_grad_tap_per_site(cuda):
+    """A tapped matmul's backward launches grad_tap once and nothing else
+    of the port's kernels; its gradient and tap match the CPU backward."""
+    from repro_torch.models.common import tap_seed, tapped_matmul
+
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn(2, 48, 96, generator=gen)
+    w = torch.randn(96, 160, generator=gen) / 10
+    S = torch.linalg.qr(torch.randn(96, 16, generator=gen))[0].contiguous()
+    grads = []
+    for dev in ("cpu", cuda):
+        xd, wd = (t.to(dev).requires_grad_() for t in (x, w))
+        seed = tap_seed(16, 160, device=dev).requires_grad_()
+        ops.reset_launch_counts()
+        out = tapped_matmul(xd, wd, S.to(dev), seed)
+        grads.append(torch.autograd.grad((out * out).sum(), (xd, wd, seed)))
+        counts = ops.launch_counts()
+    assert counts == {k: int(k == "grad_tap") for k in counts}
+    for a, b in zip(grads[0], grads[1]):
+        assert _rel_err(b.cpu(), a) < TAP_REL
