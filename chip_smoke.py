@@ -3,7 +3,9 @@
 
     python3 chip_smoke.py
 
-Phases; any failure raises and the script exits non-zero:
+Phases (run in this order, except that 13-15, the kernel checks of the
+llama-1b slice, run right after phase 10, before the long training runs);
+any failure raises and the script exits non-zero:
 
 1. print the card's name and power limit as nvidia-smi gives them;
 2. build every CUDA kernel of the ported paths from ``src/repro_torch/csrc``
@@ -12,8 +14,9 @@ Phases; any failure raises and the script exits non-zero:
 3. hold the paged-attention kernel against its plain-PyTorch version on the
    card, in fp32 (atol = rtol = 2e-5) and bf16 (atol 3e-2, rtol 5e-2), at
    the llama-7b decode shape (B 8, Hq = Hkv = 32, hd 128, bs 16, length
-   576), stablelm-12b's (Hq 32 / Hkv 8, hd 160), and a batch with a dead
-   lane (exactly 0 out) and partial blocks;
+   576), stablelm-12b's (Hq 32 / Hkv 8, hd 160), llama-1b's (Hq = Hkv =
+   24, hd 85: rows of scalar loads), and a batch with a dead lane (exactly
+   0 out) and partial blocks;
 4. time it with CUDA events at the llama-7b shape in bf16, beside its
    bound, its plain version, and ``scaled_dot_product_attention`` over the
    same K/V already gathered (a yardstick the port never calls);
@@ -59,7 +62,29 @@ Phases; any failure raises and the script exits non-zero:
    losses, per plain step 225 grad_tap calls (two kernels each; the count
    is of calls), 1 project_colnorms, 9 adam_lowrank_norms and 9
    fused_update, the plain path's 45 on the tracking step;
-13. print the kernels line, then ``{"ok": true, "device": {...}}`` last.
+13. hold the tracking front end ``project_tangent_colnorms`` and the unfused
+   schedule's ``backproject`` and ``recovery`` against their plain versions
+   at llama-1b's three canonical shapes (2040, 2048), (2048, 5461) and
+   (2048, 32000), rank 512, 2 matrices, G fp32 and bf16 (``OPT_REL``), a
+   ragged case, and llama-7b's (4096, 11008, r 1024), where the front end's
+   dispatch takes the project_colnorms + tangent composite (m past the
+   kernel's 2048);
+14. time the three at (2048, 5461, r 512), bf16 G, 2 matrices, beside their
+   bounds, plain versions and PyTorch expressions (TF32 off), and the front
+   end's single launch against the two-launch composite there, and the
+   composite at llama-7b's shape;
+15. run the unfused ``lowrank_adam_step(lr=None, backend=ops)`` at
+   (2048, 5461, r 512) on CUDA and on the CPU from the same state: the same
+   step (``UNFUSED_REL``), exactly 1 project, 1 backproject and 1 recovery
+   launch on CUDA and none on the CPU;
+16. train llama-1b (full width and depth: 32 layers, d 2048, hd 85, d_ff
+   5461, rank 512, bf16) through ``repro_torch.launch.train.train``: 4
+   steps, update interval 2 (plain 0, 1, 3; tracking 2), batch 4 x 512,
+   remat full, eta 10; finite losses, 3 launches per low-rank leaf per plain
+   step and 4 on the tracking step (the single-launch front end, then
+   project, adam_lowrank_norms, fused_update); warm start, step times,
+   tokens/s and peak memory printed;
+17. print the kernels line, then ``{"ok": true, "device": {...}}`` last.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero and prints no result.
@@ -142,7 +167,8 @@ def phase_build() -> None:
     t0 = time.perf_counter()
     report = build.build(["paged_attention", "grassmann_project",
                           "grassmann_tangent", "adam_lowrank_norms",
-                          "fused_update", "grad_tap"])
+                          "fused_update", "grad_tap",
+                          "grassmann_tangent_front", "grassmann_backproject"])
     for name, r in report.items():
         regs = [ln.strip() for ln in r["ptxas"].splitlines() if "Used" in ln]
         print(f"[build] {name}.cu: nvcc {r['seconds']:.1f}s; {regs}",
@@ -160,6 +186,7 @@ def phase_check_paged_attention() -> float:
     cases = {
         "llama-7b": (8, 32, 32, 128, 16, [576] * 8),
         "stablelm-12b": (8, 32, 8, 160, 16, [576] * 8),
+        "llama-1b hd 85": (8, 24, 24, 85, 16, [576] * 8),
         "dead-lane+partial": (4, 32, 8, 128, 16, [0, 1, 300, 576]),
     }
     err_7b = math.nan
@@ -598,19 +625,25 @@ def _state_to(state, device):
                         *(t.to(device) for t in st)), state.inner))
 
 
-def _launches_want(steps: int, tracking: int, tapped_sites: int = 0
-                   ) -> dict:
+def _launches_want(steps: int, tracking: int, tapped_sites: int = 0,
+                   single_front: bool = False) -> dict:
     """Exact launch counts of ``steps`` train steps, ``tracking`` of them
-    tracking steps: 3 launches per low-rank leaf on a plain step, 5 on a
-    tracking step; a grad-fused plain step (``tapped_sites`` > 0) launches
-    grad_tap once per tapped matmul and project_colnorms only for the
-    untapped low-rank leaf (embed)."""
+    tracking steps: 3 launches per low-rank leaf on a plain step; on a
+    tracking step 5 where the front end is the project_colnorms + tangent
+    composite (m > 2048: llama-7b), 4 where it is the single launch
+    (``single_front``: llama-1b, and the smoke llama).  A grad-fused plain
+    step (``tapped_sites`` > 0) launches grad_tap once per tapped matmul
+    and project_colnorms only for the untapped low-rank leaf (embed)."""
     plain = steps - tracking
+    composite = 0 if single_front else N_LOWRANK_LEAVES * tracking
     return {"paged_attention": 0,
-            "project_colnorms": N_LOWRANK_LEAVES * tracking
+            "project_colnorms": composite
             + (N_UNTAPPED_LOWRANK if tapped_sites else N_LOWRANK_LEAVES)
             * plain,
-            "tangent": N_LOWRANK_LEAVES * tracking,
+            "tangent": composite,
+            "project_tangent_colnorms": N_LOWRANK_LEAVES * tracking
+            if single_front else 0,
+            "backproject": 0, "recovery": 0,
             "project": N_LOWRANK_LEAVES * tracking,
             "adam_lowrank_norms": N_LOWRANK_LEAVES * steps,
             "fused_update": N_LOWRANK_LEAVES * steps,
@@ -666,7 +699,8 @@ def phase_train_smoke() -> None:
             raise AssertionError(f"smoke training ({name}): CUDA "
                                  f"{cuda_losses} vs CPU {cpu_losses} (max "
                                  f"diff {diff:.3e})")
-        want = _launches_want(steps, tracking, sites if grad_fused else 0)
+        want = _launches_want(steps, tracking, sites if grad_fused else 0,
+                              single_front=True)
         if cuda_counts != want or any(cpu_counts.values()):
             raise AssertionError(f"smoke training ({name}) launches: CUDA "
                                  f"{cuda_counts} (want {want}), CPU "
@@ -851,6 +885,297 @@ def phase_train_7b_grad_fused(trained: dict) -> dict:
             "tok_s": tok_s, "peak_gib": peak / 2**30}
 
 
+# ---------------------------------------------------------------------------
+# The llama-1b slice: the tracking front end, the unfused schedule, training
+# ---------------------------------------------------------------------------
+
+FRONT_KERNELS = {   # name -> (CUDA source, def line of the TPU kernel)
+    "project_tangent_colnorms": ("grassmann_tangent_front.cu", 347),
+    "backproject": ("grassmann_backproject.cu", 149),
+    "recovery": ("grassmann_backproject.cu", 230),
+}
+# max |kernel - plain| over max |plain|, per output: sums over m = 2048 or
+# n up to 32000 (A, the norms, W) or over r (backproject, recovery) in
+# another order; T's two terms cancel, and the kernel forms S (S^T W)
+# where the plain version forms S (A A^T)
+FRONT_REL = {"A": 2e-5, "gsq": 2e-5, "T": 1e-4, "backproject": 2e-5,
+             "recovery": 2e-5}
+RANK_1B = 512
+FRONT_SHAPES = {   # name -> (m, n, r, G a transposed view)
+    "wq..wo (2040, 2048)": (2040, 2048, RANK_1B, True),
+    "w_gate, w_up (2048, 5461)": (2048, 5461, RANK_1B, False),
+    "embed (2048, 32000)": (2048, 32000, RANK_1B, True),
+    "ragged (1000, 777, r 129)": (1000, 777, 129, True),
+}
+TIMED_1B = (2048, 5461)
+UNFUSED_REL = 1e-4   # the step's direction, CUDA vs CPU: Adam divides by sqrt(V)
+
+
+def _front_inputs(m, n, r, gdtype, seed, transposed=False):
+    """A batch of 2: orthonormal S, G in ``gdtype`` (an (n, m) buffer seen
+    as (m, n) when ``transposed``: a canonical w_down or embed), X / Gt and
+    phi, on the card."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    G = rn(2, n, m).to(gdtype).mT if transposed else rn(2, m, n).to(gdtype)
+    return dict(S=torch.linalg.qr(rn(2, m, r))[0].contiguous(), G=G,
+                X=rn(2, r, n), phi=rn(2, n).abs())
+
+
+def _front_calls(x, impl):
+    from repro_torch.kernels import grassmann as gk
+    from repro_torch.kernels import ref
+
+    S, G, X, phi = x["S"], x["G"], x["X"], x["phi"]
+    if impl == "kernel":
+        return {"project_tangent_colnorms": lambda: gk.project_tangent_colnorms(S, G),
+                "backproject": lambda: gk.backproject(S, X),
+                "recovery": lambda: gk.recovery(S, G, X, phi)}
+    return {"project_tangent_colnorms": lambda: ref.project_tangent_colnorms_ref(S, G),
+            "backproject": lambda: ref.backproject_ref(S, X),
+            "recovery": lambda: ref.recovery_ref(G, S, X, phi)}
+
+
+def phase_check_front() -> dict:
+    """The three kernels against their plain versions at llama-1b's shapes
+    and a ragged one, G fp32 and bf16; the front end's dispatch at llama-7b's
+    m = 4096 (the composite).  Returns name -> max abs error at the timed
+    shape in bf16."""
+    from repro_torch.kernels import grassmann as gk
+    from repro_torch.kernels import ops, ref
+
+    if gk._lib("grassmann_tangent_front").tangent_front_max_m() \
+            != gk.MAX_FRONT_M:
+        raise AssertionError("MAX_FRONT_M differs from the kernel's limit")
+    errs = {}
+    for i, (name, (m, n, r, tr)) in enumerate(FRONT_SHAPES.items()):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = _front_inputs(m, n, r, dtype, SEED + i, tr)
+            kern, plain = _front_calls(x, "kernel"), _front_calls(x, "plain")
+            line = []
+            for kname in FRONT_KERNELS:
+                got = kern[kname]()
+                torch.cuda.synchronize()
+                want = plain[kname]()
+                parts = (zip(("A", "gsq", "T"), got, want)
+                         if kname == "project_tangent_colnorms"
+                         else [(kname, got, want)])
+                for part, g, w in parts:
+                    abs_err, rel = _opt_error(g, w)
+                    if rel > FRONT_REL[part]:
+                        raise AssertionError(
+                            f"{kname} {part} at {name} {dtype}: error "
+                            f"{rel:.3e} of the largest entry > "
+                            f"{FRONT_REL[part]:g}")
+                    if (m, n) == TIMED_1B and dtype == torch.bfloat16:
+                        errs[kname] = max(errs.get(kname, 0.0), abs_err)
+                    line.append(f"{part} {abs_err:.2e} ({rel:.1e})")
+            del x, kern, plain
+            print(f"[check] {name} r {r} x2 {dtype}: max abs err (of "
+                  f"largest entry) " + ", ".join(line), flush=True)
+    # llama-7b: m = 4096 is past the single launch; the dispatch composes
+    x = _front_inputs(4096, 11008, RANK_7B, torch.bfloat16, SEED)
+    try:
+        gk.project_tangent_colnorms(x["S"], x["G"])
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("the single launch took m = 4096")
+    ops.reset_launch_counts()
+    got = ops.project_tangent_colnorms(x["S"], x["G"])
+    counts = ops.launch_counts()
+    if (counts["project_tangent_colnorms"], counts["project_colnorms"],
+            counts["tangent"]) != (0, 1, 1):
+        raise AssertionError(f"llama-7b front end launches {counts}")
+    line = []
+    for part, g, w in zip(("A", "gsq", "T"), got,
+                          ref.project_tangent_colnorms_ref(x["S"], x["G"])):
+        abs_err, rel = _opt_error(g, w)
+        if rel > FRONT_REL[part]:
+            raise AssertionError(f"llama-7b front end {part}: {rel:.3e}")
+        line.append(f"{part} {abs_err:.2e} ({rel:.1e})")
+    print(f"[check] front end at llama-7b (4096, 11008, r {RANK_7B}) x2 bf16 "
+          f"(m past {gk.MAX_FRONT_M}: project_colnorms + tangent): "
+          + ", ".join(line), flush=True)
+    return errs
+
+
+def phase_time_front() -> dict:
+    """The three kernels at (2048, 5461, r 512), 2 matrices, bf16 G, beside
+    their bounds, plain versions and PyTorch expressions; the front end's
+    single launch against its two-launch composite, there and (composite
+    only, m past the limit) at llama-7b's (4096, 11008, r 1024)."""
+    from repro_torch.kernels import grassmann as gk
+
+    m, n = TIMED_1B
+    r, b, g = RANK_1B, 2, 2            # matrices, bytes per bf16 element
+    x = _front_inputs(m, n, r, torch.bfloat16, SEED)
+    kern, plain = _front_calls(x, "kernel"), _front_calls(x, "plain")
+    S, G, X, phi = x["S"], x["G"], x["X"], x["phi"]
+
+    def library_front():
+        G32 = G.float()
+        A = S.mT @ G32
+        W = G32 @ A.mT
+        return A, (G32 * G32).sum(-2), -2.0 * W + 2.0 * (S @ (A @ A.mT))
+
+    library = {"project_tangent_colnorms": library_front,
+               "backproject": lambda: S @ X,
+               "recovery": lambda: (G.float() - S @ X) * phi[..., None, :]}
+    # bytes each function must move (inputs once, outputs once) and the
+    # fp32 operations it needs, per the whole batch
+    work = {
+        "project_tangent_colnorms": (
+            b * (4 * m * r + g * m * n + 4 * r * n + 4 * n + 4 * m * r),
+            b * (4 * m * n * r + 4 * m * r * r + 2 * m * n + 2 * m * r)),
+        "backproject": (b * (4 * m * r + 4 * r * n + 4 * m * n),
+                        b * 2 * m * n * r),
+        "recovery": (b * (4 * m * r + g * m * n + 4 * r * n + 4 * n
+                          + 4 * m * n),
+                     b * (2 * m * n * r + 2 * m * n)),
+    }
+    out = {}
+    for name in FRONT_KERNELS:
+        nbytes, flops = work[name]
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / FP32_FLOPS * 1e3
+        res = {"ms": _time_ms(kern[name], iters=10, repeats=3),
+               "plain_ms": _time_ms(plain[name], iters=10, repeats=3),
+               "library_ms": _time_ms(library[name], iters=10, repeats=3),
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        out[name] = res
+        print(f"[time] {name} ({m}, {n}, r {r}) x{b} bf16 G: kernel "
+              f"{res['ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
+              f"({res['bound_by']}: {nbytes / 1e6:.1f} MB, "
+              f"{flops / 1e9:.1f} GFLOP fp32), plain {res['plain_ms']:.4f} "
+              f"ms, torch expression {res['library_ms']:.4f} ms", flush=True)
+
+    def composite(S, G):
+        A, gsq = gk.project_colnorms(S, G)
+        return A, gsq, gk.tangent(G, A, S)
+
+    comp_ms = _time_ms(lambda: composite(S, G), iters=10, repeats=3)
+    out["project_tangent_colnorms"]["composite_ms"] = comp_ms
+    clusters = gk._lib("grassmann_tangent_front").tangent_front_active_clusters(m)
+    print(f"[time] front end ({m}, {n}, r {r}) x{b} bf16 G: single launch "
+          f"{out['project_tangent_colnorms']['ms']:.4f} ms, project_colnorms "
+          f"+ tangent {comp_ms:.4f} ms (single / composite "
+          f"{out['project_tangent_colnorms']['ms'] / comp_ms:.2f}); "
+          f"{b * -(-r // 128)} clusters of {-(-m // 128)} CTAs, {clusters} "
+          f"resident at once", flush=True)
+    del x, kern, plain, S, G, X, phi
+    # a whole layer stack, as the llama-1b tracking step launches it
+    x32 = _front_inputs(m, n, r, torch.bfloat16, SEED)
+    S32 = x32["S"].repeat(16, 1, 1)
+    G32 = x32["G"].repeat(16, 1, 1)
+    del x32
+    single32 = _time_ms(lambda: gk.project_tangent_colnorms(S32, G32),
+                        iters=2, repeats=3)
+    comp32 = _time_ms(lambda: composite(S32, G32), iters=2, repeats=3)
+    out["project_tangent_colnorms"].update(stack32_ms=single32,
+                                           stack32_composite_ms=comp32)
+    print(f"[time] front end ({m}, {n}, r {r}) x32 (one llama-1b leaf) bf16 "
+          f"G: single launch {single32:.4f} ms, project_colnorms + tangent "
+          f"{comp32:.4f} ms (single / composite {single32 / comp32:.2f})",
+          flush=True)
+    del S32, G32
+    x7 = _front_inputs(4096, 11008, RANK_7B, torch.bfloat16, SEED)
+    comp7 = _time_ms(lambda: composite(x7["S"], x7["G"]), iters=5, repeats=3)
+    out["project_tangent_colnorms"]["composite_7b_ms"] = comp7
+    print(f"[time] front end (4096, 11008, r {RANK_7B}) x2 bf16 G: "
+          f"project_colnorms + tangent {comp7:.4f} ms; the single launch "
+          f"takes m <= {gk.MAX_FRONT_M} only", flush=True)
+    return out
+
+
+def phase_unfused_step() -> dict:
+    """lowrank_adam_step(lr=None, backend=ops) at (2048, 5461, r 512), 2
+    matrices, bf16 G, on CUDA and on the CPU from the same state."""
+    from repro_torch.core import lowrank_adam as tla
+    from repro_torch.kernels import ops
+
+    m, n = TIMED_1B
+    r = RANK_1B
+    x = _front_inputs(m, n, r, torch.bfloat16, SEED + 7)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 8)
+    st = tla.MatrixOptState(
+        S=x["S"], M=0.1 * torch.randn(2, r, n, generator=gen, device="cuda"),
+        V=0.01 * torch.randn(2, r, n, generator=gen, device="cuda").abs(),
+        lam_prev=torch.tensor([0.0, 1.0], device="cuda"))
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        ops.reset_launch_counts()
+        out = tla.lowrank_adam_step(
+            x["G"].to(dev), tla.MatrixOptState(*(t.to(dev) for t in st)), 3,
+            tla.AdamHP(), backend=ops)
+        if dev == "cuda":
+            torch.cuda.synchronize()
+        runs[dev] = (out, ops.launch_counts())
+    (cuda_out, cuda_counts), (cpu_out, cpu_counts) = runs["cuda"], runs["cpu"]
+    want = {k: int(k in ("project", "backproject", "recovery"))
+            for k in cuda_counts}
+    if cuda_counts != want or any(cpu_counts.values()):
+        raise AssertionError(f"unfused step launches: CUDA {cuda_counts}, "
+                             f"CPU {cpu_counts}")
+    _, rel = _opt_error(cuda_out.delta.cpu(), cpu_out.delta)
+    _, rel_lam = _opt_error(cuda_out.state.lam_prev.cpu(),
+                            cpu_out.state.lam_prev)
+    if not (rel <= UNFUSED_REL and rel_lam <= UNFUSED_REL
+            and torch.isfinite(cuda_out.delta).all()):
+        raise AssertionError(f"unfused step: CUDA vs CPU {rel:.3e}, "
+                             f"lam {rel_lam:.3e}")
+    print(f"[unfused] lowrank_adam_step(lr=None, backend=ops) at ({m}, {n}, "
+          f"r {r}) x2 bf16 G: direction CUDA vs CPU {rel:.2e} of the largest "
+          f"entry (budget {UNFUSED_REL:g}), lam {rel_lam:.2e}; CUDA launches "
+          f"project 1, backproject 1, recovery 1; CPU none", flush=True)
+    return cuda_counts
+
+
+def phase_train_1b() -> dict:
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import train
+
+    steps, k, batch, seq = 4, 2, 4, 512
+    gc.collect()
+    torch.cuda.empty_cache()          # the earlier phases' blocks
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    out = train(["--arch", "llama-1b", "--optimizer", "subtrack",
+                 "--use-kernels", "--steps", str(steps), "--update-interval",
+                 str(k), "--warmup", "2", "--batch", str(batch), "--seq",
+                 str(seq), "--eta", "10", "--remat", "full", "--seed",
+                 str(SEED), "--log-every", "1"])
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hist = out["history"]
+    if out["rank"] != RANK_1B:
+        raise AssertionError(f"llama-1b rank {out['rank']}")
+    if not all(h["loss"] is not None and math.isfinite(h["loss"])
+               for h in hist):
+        raise AssertionError(f"llama-1b: losses {out['losses']}")
+    tracking = [h["step"] for h in hist if h["subspace_update"]]
+    if tracking != [2]:
+        raise AssertionError(f"llama-1b: tracking steps {tracking}")
+    want = _launches_want(steps, 1, single_front=True)
+    if launches != want:
+        raise AssertionError(f"llama-1b launches {launches}, want {want} "
+                             f"(3 per leaf per plain step, 4 per tracking)")
+    plain_s = [h["dt"] for h in hist if not h["subspace_update"]]
+    track_s = [h["dt"] for h in hist if h["subspace_update"]][0]
+    tok_s = batch * seq / (sum(plain_s[1:]) / len(plain_s[1:]))
+    print(f"[train] llama-1b bf16, rank {out['rank']}, batch {batch} x "
+          f"{seq}: warm start {out['warm_start_s']:.2f}s (loss "
+          f"{out['warm_loss']:.4f}); losses {out['losses']}; plain steps "
+          f"{[round(t, 3) for t in plain_s]} s (step 0 cold), tracking step "
+          f"{track_s:.3f} s; {tok_s:.1f} tok/s on warm plain steps; peak "
+          f"memory {peak / 2**30:.2f} GiB; launches {launches}", flush=True)
+    return {"launches": launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -871,9 +1196,13 @@ def main() -> int:
     tap_err = phase_check_grad_tap()
     tap_time = phase_time_grad_tap()
     phase_train_smoke()
+    front_err = phase_check_front()
+    front_time = phase_time_front()
+    unfused = phase_unfused_step()
     phase_time_svd()
     trained = phase_train_7b()
     fused = phase_train_7b_grad_fused(trained)
+    trained_1b = phase_train_1b()
     kernels = [{
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_attention.cu",
@@ -904,6 +1233,18 @@ def main() -> int:
         "plain_ms": tap_time["plain_ms"], "bound_ms": tap_time["bound_ms"],
         "bound_by": tap_time["bound_by"],
         "library_ms": tap_time["library_ms"]})
+    for name, (src, line) in FRONT_KERNELS.items():
+        t = front_time[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{src}",
+            "replaces": f"src/repro/kernels/grassmann.py:{line}",
+            "launches": (trained_1b["launches"][name]
+                         if name == "project_tangent_colnorms"
+                         else unfused[name]),
+            "max_abs_err": front_err[name], "ms": t["ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -205,26 +205,32 @@ def lowrank_adam_step(G, st: MatrixOptState, step: int, hp: AdamHP, *,
     delta``); with ``lr`` the final-dtype update, lr, scale, clip and
     decoupled weight decay folded in.  With ``backend``
     (:mod:`repro_torch.kernels.ops`) and ``lr`` this is the fused schedule
-    (:func:`_fused_step`); without a backend the paper-literal unfused
-    schedule in plain PyTorch.  ``step`` is the Python int count of
+    (:func:`_fused_step`); otherwise the paper-literal unfused schedule,
+    whose (m, n) products run through the backend's ``project``,
+    ``backproject`` and ``recovery`` when one is given (the JAX package's
+    legacy contract) and in plain PyTorch when not.  ``step`` is the
+    Python int count of
     updates applied so far.  ``precomputed_proj`` (S^T G on the current
     basis) and ``precomputed_gsq`` (||G_:,j||^2) together are the
     grad-fused plain step's tap; ``precomputed_gsq`` alone is the
     tracking step's harvested norms."""
     S = st.S if S_new is None else S_new
     out_dtype = out_dtype or torch.float32
-    if backend is not None:
-        if lr is None:
-            raise NotImplementedError(
-                "the unfused kernel schedule (backproject, recovery) is not "
-                "yet ported: pass lr for the fused one")
+    if backend is not None and lr is not None:
         proj = precomputed_proj if precomputed_gsq is not None else None
         return _fused_step(G, st, step, hp, rotated, S, recovery, backend,
                            lr, weight_decay, param, out_dtype,
                            gsq=precomputed_gsq, proj=proj)
 
-    G = G.float()
-    Gt = precomputed_proj if precomputed_proj is not None else S.mT @ G
+    # the kernels widen G per tile (exactly, as the JAX package's fp32 copy
+    # does), so G keeps its dtype on the backend's path
+    G = G if backend is not None else G.float()
+    if precomputed_proj is not None:
+        Gt = precomputed_proj
+    elif backend is not None:
+        Gt = backend.project(S, G)
+    else:
+        Gt = S.mT @ G
     M_prev, V_prev = (st.M, st.V) if rotated is None else rotated
     M = hp.beta1 * M_prev + (1.0 - hp.beta1) * Gt
     V = hp.beta2 * V_prev + (1.0 - hp.beta2) * (Gt * Gt)
@@ -235,14 +241,17 @@ def lowrank_adam_step(G, st: MatrixOptState, step: int, hp: AdamHP, *,
     else:
         m_hat, v_hat = M, V
     Gto = m_hat / (torch.sqrt(v_hat) + hp.eps)
-    Ghat = S @ Gto
+    Ghat = backend.backproject(S, Gto) if backend is not None else S @ Gto
 
     lam_new = st.lam_prev
     if recovery:
         num = torch.linalg.vector_norm(Gto, dim=-2)
         den = torch.linalg.vector_norm(Gt, dim=-2)
         phi = num / torch.clamp_min(den, _TINY)
-        Lam = (G - S @ Gt) * phi[..., None, :]
+        if backend is not None:
+            Lam = backend.recovery(S, G, Gt.contiguous(), phi)
+        else:
+            Lam = (G - S @ Gt) * phi[..., None, :]
         lam_norm = torch.sqrt((Lam * Lam).sum(dim=(-2, -1)))
         scale, lam_new = _limiter(lam_norm, st.lam_prev, hp.zeta)
         Lam = Lam * scale[..., None, None]

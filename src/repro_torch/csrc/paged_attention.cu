@@ -15,7 +15,10 @@
 //     lives in table word p / bs at offset p % bs, so any block size works
 //     and only words j < ceil(len / bs) are ever read (the TPU's
 //     `pl.when(j * bs < length)`).  K and V rows go through shared memory
-//     with 16-byte loads and are widened to fp32 there.
+//     and are widened to fp32 there: with 16-byte loads where a row is a
+//     whole number of 16-byte words (hd % 4 in fp32, hd % 8 in bf16) and the
+//     arrays are 16-byte aligned, else one element per load (llama-1b's
+//     hd 85), so any hd up to 256 works.
 //   * GQA: query head h*G + g belongs to KV head h, so the G query rows of
 //     one CTA are contiguous in q and in the output, and each K/V row is
 //     read from device memory once for all G heads.
@@ -63,6 +66,7 @@ struct Io<float> {
     dst[2] = v.z;
     dst[3] = v.w;
   }
+  __device__ static float one(const float* src) { return *src; }
   __device__ static float store(float x) { return x; }
 };
 
@@ -79,7 +83,22 @@ struct Io<__nv_bfloat16> {
       dst[2 * i + 1] = f.y;
     }
   }
+  __device__ static float one(const __nv_bfloat16* src) { return __bfloat162float(*src); }
   __device__ static __nv_bfloat16 store(float x) { return __float2bfloat16(x); }
+};
+
+// kVec elements of a row widened to fp32: one 16-byte load (kWide) or one
+// element.
+template <typename T, bool kWide>
+struct RowIo {
+  static constexpr int kVec = kWide ? Io<T>::kVec : 1;
+  __device__ static void load(const T* src, float* dst) {
+    if constexpr (kWide) {
+      Io<T>::load(src, dst);
+    } else {
+      dst[0] = Io<T>::one(src);
+    }
+  }
 };
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -100,13 +119,14 @@ size_t smem_bytes(int G, int hd) {
                           (size_t)G * kTile + (size_t)3 * G);
 }
 
-template <typename T>
+template <typename T, bool kWide>
 __global__ void __launch_bounds__(kThreads)
 paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
                        const T* __restrict__ v_pool, const int* __restrict__ tables,
                        const int* __restrict__ lengths, T* __restrict__ out, int Hkv,
                        int G, int hd, int bs, int W, int nb, float scale) {
-  constexpr int kVec = Io<T>::kVec;
+  using Row = RowIo<T, kWide>;
+  constexpr int kVec = Row::kVec;
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int tid = threadIdx.x;
@@ -127,7 +147,7 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
 
   const size_t q_row0 = (size_t)b * Hkv * G + (size_t)h * G;  // first query head
   const T* q_src = q + q_row0 * hd;
-  for (int i = tid; i < G * hdv; i += kThreads) Io<T>::load(q_src + i * kVec, q_s + i * kVec);
+  for (int i = tid; i < G * hdv; i += kThreads) Row::load(q_src + i * kVec, q_s + i * kVec);
   for (int i = tid; i < G * hd; i += kThreads) acc_s[i] = 0.f;
   for (int g = tid; g < G; g += kThreads) {
     m_s[g] = kNegInf;
@@ -157,8 +177,8 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
         continue;
       }
       const size_t off = (((size_t)blk * bs + p % bs) * Hkv + h) * hd + c;
-      Io<T>::load(k_pool + off, kd);
-      Io<T>::load(v_pool + off, vd);
+      Row::load(k_pool + off, kd);
+      Row::load(v_pool + off, vd);
     }
     __syncthreads();
 
@@ -209,21 +229,36 @@ paged_attention_kernel(const T* __restrict__ q, const T* __restrict__ k_pool,
   }
 }
 
+template <typename T, bool kWide>
+cudaError_t launch_rows(const void* q, const void* k_pool, const void* v_pool, const int* tables,
+                        const int* lengths, void* out, int B, int Hkv, int G, int hd, int bs,
+                        int W, int nb, float scale, cudaStream_t stream) {
+  const size_t smem = smem_bytes(G, hd);
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(paged_attention_kernel<T, kWide>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid(Hkv, B);
+  paged_attention_kernel<T, kWide><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k_pool), static_cast<const T*>(v_pool),
+      tables, lengths, static_cast<T*>(out), Hkv, G, hd, bs, W, nb, scale);
+  return cudaGetLastError();
+}
+
+// 16-byte loads where every row starts on a 16-byte word, else scalar ones.
 template <typename T>
 cudaError_t launch(const void* q, const void* k_pool, const void* v_pool, const int* tables,
                    const int* lengths, void* out, int B, int Hkv, int G, int hd, int bs, int W,
                    int nb, float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes(G, hd);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        paged_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid(Hkv, B);
-  paged_attention_kernel<T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k_pool), static_cast<const T*>(v_pool),
-      tables, lengths, static_cast<T*>(out), Hkv, G, hd, bs, W, nb, scale);
-  return cudaGetLastError();
+  const bool wide = hd % Io<T>::kVec == 0 &&
+                    ((uintptr_t)q | (uintptr_t)k_pool | (uintptr_t)v_pool) % 16 == 0;
+  if (wide)
+    return launch_rows<T, true>(q, k_pool, v_pool, tables, lengths, out, B, Hkv, G, hd, bs, W,
+                                nb, scale, stream);
+  return launch_rows<T, false>(q, k_pool, v_pool, tables, lengths, out, B, Hkv, G, hd, bs, W,
+                               nb, scale, stream);
 }
 
 }  // namespace
@@ -235,8 +270,8 @@ size_t paged_attention_smem_bytes(int G, int hd) { return smem_bytes(G, hd); }
 
 // dtype: 0 = float32, 1 = bfloat16.  Shapes: q (B, Hkv*G, hd); pools
 // (nb, bs, Hkv, hd); tables (B, W) int32; lengths (B,) int32; out like q.
-// All contiguous, pointers 16-byte aligned, hd % 8 == 0 (checked by the
-// Python wrapper).  Launches on `stream`; returns the launch's error.
+// All contiguous, hd <= 256 (checked by the Python wrapper).  Launches on
+// `stream`; returns the launch's error.
 int paged_attention_launch(const void* q, const void* k_pool, const void* v_pool,
                            const int* tables, const int* lengths, void* out, int dtype, int B,
                            int Hkv, int G, int hd, int bs, int W, int nb, float scale,

@@ -2,6 +2,8 @@
 
     project, project_colnorms   csrc/grassmann_project.cu
     tangent                     csrc/grassmann_tangent.cu
+    project_tangent_colnorms    csrc/grassmann_tangent_front.cu
+    backproject, recovery       csrc/grassmann_backproject.cu
     adam_lowrank_norms          csrc/adam_lowrank_norms.cu
     fused_update                csrc/fused_update.cu
     grad_tap                    csrc/grad_tap.cu
@@ -14,9 +16,13 @@ the H100.  Every kernel but ``grad_tap`` (called per layer from the
 backward) takes a leading batch dim (one matrix per index, one launch
 for a whole layer stack) and accumulates in fp32 on CUDA
 cores.  There is no shape gate: ragged tiles are masked in the kernels
-(the TPU's 256-multiples were MXU/VMEM limits).
+(the TPU's 256-multiples were MXU/VMEM limits).  One kernel has a size
+limit of its own: ``project_tangent_colnorms`` takes m <= ``MAX_FRONT_M``
+(a thread-block cluster of at most 16 CTAs holds the whole m extent, 128
+rows each; ``csrc/grassmann_tangent_front.cu``).
 
-Inputs the kernels read in place through strides: the gradient G and,
+Inputs the kernels read in place through strides: the gradient G (also
+in ``recovery``) and,
 in ``fused_update``, the parameter and the output, so the transposed
 canonical view of a ``(.., n, m)`` leaf needs no copy; in ``grad_tap``,
 x, dy and the dW it writes.  Every other
@@ -50,7 +56,14 @@ _SIGNATURES = {
     "fused_update": ("fused_update_launch",
                      [_vp] * 11 + [_i] * 8 + [_vp]),
     "grad_tap": ("grad_tap_launch", [_vp] * 6 + [_i] * 7 + [_ll] * 6 + [_vp]),
+    "grassmann_tangent_front": ("tangent_front_launch",
+                                [_vp] * 6 + [_i] * 5 + [_ll] * 3 + [_vp]),
+    "grassmann_backproject": ("grassmann_backproject_launch",
+                              [_vp] * 5 + [_i] * 6 + [_ll] * 3 + [_vp]),
 }
+# the tallest matrix project_tangent_colnorms takes in one launch: 16 CTAs
+# of a cluster x 128 rows each (tangent_front_max_m() of its library)
+MAX_FRONT_M = 2048
 
 
 @functools.cache
@@ -65,6 +78,13 @@ def _lib(name: str) -> ctypes.CDLL:
     if name == "grad_tap":
         lib.grad_tap_scratch_bytes.argtypes = [_i] * 4
         lib.grad_tap_scratch_bytes.restype = _ll
+    if name == "grassmann_tangent_front":
+        lib.tangent_front_scratch_bytes.argtypes = [_i] * 4
+        lib.tangent_front_scratch_bytes.restype = _ll
+        lib.tangent_front_max_m.argtypes = []
+        lib.tangent_front_max_m.restype = _i
+        lib.tangent_front_active_clusters.argtypes = [_i]
+        lib.tangent_front_active_clusters.restype = _i
     return lib
 
 
@@ -178,6 +198,82 @@ def tangent(G: torch.Tensor, A: torch.Tensor,
             *G3.stride(), _stream(dev))
     tangent.launches += 1
     return T.reshape(lead + (m, r))
+
+
+def project_tangent_colnorms(S: torch.Tensor, G: torch.Tensor
+                             ) -> tuple[torch.Tensor, torch.Tensor,
+                                        torch.Tensor]:
+    """(A = S^T G, ||G_:,j||^2, T = -2 W + 2 S (S^T W)) with W = G A^T,
+    from one launch: S (..., m, r) fp32 contiguous, G (..., m, n) fp32 or
+    bf16, any strides -> ((..., r, n), (..., n), (..., m, r)) fp32.  Takes
+    m <= MAX_FRONT_M and raises ValueError past it."""
+    if G.dim() < 2:
+        raise ValueError(f"G must be (..., m, n); got {tuple(G.shape)}")
+    lead, (m, n) = tuple(G.shape[:-2]), tuple(G.shape[-2:])
+    r = S.shape[-1]
+    if m > MAX_FRONT_M:
+        raise ValueError(f"m = {m} is past the single launch's limit of "
+                         f"{MAX_FRONT_M} rows (16 CTAs x 128)")
+    _shape("S", S, lead + (m, r))
+    _fp32_contiguous(S=S)
+    dtype = _float_dtype("G", G)
+    dev = _device(S=S, G=G)
+    G3 = _stack3(G)
+    batch = G3.shape[0]
+    A = torch.empty((batch, r, n), dtype=torch.float32, device=dev)
+    gsq = torch.empty((batch, n), dtype=torch.float32, device=dev)
+    T = torch.empty((batch, m, r), dtype=torch.float32, device=dev)
+    lib = _lib("grassmann_tangent_front")
+    scratch = torch.empty((lib.tangent_front_scratch_bytes(batch, m, n, r),),
+                          dtype=torch.uint8, device=dev)
+    _launch("grassmann_tangent_front", S.data_ptr(), G3.data_ptr(),
+            A.data_ptr(), gsq.data_ptr(), T.data_ptr(), scratch.data_ptr(),
+            dtype, batch, m, n, r, *G3.stride(), _stream(dev))
+    project_tangent_colnorms.launches += 1
+    return (A.reshape(lead + (r, n)), gsq.reshape(lead + (n,)),
+            T.reshape(lead + (m, r)))
+
+
+def _backproject(S, X, G, phi):
+    recovery = G is not None
+    if S.dim() < 2 or X.dim() < 2:
+        raise ValueError("S and X must be (..., m, r) and (..., r, n)")
+    lead, (m, r) = tuple(S.shape[:-2]), tuple(S.shape[-2:])
+    n = X.shape[-1]
+    _shape("X", X, lead + (r, n))
+    _fp32_contiguous(S=S, X=X, phi=phi)
+    if recovery:
+        _shape("G", G, lead + (m, n))
+        _shape("phi", phi, lead + (n,))
+    dtype = _float_dtype("G", G) if recovery else 0
+    dev = _device(S=S, X=X, G=G, phi=phi)
+    batch = _stack3(S).shape[0]
+    G3 = _stack3(G) if recovery else None
+    out = torch.empty((batch, m, n), dtype=torch.float32, device=dev)
+    _launch("grassmann_backproject", S.data_ptr(), X.data_ptr(),
+            G3.data_ptr() if recovery else None,
+            phi.data_ptr() if recovery else None, out.data_ptr(), dtype,
+            int(recovery), batch, m, n, r,
+            *(G3.stride() if recovery else (0, 0, 0)), _stream(dev))
+    return out.reshape(lead + (m, n))
+
+
+def backproject(S: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """Ghat = S X: S (..., m, r), X (..., r, n), both fp32 contiguous ->
+    (..., m, n) fp32."""
+    out = _backproject(S, X, None, None)
+    backproject.launches += 1
+    return out
+
+
+def recovery(S: torch.Tensor, G: torch.Tensor, Gt: torch.Tensor,
+             phi: torch.Tensor) -> torch.Tensor:
+    """Lam = (G - S Gt) * phi[..., None, :]: S (..., m, r), Gt (..., r, n)
+    and phi (..., n) fp32 contiguous; G (..., m, n) fp32 or bf16, any
+    strides -> (..., m, n) fp32."""
+    out = _backproject(S, Gt, G, phi)
+    recovery.launches += 1
+    return out
 
 
 def bias_corrections(step: int, beta1: float, beta2: float,
@@ -336,6 +432,7 @@ def grad_tap_xs(x: torch.Tensor, dy: torch.Tensor, S: torch.Tensor) -> None:
     _grad_tap(x, dy, S, torch.float32, False, stages=1)
 
 
-for _fn in (project, project_colnorms, tangent, adam_lowrank_norms,
-            fused_update, grad_tap):
+for _fn in (project, project_colnorms, tangent, project_tangent_colnorms,
+            backproject, recovery, adam_lowrank_norms, fused_update,
+            grad_tap):
     _fn.launches = 0          # kernel launches since the last reset

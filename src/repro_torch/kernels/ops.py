@@ -12,10 +12,15 @@ three launches per low-rank leaf on a plain step:
     adam_lowrank_norms(...)      -> (M', V', Gto, ||Gt||^2, ||Gto||^2)
     fused_update(...)            -> the update in the parameter dtype
 
-and five on a tracking step: ``project_tangent_colnorms`` (on CUDA the
-two launches ``project_colnorms`` + ``tangent``), then ``project`` with
+and four on a tracking step: ``project_tangent_colnorms`` (one launch
+for m <= ``grassmann.MAX_FRONT_M`` = 2048, else the two launches
+``project_colnorms`` + ``tangent``: five in all), then ``project`` with
 the new basis, ``adam_lowrank_norms`` and ``fused_update``.  Every
 argument may carry leading stack dims: one launch covers a layer stack.
+
+The unfused schedule (``lowrank_adam_step`` with ``lr=None``, the fp32
+descent direction) runs ``project``, then ``backproject`` and
+``recovery``: three launches per leaf.
 
 The grad-fused backward (``repro_torch.models.common.tapped_matmul``)
 calls :func:`grad_tap` once per tapped matmul; on such a plain step the
@@ -40,6 +45,9 @@ _WRAPPERS = {
     "project": grassmann.project,
     "project_colnorms": grassmann.project_colnorms,
     "tangent": grassmann.tangent,
+    "project_tangent_colnorms": grassmann.project_tangent_colnorms,
+    "backproject": grassmann.backproject,
+    "recovery": grassmann.recovery,
     "adam_lowrank_norms": grassmann.adam_lowrank_norms,
     "fused_update": grassmann.fused_update,
     "grad_tap": grassmann.grad_tap,
@@ -95,17 +103,36 @@ def tangent(G: torch.Tensor, A: torch.Tensor,
 def project_tangent_colnorms(S: torch.Tensor, G: torch.Tensor
                              ) -> tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
-    """Tracking-step front end (A, ||G_:,j||^2, T).  On the CPU: the
-    oracle.  On CUDA: always the two-launch composite project_colnorms then
-    tangent, which the JAX package runs for m > 2048
-    (``repro/kernels/ops.py:160-163``).  The single-launch kernel, and the
-    m-limit its shared-memory panels set on Hopper, come with the next
-    slice; at llama-7b every leaf has m = 4096 and takes the composite on
-    the TPU too."""
+    """Tracking-step front end (A, ||G_:,j||^2, T).  Kernel:
+    ``csrc/grassmann_tangent_front.cu``, one launch for m <=
+    ``grassmann.MAX_FRONT_M`` (= 2048: a cluster of 16 CTAs holds the m
+    extent, 128 rows each); taller matrices (llama-7b's m = 4096) take the
+    ``project_colnorms`` + ``tangent`` composite, as the JAX package's do
+    past its own (VMEM) limit.  Oracle: ``ref.project_tangent_colnorms_ref``."""
     if G.device.type == "cpu":
         return ref.project_tangent_colnorms_ref(S, G)
+    if G.shape[-2] <= grassmann.MAX_FRONT_M:
+        return grassmann.project_tangent_colnorms(S, G)
     A, gsq = grassmann.project_colnorms(S, G)
     return A, gsq, grassmann.tangent(G, A, S)
+
+
+def backproject(S: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """Ghat = S X (Eq. 10) -> (..., m, n) fp32.  Kernel:
+    ``csrc/grassmann_backproject.cu``; oracle: ``ref.backproject_ref``."""
+    if X.device.type == "cpu":
+        return ref.backproject_ref(S, X)
+    return grassmann.backproject(S, X)
+
+
+def recovery(S: torch.Tensor, G: torch.Tensor, Gt: torch.Tensor,
+             phi: torch.Tensor) -> torch.Tensor:
+    """Lam = (G - S Gt) * phi (Eq. 10-11) -> (..., m, n) fp32.  Kernel:
+    ``csrc/grassmann_backproject.cu`` (recovery switch on); oracle:
+    ``ref.recovery_ref``."""
+    if G.device.type == "cpu":
+        return ref.recovery_ref(G, S, Gt, phi)
+    return grassmann.recovery(S, G, Gt, phi)
 
 
 def adam_lowrank_norms(Gt: torch.Tensor, M: torch.Tensor, V: torch.Tensor,

@@ -6,7 +6,10 @@ replaces the Pallas TPU kernel ``repro.kernels.paged_attention``; what it
 computes is ``repro_torch.kernels.ref.paged_attention_ref``, and the source
 note in the ``.cu`` file says how the design differs from the TPU's and
 what bounds it.  There is no shape gate beyond what the CUDA code itself
-needs (the TPU's ``hd % 128``, ``bs % 8`` were MXU tiling limits).
+needs (the TPU's ``hd % 128``, ``bs % 8`` were MXU tiling limits): any
+head dim up to ``MAX_HEAD_DIM`` (the kernel takes 16-byte loads where the
+rows allow them and one element per load elsewhere, e.g. llama-1b's hd
+85), any block size, any G within shared memory.
 """
 
 from __future__ import annotations
@@ -54,9 +57,8 @@ def _check(q, k_pool, v_pool, block_tables, lengths) -> None:
         raise ValueError("q, k_pool and v_pool must share one dtype of "
                          f"float32/bfloat16; got {q.dtype}, {k_pool.dtype}, "
                          f"{v_pool.dtype}")
-    if hd % 8 or hd > MAX_HEAD_DIM:
-        raise ValueError(f"head dim {hd} must be a multiple of 8 and <= "
-                         f"{MAX_HEAD_DIM}")
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {hd} must be <= {MAX_HEAD_DIM}")
     if bs < 1:
         raise ValueError("block size must be >= 1")
     if block_tables.dtype != torch.int32 or lengths.dtype != torch.int32 \
@@ -85,8 +87,6 @@ def paged_attention(q: torch.Tensor, k_pool: torch.Tensor,
         raise ValueError("paged_attention kernel needs every tensor on one "
                          "CUDA device; got "
                          f"{sorted({str(t.device) for t in tensors})}")
-    if any(t.data_ptr() % 16 for t in (q, k_pool, v_pool)):
-        raise ValueError("q, k_pool and v_pool must be 16-byte aligned")
     B, Hq, hd = q.shape
     nb, bs, Hkv, _ = k_pool.shape
     G = Hq // Hkv

@@ -11,8 +11,7 @@ per leading index, as the kernels' grid z), casts each operand to fp32
 and follows the JAX oracle's order of operations.  Per-matrix scalars
 (``coef``, ``clip``, ``wd_coef``) are Python floats or tensors of the
 batch shape.  The oracles of the kernels not on a ported path
-(``backproject``, ``recovery``, ``tangent_gram``, ``adam_lowrank``
-alone) come with their kernels.
+(``tangent_gram``, ``adam_lowrank`` alone) come with their kernels.
 """
 
 from __future__ import annotations
@@ -35,6 +34,19 @@ def project_ref(S: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
     return S.float().mT @ G.float()
 
 
+def backproject_ref(S: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """S @ X.  S: (..., m, r); X: (..., r, n) -> (..., m, n) fp32."""
+    return S.float() @ X.float()
+
+
+def recovery_ref(G: torch.Tensor, S: torch.Tensor, Gt: torch.Tensor,
+                 phi: torch.Tensor) -> torch.Tensor:
+    """Recovery-scaled residual Lam = (G - S Gt) * phi[..., None, :].
+    G: (..., m, n); S: (..., m, r); Gt: (..., r, n); phi: (..., n)."""
+    resid = G.float() - S.float() @ Gt.float()
+    return resid * phi.float()[..., None, :]
+
+
 def tangent_ref(G: torch.Tensor, A: torch.Tensor,
                 S: torch.Tensor) -> torch.Tensor:
     """Grassmann tangent T = -2 G A^T + 2 S (A A^T) -> (..., m, r)."""
@@ -53,8 +65,8 @@ def project_tangent_colnorms_ref(S: torch.Tensor, G: torch.Tensor
                                  ) -> tuple[torch.Tensor, torch.Tensor,
                                             torch.Tensor]:
     """Tracking-step front end: (A, ||G_:,j||^2, T) from one logical pass
-    over G.  On the CPU this is the front end; on CUDA the dispatch runs
-    the two-launch ``project_colnorms`` + ``tangent`` composite."""
+    over G, T = -2 G A^T + 2 S (A A^T).  The kernel forms S (S^T W) with
+    W = G A^T, equal to S (A A^T) up to the order of its sums."""
     A, gsq = project_colnorms_ref(S, G)
     return A, gsq, tangent_ref(G, A, S)
 

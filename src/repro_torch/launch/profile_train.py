@@ -1,0 +1,90 @@
+"""Where a training step's time goes on the card.
+
+    PYTHONPATH=src python -m repro_torch.launch.profile_train \\
+        --arch llama-1b --optimizer subtrack --use-kernels \\
+        --update-interval 2 --batch 4 --seq 512
+
+Takes the training CLI's flags (:mod:`repro_torch.launch.train`), warm-
+starts the subspaces, runs one plain and one tracking step to warm up, then
+runs one of each again under ``torch.profiler`` recording device activity
+only.  Prints one JSON object per profiled step: the step's wall time (host
+clock around a step that ends in a device sync), the summed duration of
+its device activity (one stream: the sum is the time the card was busy),
+the busy and idle shares, the device time of the port's own kernels (by
+CUDA function name) and of the rest, and the top kernels by name.  Needs
+a CUDA device; raises if the profiler saw no device activity.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+import time
+from collections import defaultdict
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from repro_torch.launch.steps import make_train_step
+from repro_torch.launch.train import _parse_args, prepare, run
+from repro_torch.models.api import build_model
+
+# CUDA function names of the port's optimizer kernels (csrc/*.cu)
+PORT_KERNELS = ("project_kernel", "tangent_kernel", "front_kernel",
+                "backproject_kernel", "adam_norms_kernel",
+                "fused_update_kernel", "xs_kernel", "tap_kernel")
+
+
+def main(argv=None) -> list[dict]:
+    if not torch.cuda.is_available():
+        raise RuntimeError("profile_train needs a CUDA device")
+    args = _parse_args(argv)
+    cfg, rank, optimizer, batch_at, device = prepare(args)
+    if device.type != "cuda":
+        raise RuntimeError("profile_train measures the card: --device cuda")
+    bundle = build_model(cfg)
+    params = bundle.init(torch.Generator(device=device).manual_seed(args.seed))
+    state = run(cfg, params, batch_at, optimizer=optimizer, steps=0,
+                lr_at=lambda s: args.lr, remat=args.remat)["state"]
+    step = make_train_step(bundle, optimizer, remat=args.remat,
+                           grad_fused=args.grad_fused)
+    batch = {k: v.to(device) for k, v in batch_at(1).items()}
+    out = []
+    for profiled in (False, True):
+        for tracking in (False, True):
+            if not profiled:
+                state, _ = step(state, batch, args.lr,
+                                do_subspace_update=tracking)
+                torch.cuda.synchronize()
+                continue
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                state, _ = step(state, batch, args.lr,
+                                do_subspace_update=tracking)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            by_name: dict[str, float] = defaultdict(float)
+            for ev in prof.events():
+                if ev.device_type == DeviceType.CUDA:
+                    by_name[ev.name] += ev.device_time_total   # microseconds
+            busy = sum(by_name.values()) / 1e6
+            if busy <= 0:
+                raise RuntimeError("the profiler recorded no device activity")
+            port = sum(t for n, t in by_name.items()
+                       if any(k in n for k in PORT_KERNELS)) / 1e6
+            top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+            res = {"device": torch.cuda.get_device_name(0), "arch": cfg.name,
+                   "rank": rank, "tokens": args.batch * args.seq,
+                   "step": "tracking" if tracking else "plain",
+                   "wall_s": wall, "device_busy_s": busy,
+                   "busy_share": busy / wall, "idle_share": 1 - busy / wall,
+                   "port_kernels_s": port, "other_device_s": busy - port,
+                   "top_kernels_s": [[n[:120], t / 1e6] for n, t in top]}
+            print(json.dumps(res), flush=True)
+            out.append(res)
+    return out
+
+
+if __name__ == "__main__":
+    main(sys.argv[1:])

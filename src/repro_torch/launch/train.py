@@ -162,11 +162,10 @@ def run(cfg, params, batch_at: Callable[[int], dict | None], *, optimizer,
             "warm_start_s": warm_s, "state": state}
 
 
-def train(argv=None) -> dict:
-    """The CLI: returns the run's summary (loss history, step times,
-    warm-start time, kernel launch counts) and, under ``state``, the final
-    train state (not written to ``--metrics-out``)."""
-    args = _parse_args(argv)
+def prepare(args: argparse.Namespace):
+    """The CLI's run from its parsed flags: (config, rank, optimizer,
+    batch_at, device); ``batch_at(step)`` validates each batch on the host
+    and returns None for one to step over."""
     _reject_unported(args)
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
@@ -194,6 +193,15 @@ def train(argv=None) -> dict:
         batch, ok = fetch_batch(cfg, data, step)
         return batch if ok else None
 
+    return cfg, rank, optimizer, batch_at, device
+
+
+def train(argv=None) -> dict:
+    """The CLI: returns the run's summary (loss history, step times,
+    warm-start time, kernel launch counts) and, under ``state``, the final
+    train state (not written to ``--metrics-out``)."""
+    args = _parse_args(argv)
+    cfg, rank, optimizer, batch_at, device = prepare(args)
     t_start = time.time()
     params = build_model(cfg).init(
         torch.Generator(device=device).manual_seed(args.seed))

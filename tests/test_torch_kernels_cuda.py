@@ -56,6 +56,8 @@ def _case(B, Hq, Hkv, hd, bs, W, dtype, device, seed=0, lengths=None):
     (32, 32, 128, 16, 36),     # llama-7b decode shape, 576 positions
     (32, 8, 160, 16, 36),      # stablelm-12b: G = 4, hd 160
     (4, 2, 256, 1, 40),        # widest head, one position per block
+    (24, 24, 85, 16, 36),      # llama-1b: hd 85, rows of scalar loads
+    (4, 2, 12, 8, 4),          # hd 12: 16-byte rows in fp32, not in bf16
 ])
 def test_kernel_matches_oracle(cuda, dtype, Hq, Hkv, hd, bs, W):
     args = _case(3, Hq, Hkv, hd, bs, W, dtype, cuda, seed=Hq * 100 + bs)
@@ -246,10 +248,104 @@ def test_optimizer_dispatch_counts_launches(cuda):
     ops.fused_update(G, S, Gt, Gto, gtsq, 0.1, torch.ones(3, device=cuda),
                      out_dtype=torch.bfloat16)
     counts = ops.launch_counts()
+    # m = 64 takes the single-launch front end
     assert counts == {"paged_attention": 0, "project": 1,
-                      "project_colnorms": 1, "tangent": 1,
-                      "adam_lowrank_norms": 1, "fused_update": 1,
-                      "grad_tap": 0}
+                      "project_colnorms": 0, "tangent": 0,
+                      "project_tangent_colnorms": 1, "backproject": 0,
+                      "recovery": 0, "adam_lowrank_norms": 1,
+                      "fused_update": 1, "grad_tap": 0}
+
+
+# ---------------------------------------------------------------------------
+# The tracking front end (csrc/grassmann_tangent_front.cu) and the unfused
+# schedule's backproject and recovery (csrc/grassmann_backproject.cu)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,n,r,transposed", [
+    (2048, 5461, 512, False),      # w_gate / w_up at llama-1b
+    (2040, 2048, 512, True),       # wq .. wo: the transposed canonical view
+    (2048, 32000, 512, True),      # embed / lm_head
+    (200, 333, 70, False),         # ragged m, n, r: a cluster of 2
+    (1000, 777, 129, True),        # 8 ranks, ragged tiles
+    (100, 90, 40, False),          # one rank (a cluster of 1)
+])
+def test_tangent_front_kernel_matches_oracle(cuda, gdtype, m, n, r,
+                                             transposed):
+    """A and the norms at 2e-5 of the largest entry, T at 1e-4 (its two
+    terms cancel; the kernel forms S (S^T W), the oracle S (A A^T))."""
+    S, G, _ = _opt_case(2, m, n, r, gdtype, cuda, seed=m + n,
+                        transposed=transposed)
+    A, gsq, T = gk.project_tangent_colnorms(S, G)
+    torch.cuda.synchronize()
+    Ar, gr, Tr = ref.project_tangent_colnorms_ref(S, G)
+    assert _rel_err(A, Ar) < REL["project"]
+    assert _rel_err(gsq, gr) < REL["project"]
+    assert _rel_err(T, Tr) < REL["tangent"]
+    # deterministic: no atomics, sums in a fixed order
+    again = gk.project_tangent_colnorms(S, G)
+    for a, b in zip((A, gsq, T), again):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_tangent_front_past_its_limit_takes_the_composite(cuda):
+    """m = 4096 (llama-7b) is past the single launch's 16 x 128 rows: the
+    kernel wrapper raises and the dispatch runs project_colnorms + tangent."""
+    assert gk._lib("grassmann_tangent_front").tangent_front_max_m() \
+        == gk.MAX_FRONT_M == 2048
+    S, G, _ = _opt_case(1, 2049, 300, 64, torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="limit"):
+        gk.project_tangent_colnorms(S, G)
+    ops.reset_launch_counts()
+    A, gsq, T = ops.project_tangent_colnorms(S, G)
+    counts = ops.launch_counts()
+    assert (counts["project_tangent_colnorms"], counts["project_colnorms"],
+            counts["tangent"]) == (0, 1, 1)
+    Ar, gr, Tr = ref.project_tangent_colnorms_ref(S, G)
+    assert _rel_err(T, Tr) < REL["tangent"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,n,r,transposed", [
+    (2048, 5461, 512, False), (2040, 2048, 512, True),
+    (200, 333, 70, False), (130, 1000, 129, True)])
+def test_backproject_and_recovery_kernels_match_oracles(cuda, gdtype, m, n,
+                                                        r, transposed):
+    """2e-5 of the largest entry (fp32 sums over r in another order)."""
+    S, G, rn = _opt_case(2, m, n, r, gdtype, cuda, seed=3,
+                         transposed=transposed)
+    X, phi = rn(2, r, n), rn(2, n).abs()
+    got = gk.backproject(S, X)
+    assert _rel_err(got, ref.backproject_ref(S, X)) < REL["project"]
+    lam = gk.recovery(S, G, X, phi)
+    torch.cuda.synchronize()
+    assert lam.dtype == torch.float32 and lam.is_contiguous()
+    assert _rel_err(lam, ref.recovery_ref(G, S, X, phi)) < REL["project"]
+
+
+@pytest.mark.cuda
+def test_unfused_step_launches_project_backproject_recovery(cuda):
+    """lowrank_adam_step(lr=None, backend=ops): 1 project, 1 backproject
+    and 1 recovery launch, and the CPU's step."""
+    from repro_torch.core import lowrank_adam as tla
+
+    S, G, rn = _opt_case(2, 300, 500, 32, torch.bfloat16, cuda, seed=4)
+    st = tla.MatrixOptState(S=S, M=0.1 * rn(2, 32, 500),
+                            V=0.01 * rn(2, 32, 500).abs(),
+                            lam_prev=torch.tensor([0.0, 0.5], device=cuda))
+    ops.reset_launch_counts()
+    out = tla.lowrank_adam_step(G, st, 3, tla.AdamHP(), backend=ops)
+    counts = ops.launch_counts()
+    assert counts == {k: int(k in ("project", "backproject", "recovery"))
+                      for k in counts}
+    cpu = tla.lowrank_adam_step(G.cpu(), tla.MatrixOptState(
+        *(t.cpu() for t in st)), 3, tla.AdamHP(), backend=ops)
+    assert _rel_err(out.delta.cpu(), cpu.delta) < 1e-4
+    assert _rel_err(out.state.lam_prev.cpu(), cpu.state.lam_prev) < 1e-4
 
 
 @pytest.mark.cuda
