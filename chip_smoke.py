@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-Phases (run in this order, except that 13-15, the kernel checks of the
-llama-1b slice, run right after phase 10, before the long training runs);
-any failure raises and the script exits non-zero:
+Phases (run in this order, except that 13-15 and 17-19, the kernel checks
+of the llama-1b slice and of the last three kernels, run right after phase
+10, before the long training runs); any failure raises and the script exits
+non-zero:
 
 1. print the card's name and power limit as nvidia-smi gives them;
 2. build every CUDA kernel of the ported paths from ``src/repro_torch/csrc``
@@ -84,7 +85,32 @@ any failure raises and the script exits non-zero:
    step and 4 on the tracking step (the single-launch front end, then
    project, adam_lowrank_norms, fused_update); warm start, step times,
    tokens/s and peak memory printed;
-17. print the kernels line, then ``{"ok": true, "device": {...}}`` last.
+17. hold ``adam_lowrank`` and ``tangent_gram`` against their plain versions
+   at llama-7b's shapes (Adam (1024, 11008) and (1024, 32000), 2 matrices;
+   the Gram kernel at (4096, 11008, r 1024) and the row shard (2048, 11008,
+   r 1024), 2 matrices, G fp32 and bf16, and a ragged transposed case;
+   ``GRAM_REL``), drive ``ops.adam_lowrank`` once for its launch count, and
+   time both, 2 matrices (the Gram kernel at (4096, 11008, r 1024), bf16 G;
+   Adam at (1024, 11008)), beside their bounds and plain versions (the Gram
+   kernel's plain version is the four torch.matmul expressions with TF32
+   off; neither has a single PyTorch call for the library column);
+18. run ``track_subspace(schedule="gram", backend=ops)`` at (4096, 11008, r
+   1024), bf16 G, 2 matrices: exactly 1 project_colnorms, 1 tangent and 1
+   tangent_gram launch; within ``TRACK_REL`` of the CPU's run from the same
+   S and G, and of the tangent schedule on the card (S_new as projectors,
+   A_new against S_new^T G); both schedules timed;
+19. drive ``ops.flash_attention`` at llama-7b's prefill (B 4, S = T = 2048,
+   Hq = Hkv = 32, hd 128, causal) and gemma2-27b's local layer (B 1, S = T =
+   8192, Hq 32, Hkv 16, hd 128, window 4096, softcap 50) in bf16 and hold it
+   against its plain version there and at stablelm-12b's heads (Hq 32, Hkv
+   8, hd 160, S = T = 1024), llama-1b's (Hq = Hkv = 24, hd 85), non-causal, S
+   512 against T 2048, a ragged S, and one fp32 shape (``FLASH_TOL``); time
+   it at the two driven shapes beside its bound, its plain version and one
+   PyTorch call held against the plain version (``LIB_TOL``):
+   ``scaled_dot_product_attention(is_causal=True)`` at llama-7b's and, at
+   gemma2's, ``flex_attention`` compiled with a softcap ``score_mod`` and a
+   causal sliding-window block mask;
+20. print the kernels line, then ``{"ok": true, "device": {...}}`` last.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero and prints no result.
@@ -95,6 +121,7 @@ from __future__ import annotations
 import gc
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -104,6 +131,12 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
+# the compiled flex_attention yardstick (phase 19) keeps its caches in the
+# checkout's git-ignored build directory and compiles in this process
+for _var, _val in (("TORCHINDUCTOR_CACHE_DIR", ROOT / "build" / "inductor"),
+                   ("TRITON_CACHE_DIR", ROOT / "build" / "triton"),
+                   ("TORCHINDUCTOR_COMPILE_THREADS", 1)):
+    os.environ.setdefault(_var, str(_val))
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 FP32_FLOPS = 67e12             # H100 SXM fp32 outside the tensor cores
@@ -168,7 +201,8 @@ def phase_build() -> None:
     report = build.build(["paged_attention", "grassmann_project",
                           "grassmann_tangent", "adam_lowrank_norms",
                           "fused_update", "grad_tap",
-                          "grassmann_tangent_front", "grassmann_backproject"])
+                          "grassmann_tangent_front", "grassmann_backproject",
+                          "grassmann_tangent_gram", "flash_attention"])
     for name, r in report.items():
         regs = [ln.strip() for ln in r["ptxas"].splitlines() if "Used" in ln]
         print(f"[build] {name}.cu: nvcc {r['seconds']:.1f}s; {regs}",
@@ -636,7 +670,8 @@ def _launches_want(steps: int, tracking: int, tapped_sites: int = 0,
     and project_colnorms only for the untapped low-rank leaf (embed)."""
     plain = steps - tracking
     composite = 0 if single_front else N_LOWRANK_LEAVES * tracking
-    return {"paged_attention": 0,
+    return {"paged_attention": 0, "tangent_gram": 0, "adam_lowrank": 0,
+            "flash_attention": 0,
             "project_colnorms": composite
             + (N_UNTAPPED_LOWRANK if tapped_sites else N_LOWRANK_LEAVES)
             * plain,
@@ -1176,6 +1211,370 @@ def phase_train_1b() -> dict:
     return {"launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# The last three kernels: adam_lowrank, tangent_gram (the gram schedule) and
+# flash_attention
+# ---------------------------------------------------------------------------
+
+# max |kernel - plain| over max |plain|: fp32 sums over m = 2048 to 4096 in
+# another order; S^T T is analytically zero, so its error is judged against
+# max |T| (as tests/test_kernels.py judges the TPU kernel)
+GRAM_REL = 2e-5
+GRAM_SHAPES = {   # name -> (m, n, r, G a transposed view)
+    "llama-7b (4096, 11008, r 1024)": (4096, 11008, RANK_7B, False),
+    "row shard (2048, 11008, r 1024)": (2048, 11008, RANK_7B, False),
+    "ragged (1000, 777, r 129)": (1000, 777, 129, True),
+}
+ADAM_SHAPES = [(RANK_7B, 11008), (RANK_7B, 32000)]
+# the gram schedule against the CPU and the tangent schedule: the tracking
+# budget (power iteration over a Gram summed in another order)
+TRACK_REL = 1e-3
+
+
+def _gram_calls(S, T, G):
+    from repro_torch.kernels import grassmann as gk
+    from repro_torch.kernels import ref
+
+    return {"kernel": lambda: gk.tangent_gram(S, T, G),
+            "plain": lambda: ref.tangent_gram_ref(S, T, G)}
+
+
+def _gram_rel(got, want, T) -> tuple[float, float]:
+    abs_err, rel = 0.0, 0.0
+    tmax = T.abs().max().item()
+    for i, (g, w) in enumerate(zip(got, want)):
+        d = (g - w).abs().max().item()
+        abs_err = max(abs_err, d)
+        rel = max(rel, d / (tmax if i == 1 else w.abs().max().item()))
+    return abs_err, rel
+
+
+def phase_check_gram_adam() -> dict:
+    """adam_lowrank and tangent_gram against their plain versions at
+    llama-7b's shapes; ``ops.adam_lowrank`` driven once for its launch
+    count.  Returns the max abs errors at the timed shapes (bf16 G) and the
+    launch count."""
+    from repro_torch.kernels import grassmann as gk
+    from repro_torch.kernels import ops, ref
+
+    out = {}
+    for i, (r, n) in enumerate(ADAM_SHAPES):
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 20 + i)
+        Gt, M = (torch.randn(2, r, n, generator=gen, device="cuda")
+                 for _ in range(2))
+        V = 0.01 * torch.rand(2, r, n, generator=gen, device="cuda")
+        for step, bc in ((0, True), (1000, True), (3, False)):
+            got = gk.adam_lowrank(Gt, M, V, step, bias_correction=bc)
+            torch.cuda.synchronize()
+            abs_err, rel = _opt_error(got, ref.adam_lowrank_ref(
+                Gt, M, V, step, 0.9, 0.999, 1e-8, bc))
+            if rel > OPT_REL["adam_lowrank_norms"]:
+                raise AssertionError(f"adam_lowrank at ({r}, {n}) step "
+                                     f"{step}: error {rel:.3e}")
+            if (r, n) == (RANK_7B, TIMED[1]) and step == 0:
+                out["adam_lowrank"] = abs_err
+            print(f"[check] adam_lowrank ({r}, {n}) x2 step {step} bias "
+                  f"correction {bc}: max abs err {abs_err:.2e} (of largest "
+                  f"entry {rel:.1e})", flush=True)
+        if (r, n) == (RANK_7B, TIMED[1]):
+            ops.reset_launch_counts()
+            ops.adam_lowrank(Gt, M, V, 3)
+            out["adam_lowrank_launches"] = ops.launch_counts()["adam_lowrank"]
+        del Gt, M, V, got
+    for i, (name, (m, n, r, tr)) in enumerate(GRAM_SHAPES.items()):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = _front_inputs(m, n, r, dtype, SEED + 30 + i, tr)
+            S, G = x["S"], x["G"]
+            T = ref.tangent_ref(G, ref.project_ref(S, G), S)
+            calls = _gram_calls(S, T, G)
+            got = calls["kernel"]()
+            torch.cuda.synchronize()
+            abs_err, rel = _gram_rel(got, calls["plain"](), T)
+            again = calls["kernel"]()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"tangent_gram at {name}: not "
+                                     f"deterministic")
+            if rel > GRAM_REL:
+                raise AssertionError(f"tangent_gram at {name} {dtype}: error "
+                                     f"{rel:.3e} > {GRAM_REL:g}")
+            if (m, n) == TIMED and dtype == torch.bfloat16:
+                out["tangent_gram"] = abs_err
+            print(f"[check] tangent_gram {name} x2 {dtype}: max abs err "
+                  f"{abs_err:.2e} (of largest entry, S^T T of max |T|: "
+                  f"{rel:.1e}); a second launch gives the same bits",
+                  flush=True)
+            del x, S, G, T, calls, got, again
+    return out
+
+
+def phase_time_gram_adam() -> dict:
+    """tangent_gram at (4096, 11008, r 1024), bf16 G, and adam_lowrank at
+    (1024, 11008), 2 matrices each, beside their bounds and plain versions.
+    No single PyTorch call computes either (tangent_gram's plain version is
+    already its four torch.matmul expressions), so neither has a library
+    time."""
+    from repro_torch.kernels import grassmann as gk
+    from repro_torch.kernels import ref
+
+    m, n = TIMED
+    r, b, g = RANK_7B, 2, 2          # matrices, bytes per bf16 element
+    x = _front_inputs(m, n, r, torch.bfloat16, SEED)
+    S, G = x["S"], x["G"]
+    T = ref.tangent_ref(G, ref.project_ref(S, G), S)
+    calls = _gram_calls(S, T, G)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 40)
+    Gt, M = (torch.randn(b, r, n, generator=gen, device="cuda")
+             for _ in range(2))
+    V = 0.01 * torch.rand(b, r, n, generator=gen, device="cuda")
+    # bytes each function must move (inputs once, outputs once) and the fp32
+    # operations it needs, per the whole batch; T^T T and S^T S are symmetric,
+    # so each needs m r (r + 1) (its upper triangle)
+    work = {"tangent_gram": (b * (8 * m * r + g * m * n + 4 * r * n
+                                  + 12 * r * r),
+                             b * (2 * m * r * n + 2 * m * r * r
+                                  + 2 * m * r * (r + 1))),
+            "adam_lowrank": (b * 24 * r * n, b * 14 * r * n)}
+    timed = {"tangent_gram": (calls["kernel"], calls["plain"]),
+             "adam_lowrank": (lambda: gk.adam_lowrank(Gt, M, V, 3),
+                              lambda: ref.adam_lowrank_ref(
+                                  Gt, M, V, 3, 0.9, 0.999, 1e-8))}
+    out = {}
+    for name, (kern, plain) in timed.items():
+        nbytes, flops = work[name]
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / FP32_FLOPS * 1e3
+        res = {"ms": _time_ms(kern, iters=10, repeats=3),
+               "plain_ms": _time_ms(plain, iters=10, repeats=3),
+               "library_ms": None,
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        out[name] = res
+        shape = (f"({m}, {n}, r {r}) x{b} bf16 G" if name == "tangent_gram"
+                 else f"({r}, {n}) x{b}")
+        print(f"[time] {name} {shape}: kernel "
+              f"{res['ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
+              f"({res['bound_by']}: {nbytes / 1e6:.1f} MB, "
+              f"{flops / 1e9:.1f} GFLOP fp32), plain {res['plain_ms']:.4f} "
+              f"ms, no single PyTorch call", flush=True)
+    return out
+
+
+def phase_gram_schedule() -> dict:
+    """track_subspace(schedule="gram", backend=ops) at (4096, 11008, r
+    1024), 2 matrices, bf16 G, eta pinned so theta = 0.5 on matrix 0:
+    exactly three launches, the CPU's result from the same S and G, the
+    tangent schedule on the card; both schedules timed."""
+    from repro_torch.core import subspace as tsub
+    from repro_torch.kernels import ops, ref
+
+    m, n = TIMED
+    x = _front_inputs(m, n, RANK_7B, torch.bfloat16, SEED + 50)
+    S, G = x["S"], x["G"]
+    T0 = ref.tangent_ref(G[0], ref.project_ref(S[0], G[0]), S[0])
+    eta = 0.5 / torch.linalg.matrix_norm(T0, ord=2).item()
+    del T0
+
+    def gram(S, G):
+        return tsub.track_subspace(S, G, eta=eta, schedule="gram",
+                                   backend=ops)
+
+    def tangent(S, G):
+        return tsub.track_subspace(S, G, eta=eta, backend=ops)
+
+    ops.reset_launch_counts()
+    got = gram(S, G)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    want = {k: int(k in ("project_colnorms", "tangent", "tangent_gram"))
+            for k in counts}
+    if counts != want:
+        raise AssertionError(f"gram schedule launches {counts}")
+    cpu = gram(S.cpu(), G.cpu())
+    tang = tangent(S, G)
+    errs = {name: _opt_error(getattr(got, name).cpu(), getattr(cpu, name))[1]
+            for name in ("S_new", "A_new", "cos_theta", "v")}
+    errs["projector vs tangent"] = _opt_error(
+        got.S_new @ got.S_new.mT, tang.S_new @ tang.S_new.mT)[1]
+    errs["A_new vs S_new^T G"] = _opt_error(
+        got.A_new, ref.project_ref(got.S_new, G))[1]
+    errs["A_new vs tangent's S_new^T G"] = _opt_error(
+        got.A_new, ref.project_ref(tang.S_new, G))[1]
+    bad = {k: v for k, v in errs.items() if not v <= TRACK_REL}
+    theta = torch.arccos(got.cos_theta).tolist()
+    if bad or not all(0.1 < t < 1.4 for t in theta) \
+            or not torch.isfinite(got.A_new).all():
+        raise AssertionError(f"gram schedule: errors {errs}, theta {theta}")
+    gram_ms = _time_ms(lambda: gram(S, G), iters=3, repeats=3)
+    tangent_ms = _time_ms(lambda: tangent(S, G), iters=3, repeats=3)
+    print(f"[gram] track_subspace(schedule='gram', backend=ops) at ({m}, {n}, "
+          f"r {RANK_7B}) x2 bf16 G: launches project_colnorms 1, tangent 1, "
+          f"tangent_gram 1; theta {[round(t, 4) for t in theta]}; errors of "
+          f"the largest entry (budget {TRACK_REL:g}): "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f"; gram schedule {gram_ms:.4f} ms, tangent schedule "
+          f"{tangent_ms:.4f} ms (its A_new is a project launch more)",
+          flush=True)
+    return {"launches": counts["tangent_gram"], "gram_ms": gram_ms,
+            "tangent_ms": tangent_ms}
+
+
+# fp32 inputs: sums over hd and T in another order, expf and tanhf against
+# PyTorch's.  bf16 inputs: one bf16 rounding of the output plus 1e-5 (both
+# compute in fp32 from the same bf16 values; near-zero outputs cancel)
+FLASH_TOL = 2e-5
+FLASH_CASES = {   # name -> (B, S, T, Hq, Hkv, hd, causal, window, softcap)
+    "llama-7b prefill": (4, 2048, 2048, 32, 32, 128, True, 0, 0.0),
+    "gemma2-27b local": (1, 8192, 8192, 32, 16, 128, True, 4096, 50.0),
+    "stablelm-12b": (2, 1024, 1024, 32, 8, 160, True, 0, 0.0),
+    "llama-1b hd 85": (2, 1024, 1024, 24, 24, 85, True, 0, 0.0),
+    "non-causal": (1, 1024, 1024, 32, 32, 128, False, 0, 0.0),
+    "S 512, T 2048": (1, 512, 2048, 32, 32, 128, True, 0, 0.0),
+    "ragged S = T = 1000": (1, 1000, 1000, 8, 2, 128, True, 0, 0.0),
+}
+FLASH_TIMED = ("llama-7b prefill", "gemma2-27b local")
+# the library calls against the plain version: both round P to bf16 for P V
+# (the plain version keeps it fp32) and return bf16; outputs here are
+# averages of unit normals (|o| < ~4)
+LIB_TOL = 5e-2
+
+
+def _flash_inputs(case, dtype, seed):
+    B, S, T, Hq, Hkv, hd = FLASH_CASES[case][:6]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return tuple(torch.randn(shape, generator=gen, device="cuda").to(dtype)
+                 for shape in ((B, S, Hq, hd), (B, T, Hkv, hd),
+                               (B, T, Hkv, hd)))
+
+
+def _flash_err(got, want) -> tuple[float, float]:
+    """(max abs error, max of |error| - allowed over the allowed): <= 0
+    passes.  Allowed: FLASH_TOL (1 + |want|) in fp32; one bf16 ulp of want
+    plus 1e-5 (1 + |want|) in bf16."""
+    g, w = got.float(), want.float()
+    d = (g - w).abs()
+    allowed = FLASH_TOL * (1 + w.abs())
+    if got.dtype == torch.bfloat16:
+        _, e = torch.frexp(w)
+        allowed = (torch.where(w == 0, torch.zeros_like(w),
+                               torch.ldexp(torch.ones_like(w), e - 8))
+                   + 1e-5 * (1 + w.abs()))
+    return d.max().item(), ((d - allowed) / allowed).max().item()
+
+
+def _flash_library(case, q, k, v):
+    """The one PyTorch call that computes a timed case's attention, on views
+    of q, k, v in its (B, H, S, hd) layout, and its name: SDPA at llama-7b's
+    prefill (causal, MHA); at gemma2's local layer ``flex_attention``,
+    compiled, with the softcap as its ``score_mod`` and the causal window as
+    its block mask (every row sees its own key, so its -inf masking agrees
+    with the plain version's -1e30)."""
+    import torch.nn.functional as F
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+
+    _, S, T, Hq, Hkv, _, causal, window, softcap = FLASH_CASES[case]
+    assert causal and bool(window) == bool(softcap), case
+    qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
+    if not softcap:
+        return "sdpa(is_causal=True)", lambda: F.scaled_dot_product_attention(
+            qh, kh, vh, is_causal=True)
+
+    def score_mod(score, b, h, q_idx, kv_idx):
+        return softcap * torch.tanh(score / softcap)
+
+    def mask_mod(b, h, q_idx, kv_idx):
+        return (kv_idx <= q_idx) & (kv_idx > q_idx - window)
+
+    mask = create_block_mask(mask_mod, None, None, S, T, device="cuda")
+    flex = torch.compile(flex_attention, dynamic=False)
+    return "flex_attention (compiled)", lambda: flex(
+        qh, kh, vh, score_mod=score_mod, block_mask=mask,
+        enable_gqa=Hq != Hkv)
+
+
+def phase_flash() -> dict:
+    """Drive ops.flash_attention at the two timed shapes (the launches of
+    that run are the kernel line's count), hold the kernel against its plain
+    version at every case, and time it at the two timed shapes beside its
+    plain version and a PyTorch call."""
+    from repro_torch.kernels import flash_attention as fk
+    from repro_torch.kernels import ops, ref
+
+    def kw(case):
+        causal, window, softcap = FLASH_CASES[case][6:]
+        return dict(causal=causal, window=window, softcap=softcap)
+
+    out = {}
+    for i, case in enumerate(FLASH_CASES):
+        for dtype in ((torch.bfloat16, torch.float32)
+                      if case == "non-causal" else (torch.bfloat16,)):
+            q, k, v = _flash_inputs(case, dtype, SEED + 60 + i)
+            if case in FLASH_TIMED:
+                ops.reset_launch_counts()
+                got = ops.flash_attention(q, k, v, **kw(case))
+                torch.cuda.synchronize()
+                out.setdefault("launches", 0)
+                out["launches"] += ops.launch_counts()["flash_attention"]
+            else:
+                got = fk.flash_attention(q, k, v, **kw(case))
+                torch.cuda.synchronize()
+            abs_err, excess = _flash_err(got, ref.flash_attention_ref(
+                q, k, v, **kw(case)))
+            if not excess <= 0:
+                raise AssertionError(f"flash_attention {case} {dtype}: max "
+                                     f"abs err {abs_err:.3e} past its "
+                                     f"tolerance")
+            if case == FLASH_TIMED[0]:
+                out["max_abs_err"] = abs_err
+            print(f"[check] flash_attention {case} {FLASH_CASES[case][:6]} "
+                  f"{kw(case)} {dtype}: max abs err {abs_err:.2e} (within "
+                  f"tolerance)", flush=True)
+            del q, k, v, got
+    if out["launches"] != len(FLASH_TIMED):
+        raise AssertionError(f"flash_attention launches {out['launches']}")
+    for case in FLASH_TIMED:
+        B, S, T, Hq, Hkv, hd, causal, window, _ = FLASH_CASES[case]
+        q, k, v = _flash_inputs(case, torch.bfloat16, SEED + 70)
+        # visible (query, key) pairs of this run's masks
+        qp = torch.arange(S, device="cuda")
+        hi = qp.clamp_max(T - 1) if causal else torch.full_like(qp, T - 1)
+        lo = (qp - window + 1).clamp_min(0) if window else torch.zeros_like(qp)
+        pairs = B * Hq * int((hi - lo + 1).clamp_min(0).sum())
+        nbytes = 2 * (q.numel() + k.numel() + v.numel() + q.numel())
+        flops = 4 * hd * pairs            # q.k and p.v at the bf16 peak
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = flops / BF16_FLOPS * 1e3
+        iters = 3 if case == FLASH_TIMED[1] else 5
+        lib_name, library = _flash_library(case, q, k, v)
+        t0 = time.perf_counter()
+        lib_out = library()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        lib_err = (lib_out.transpose(1, 2).float() - ref.flash_attention_ref(
+            q, k, v, **kw(case)).float()).abs().max().item()
+        del lib_out
+        if not lib_err <= LIB_TOL:
+            raise AssertionError(f"{lib_name} at {case}: max abs err "
+                                 f"{lib_err:.3e} from the plain version")
+        res = {"ms": _time_ms(lambda: fk.flash_attention(q, k, v, **kw(case)),
+                              iters=iters, repeats=3),
+               "plain_ms": _time_ms(lambda: ref.flash_attention_ref(
+                   q, k, v, **kw(case)), iters=iters, repeats=3),
+               "library_ms": _time_ms(library, iters=4 * iters, repeats=3),
+               "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+        out[case] = res
+        lib = (f"{lib_name} {res['library_ms']:.4f} ms (max abs err from the "
+               f"plain version {lib_err:.2e}; first call {first_s:.1f} s)")
+        print(f"[time] flash_attention {case} bf16 {FLASH_CASES[case]}: "
+              f"kernel {res['ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
+              f"({res['bound_by']}: {nbytes / 1e6:.1f} MB, {pairs} visible "
+              f"pairs, {flops / 1e9:.1f} GFLOP at the bf16 peak), plain "
+              f"{res['plain_ms']:.4f} ms, {lib}", flush=True)
+        del q, k, v
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -1199,6 +1598,10 @@ def main() -> int:
     front_err = phase_check_front()
     front_time = phase_time_front()
     unfused = phase_unfused_step()
+    gram_err = phase_check_gram_adam()
+    gram_time = phase_time_gram_adam()
+    gram = phase_gram_schedule()
+    flash = phase_flash()
     phase_time_svd()
     trained = phase_train_7b()
     fused = phase_train_7b_grad_fused(trained)
@@ -1245,6 +1648,31 @@ def main() -> int:
             "max_abs_err": front_err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+    for name, src, line, launches in (
+            ("tangent_gram", "grassmann_tangent_gram.cu", 479,
+             gram["launches"]),
+            ("adam_lowrank", "adam_lowrank_norms.cu", 634,
+             gram_err["adam_lowrank_launches"])):
+        t = gram_time[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{src}",
+            "replaces": f"src/repro/kernels/grassmann.py:{line}",
+            "launches": launches, "max_abs_err": gram_err[name],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"]})
+    t = flash[FLASH_TIMED[0]]
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:85",
+        "launches": flash["launches"], "max_abs_err": flash["max_abs_err"],
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "gemma2_local": {k: flash[FLASH_TIMED[1]][k]
+                         for k in ("ms", "plain_ms", "bound_ms",
+                                   "library_ms")}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,10 +8,13 @@ projection (Eq. 2-3), the Grassmann tangent (Eq. 4) in its fused form
 ``-2 G A^T + 2 S (A A^T)``, the top singular triple of the tangent by a
 Gram power iteration, and the rank-1 geodesic step (Eq. 5).
 
-Only the tangent schedule of ``track_subspace`` is ported (the replicated
-program); the gram schedule of the row-sharded regimes comes with the
-multi-GPU slice.  Random draws take an explicit ``torch.Generator``; they
-differ from the JAX package's ``jax.random`` draws.
+``track_subspace`` has both schedules of the JAX package: the tangent
+schedule (the replicated program, which the optimizer runs) and the gram
+schedule of the row-sharded programs, at group size 1.  On one device the
+gram schedule's two collective rounds are identities; the multi-GPU slice
+adds them, and a StepProgram to pick the schedule.  Random draws take an
+explicit ``torch.Generator``; they differ from the JAX package's
+``jax.random`` draws.
 """
 
 from __future__ import annotations
@@ -253,7 +256,7 @@ class TrackResult(NamedTuple):
     cos_theta: torch.Tensor      # (...,) cos(theta) of the rank-1 rotation
     v: torch.Tensor              # (..., r) right singular vector
     gsq: Optional[torch.Tensor] = None   # (..., n) ||G_:,j||^2 (kernel path)
-    A_new: Optional[torch.Tensor] = None  # gram schedule only (not ported)
+    A_new: Optional[torch.Tensor] = None  # (..., r, n) S_new^T G, gram schedule
     diag: Optional[torch.Tensor] = None   # (..., 4) health diagnostics
 
 
@@ -280,6 +283,97 @@ def _track_tangent_schedule(S, G, *, eta, fused_tangent, exact_top1,
                        v=triple.v, gsq=gsq, diag=diag)
 
 
+def _track_gram_schedule(S, G, *, eta, fused_tangent, exact_top1,
+                         power_iters, backend) -> TrackResult:
+    """The gram schedule (``repro/core/subspace.py`` ``_track_gram_schedule``)
+    at group size 1.  Under a row-sharded program S and G are row slices and
+    two collective rounds make everything after them replicated; on one
+    device both rounds are identities, and the multi-GPU slice inserts them
+    where the comments say.
+
+    Round "proj" sums the stacked [A; ||G_:,j||^2] over the row shards.
+    Given the global A, the tangent T = -2 G A^T + 2 S (A A^T) is row-local.
+
+    Round "gram_psum" sums [T^T G | S^T T | T^T T | S^T S] over the row
+    shards.  From them alone, (r,)- and (r, n)-sized: (sigma, v) from the
+    Gram C = T^T T; with u = -T v / sigma, S^T u = -(S^T T) v / sigma,
+    ||u||^2 = v^T C v / sigma^2 and the norm of the stabiliser's
+    orthogonal-complement scrub ||u_perp||^2 = ||u||^2 - 2 ||S^T u||^2 +
+    (S^T u)^T (S^T S) (S^T u); and the new basis's projection A_new =
+    S_new^T G = A + v (p^T G) without another pass over G, with p^T G =
+    (cos theta - 1) v^T A + sin theta u_hat^T G and u^T G = -v^T (T^T G) /
+    sigma.  With ``backend`` that is three launches: project_colnorms,
+    tangent, tangent_gram.  In real arithmetic it equals the tangent
+    schedule."""
+    del fused_tangent  # the gram schedule always takes the fused form
+    rel_tol = 1e-6     # stabilize_triple's
+    if backend is not None:
+        A, gsq = backend.project_colnorms(S, G)
+    else:
+        G = G.float()
+        A = S.mT @ G
+        gsq = (G * G).sum(dim=-2)
+    # round "proj": [A; gsq] summed over the row shards
+    if backend is not None:
+        T = backend.tangent(G, A, S)     # this shard's rows of the tangent
+        TtG, StT, C, StS = backend.tangent_gram(S, T, G)
+    else:
+        T = tangent_fused(S, G, A)
+        TtG, StT, C, StS = T.mT @ G, S.mT @ T, T.mT @ T, S.mT @ S
+    # round "gram_psum": [TtG | StT | C | StS] summed over the row shards
+
+    def mv(X, x):                        # (..., a, b) @ (..., b) -> (..., a)
+        return (X @ x[..., None])[..., 0]
+
+    def dot(x, y):
+        return (x * y).sum(dim=-1)
+
+    sigma_raw, v = (_top1_gram_eigh(C) if exact_top1
+                    else _top1_gram_power(C, n_iter=power_iters))
+    denom = torch.clamp_min(sigma_raw, _TINY)[..., None]
+    # DESCENT sign, as in the tangent schedule: u = -T v / sigma
+    u = -mv(T, v) / denom                          # (..., m) this shard's rows
+    Stu = -mv(StT, v) / denom                      # (..., r) S^T u
+    u_sq = dot(v, mv(C, v)) / (denom * denom)[..., 0]
+    perp_sq = u_sq - 2.0 * dot(Stu, Stu) + dot(Stu, mv(StS, Stu))
+    nu = torch.sqrt(torch.clamp_min(perp_sq, 0.0))[..., None]
+    ok = (nu > rel_tol).float()
+    uhat = ok * (u - mv(S, Stu)) / torch.clamp_min(nu, _TINY)
+    sigma = sigma_raw * ok[..., 0]
+
+    # health guards on the replicated scalars: a non-finite G anywhere
+    # reaches sigma and v through the Gram; theta clamps inside pi/2
+    finite = torch.isfinite(sigma) & torch.isfinite(v).all(dim=-1)
+    fin = finite[..., None]
+    sigma_f = torch.where(finite, sigma, 0.0)
+    v = torch.where(fin, v, 0.0)
+    uhat = torch.where(fin, uhat, 0.0)
+    theta_raw = sigma_f * eta
+    theta = torch.clamp_max(theta_raw, THETA_MAX)
+    diag = torch.stack([sigma_raw.float(), theta.float(),
+                        (theta_raw > THETA_MAX).float(), (~finite).float()],
+                       dim=-1)
+
+    cos_t, sin_t = torch.cos(theta)[..., None], torch.sin(theta)[..., None]
+    p = mv(S, v) * (cos_t - 1.0) + uhat * sin_t
+    S_new = S + p[..., :, None] * v[..., None, :]
+
+    # A_new = A + v (p^T G), replicated: no further pass over G
+    vA = (v[..., None, :] @ A)[..., 0, :]          # (..., n) v^T A
+    utG = -(v[..., None, :] @ TtG)[..., 0, :] / denom
+    uhatG = ok * (utG - (Stu[..., None, :] @ A)[..., 0, :]) / torch.clamp_min(
+        nu, _TINY)
+    uhatG = torch.where(fin, uhatG, 0.0)
+    ptG = (cos_t - 1.0) * vA + sin_t * uhatG
+    A_new = A + v[..., :, None] * ptG[..., None, :]
+    return TrackResult(S_new=S_new, A=A, cos_theta=cos_t[..., 0], v=v,
+                       gsq=gsq, A_new=A_new, diag=diag)
+
+
+_SCHEDULES = {"tangent": _track_tangent_schedule,
+              "gram": _track_gram_schedule}
+
+
 def track_subspace(S, G, *, eta: float, fused_tangent: bool = True,
                    exact_top1: bool = False, power_iters: int = 24,
                    backend=None, schedule: str = "tangent") -> TrackResult:
@@ -287,14 +381,16 @@ def track_subspace(S, G, *, eta: float, fused_tangent: bool = True,
     the (cos_theta, v) pair that fixes Q = S_new^T S_old = I + (cos - 1)
     v v^T, so the moments rotate in O(rn).  With ``backend``
     (:mod:`repro_torch.kernels.ops`) the front end runs the kernels and G
-    is never upcast to an (m, n) fp32 copy."""
-    if schedule != "tangent":
-        raise NotImplementedError(
-            f"the {schedule!r} tracking schedule (row-sharded regimes) is "
-            "not yet ported to repro_torch")
-    return _track_tangent_schedule(S, G, eta=eta, fused_tangent=fused_tangent,
-                                   exact_top1=exact_top1,
-                                   power_iters=power_iters, backend=backend)
+    is never upcast to an (m, n) fp32 copy.  ``schedule`` is "tangent"
+    (what the optimizer runs) or "gram" (the row programs' schedule at
+    group size 1, which also returns ``A_new``)."""
+    try:
+        fn = _SCHEDULES[schedule]
+    except KeyError:
+        raise ValueError(f"unknown tracking schedule {schedule!r}; options: "
+                         f"{sorted(_SCHEDULES)}") from None
+    return fn(S, G, eta=eta, fused_tangent=fused_tangent,
+              exact_top1=exact_top1, power_iters=power_iters, backend=backend)
 
 
 # ---------------------------------------------------------------------------

@@ -2,9 +2,11 @@
 
     project, project_colnorms   csrc/grassmann_project.cu
     tangent                     csrc/grassmann_tangent.cu
+    tangent_gram                csrc/grassmann_tangent_gram.cu
     project_tangent_colnorms    csrc/grassmann_tangent_front.cu
     backproject, recovery       csrc/grassmann_backproject.cu
-    adam_lowrank_norms          csrc/adam_lowrank_norms.cu
+    adam_lowrank_norms,
+    adam_lowrank                csrc/adam_lowrank_norms.cu
     fused_update                csrc/fused_update.cu
     grad_tap                    csrc/grad_tap.cu
 
@@ -26,7 +28,7 @@ in ``recovery``) and,
 in ``fused_update``, the parameter and the output, so the transposed
 canonical view of a ``(.., n, m)`` leaf needs no copy; in ``grad_tap``,
 x, dy and the dW it writes.  Every other
-operand (S, A, Gt, Gto, M, V, phi) must be contiguous fp32; anything else
+operand (S, T, A, Gt, Gto, M, V, phi) must be contiguous fp32; anything else
 raises ``ValueError``.  Each wrapper runs on PyTorch's current stream,
 raises ``RuntimeError`` when its launch reports an error, and counts its
 launches in ``<wrapper>.launches`` (``grad_tap`` counts its calls, of two
@@ -51,6 +53,8 @@ _SIGNATURES = {
                           [_vp] * 4 + [_i] * 6 + [_ll] * 3 + [_vp]),
     "grassmann_tangent": ("grassmann_tangent_launch",
                           [_vp] * 5 + [_i] * 5 + [_ll] * 3 + [_vp]),
+    "grassmann_tangent_gram": ("grassmann_tangent_gram_launch",
+                               [_vp] * 7 + [_i] * 5 + [_ll] * 3 + [_vp]),
     "adam_lowrank_norms": ("adam_lowrank_norms_launch",
                            [_vp] * 8 + [_i] * 3 + [_f] * 7 + [_vp]),
     "fused_update": ("fused_update_launch",
@@ -200,6 +204,35 @@ def tangent(G: torch.Tensor, A: torch.Tensor,
     return T.reshape(lead + (m, r))
 
 
+def tangent_gram(S: torch.Tensor, T: torch.Tensor, G: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                            torch.Tensor]:
+    """(T^T G, S^T T, T^T T, S^T S) from one launch: S, T (..., m, r) fp32
+    contiguous; G (..., m, n) fp32 or bf16, any strides -> ((..., r, n),
+    (..., r, r) x 3) fp32.  Each CTA owns one output tile and sums over all
+    of m itself: deterministic, no shape gate."""
+    if G.dim() < 2:
+        raise ValueError(f"G must be (..., m, n); got {tuple(G.shape)}")
+    lead, (m, n) = tuple(G.shape[:-2]), tuple(G.shape[-2:])
+    r = S.shape[-1]
+    _shape("S", S, lead + (m, r))
+    _shape("T", T, lead + (m, r))
+    _fp32_contiguous(S=S, T=T)
+    dtype = _float_dtype("G", G)
+    dev = _device(S=S, T=T, G=G)
+    G3 = _stack3(G)
+    batch = G3.shape[0]
+    TtG = torch.empty((batch, r, n), dtype=torch.float32, device=dev)
+    StT, TtT, StS = (torch.empty((batch, r, r), dtype=torch.float32,
+                                 device=dev) for _ in range(3))
+    _launch("grassmann_tangent_gram", S.data_ptr(), T.data_ptr(),
+            G3.data_ptr(), TtG.data_ptr(), StT.data_ptr(), TtT.data_ptr(),
+            StS.data_ptr(), dtype, batch, m, n, r, *G3.stride(), _stream(dev))
+    tangent_gram.launches += 1
+    return (TtG.reshape(lead + (r, n)), StT.reshape(lead + (r, r)),
+            TtT.reshape(lead + (r, r)), StS.reshape(lead + (r, r)))
+
+
 def project_tangent_colnorms(S: torch.Tensor, G: torch.Tensor
                              ) -> tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
@@ -286,12 +319,7 @@ def bias_corrections(step: int, beta1: float, beta2: float,
     return (float(1.0 / (1.0 - beta1 ** t)), float(1.0 / (1.0 - beta2 ** t)))
 
 
-def adam_lowrank_norms(Gt: torch.Tensor, M: torch.Tensor, V: torch.Tensor,
-                       step: int, *, beta1: float = 0.9, beta2: float = 0.999,
-                       eps: float = 1e-8, bias_correction: bool = True):
-    """(M', V', Gto, ||Gt_:,j||^2, ||Gto_:,j||^2) from one (r, n) pass.
-    Gt, M, V (..., r, n) fp32 contiguous; ``step`` the 0-based Python int
-    count of updates applied so far."""
+def _adam(Gt, M, V, step, beta1, beta2, eps, bias_correction, norms):
     _fp32_contiguous(Gt=Gt, M=M, V=V)
     _shape("M", M, Gt.shape)
     _shape("V", V, Gt.shape)
@@ -301,15 +329,37 @@ def adam_lowrank_norms(Gt: torch.Tensor, M: torch.Tensor, V: torch.Tensor,
     lead, (r, n) = tuple(Gt.shape[:-2]), tuple(Gt.shape[-2:])
     batch = _stack3(Gt).shape[0]
     M1, V1, Gto = (torch.empty_like(Gt) for _ in range(3))
-    gtsq, gtosq = (torch.empty(lead + (n,), dtype=torch.float32, device=dev)
-                   for _ in range(2))
+    # no norm outputs (null pointers) compiles the norms out of the kernel
+    gtsq, gtosq = ((torch.empty(lead + (n,), dtype=torch.float32, device=dev)
+                    for _ in range(2)) if norms else (None, None))
     bc1, bc2 = bias_corrections(step, beta1, beta2, bias_correction)
     _launch("adam_lowrank_norms", Gt.data_ptr(), M.data_ptr(), V.data_ptr(),
-            M1.data_ptr(), V1.data_ptr(), Gto.data_ptr(), gtsq.data_ptr(),
-            gtosq.data_ptr(), batch, r, n, beta1, 1.0 - beta1, beta2,
-            1.0 - beta2, bc1, bc2, eps, _stream(dev))
+            M1.data_ptr(), V1.data_ptr(), Gto.data_ptr(),
+            gtsq.data_ptr() if norms else None,
+            gtosq.data_ptr() if norms else None, batch, r, n, beta1,
+            1.0 - beta1, beta2, 1.0 - beta2, bc1, bc2, eps, _stream(dev))
+    return (M1, V1, Gto, gtsq, gtosq) if norms else (M1, V1, Gto)
+
+
+def adam_lowrank_norms(Gt: torch.Tensor, M: torch.Tensor, V: torch.Tensor,
+                       step: int, *, beta1: float = 0.9, beta2: float = 0.999,
+                       eps: float = 1e-8, bias_correction: bool = True):
+    """(M', V', Gto, ||Gt_:,j||^2, ||Gto_:,j||^2) from one (r, n) pass.
+    Gt, M, V (..., r, n) fp32 contiguous; ``step`` the 0-based Python int
+    count of updates applied so far."""
+    out = _adam(Gt, M, V, step, beta1, beta2, eps, bias_correction, True)
     adam_lowrank_norms.launches += 1
-    return M1, V1, Gto, gtsq, gtosq
+    return out
+
+
+def adam_lowrank(Gt: torch.Tensor, M: torch.Tensor, V: torch.Tensor,
+                 step: int, *, beta1: float = 0.9, beta2: float = 0.999,
+                 eps: float = 1e-8, bias_correction: bool = True):
+    """(M', V', Gto): ``adam_lowrank_norms`` without the column norms, the
+    same kernel with its norms compiled out.  Same contract."""
+    out = _adam(Gt, M, V, step, beta1, beta2, eps, bias_correction, False)
+    adam_lowrank.launches += 1
+    return out
 
 
 def _per_matrix_column(x, lead: tuple, dev) -> torch.Tensor:
@@ -432,7 +482,7 @@ def grad_tap_xs(x: torch.Tensor, dy: torch.Tensor, S: torch.Tensor) -> None:
     _grad_tap(x, dy, S, torch.float32, False, stages=1)
 
 
-for _fn in (project, project_colnorms, tangent, project_tangent_colnorms,
-            backproject, recovery, adam_lowrank_norms, fused_update,
-            grad_tap):
+for _fn in (project, project_colnorms, tangent, tangent_gram,
+            project_tangent_colnorms, backproject, recovery,
+            adam_lowrank_norms, adam_lowrank, fused_update, grad_tap):
     _fn.launches = 0          # kernel launches since the last reset

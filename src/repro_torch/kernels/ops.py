@@ -26,6 +26,11 @@ The grad-fused backward (``repro_torch.models.common.tapped_matmul``)
 calls :func:`grad_tap` once per tapped matmul; on such a plain step the
 optimizer skips ``project_colnorms`` for the tapped leaves.
 
+The gram tracking schedule (``track_subspace(schedule="gram")``) runs
+``project_colnorms``, ``tangent`` and ``tangent_gram``: three launches.
+``adam_lowrank`` and ``flash_attention`` are on no path of the JAX
+package; their entry points are the functions here.
+
 Each kernel wrapper counts its launches in a plain integer
 (``<wrapper>.launches``); :func:`launch_counts` reads them and
 :func:`reset_launch_counts` zeroes them, so a run can show that its main
@@ -36,6 +41,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import flash_attention as flash
 from repro_torch.kernels import grassmann
 from repro_torch.kernels import paged_attention as paged
 from repro_torch.kernels import ref
@@ -45,12 +51,15 @@ _WRAPPERS = {
     "project": grassmann.project,
     "project_colnorms": grassmann.project_colnorms,
     "tangent": grassmann.tangent,
+    "tangent_gram": grassmann.tangent_gram,
     "project_tangent_colnorms": grassmann.project_tangent_colnorms,
     "backproject": grassmann.backproject,
     "recovery": grassmann.recovery,
     "adam_lowrank_norms": grassmann.adam_lowrank_norms,
+    "adam_lowrank": grassmann.adam_lowrank,
     "fused_update": grassmann.fused_update,
     "grad_tap": grassmann.grad_tap,
+    "flash_attention": flash.flash_attention,
 }
 
 
@@ -98,6 +107,17 @@ def tangent(G: torch.Tensor, A: torch.Tensor,
     if G.device.type == "cpu":
         return ref.tangent_ref(G, A, S)
     return grassmann.tangent(G, A, S)
+
+
+def tangent_gram(S: torch.Tensor, T: torch.Tensor, G: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                            torch.Tensor]:
+    """The gram schedule's sums over rows (T^T G, S^T T, T^T T, S^T S).
+    Kernel: ``csrc/grassmann_tangent_gram.cu``; oracle:
+    ``ref.tangent_gram_ref``."""
+    if G.device.type == "cpu":
+        return ref.tangent_gram_ref(S, T, G)
+    return grassmann.tangent_gram(S, T, G)
 
 
 def project_tangent_colnorms(S: torch.Tensor, G: torch.Tensor
@@ -148,6 +168,18 @@ def adam_lowrank_norms(Gt: torch.Tensor, M: torch.Tensor, V: torch.Tensor,
                                         bias_correction=bias_correction)
 
 
+def adam_lowrank(Gt: torch.Tensor, M: torch.Tensor, V: torch.Tensor,
+                 step: int, *, beta1: float = 0.9, beta2: float = 0.999,
+                 eps: float = 1e-8, bias_correction: bool = True):
+    """(M', V', Gto) (Eq. 6-7).  Kernel: ``csrc/adam_lowrank_norms.cu``,
+    its norms compiled out; oracle: ``ref.adam_lowrank_ref``."""
+    if Gt.device.type == "cpu":
+        return ref.adam_lowrank_ref(Gt, M, V, step, beta1, beta2, eps,
+                                    bias_correction)
+    return grassmann.adam_lowrank(Gt, M, V, step, beta1=beta1, beta2=beta2,
+                                  eps=eps, bias_correction=bias_correction)
+
+
 def fused_update(G, S, Gt, Gto, phi, coef, clip, *, out_dtype=None,
                  param=None, wd_coef=None) -> torch.Tensor:
     """The hot-path epilogue, written in ``out_dtype``.  Kernel:
@@ -177,3 +209,17 @@ def grad_tap(x: torch.Tensor, dy: torch.Tensor, S: torch.Tensor, *,
         return dW.to(out_dtype), torch.cat([A, gsq[None, :]], dim=0)
     return grassmann.grad_tap(x, dy, S, out_dtype=out_dtype,
                               transposed_out=transposed_out)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    softcap: float = 0.0) -> torch.Tensor:
+    """Flash attention in the JAX kernel's layout and semantics: q (B, S,
+    Hq, hd), k and v (B, T, Hkv, hd) -> (B, S, Hq, hd) in q's dtype.
+    Kernel: ``csrc/flash_attention.cu``; oracle:
+    ``ref.flash_attention_ref``."""
+    if q.device.type == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal, window=window,
+                                       softcap=softcap)
+    return flash.flash_attention(q, k, v, causal=causal, window=window,
+                                 softcap=softcap)

@@ -10,8 +10,7 @@ Every optimizer oracle takes an optional leading batch dim (one matrix
 per leading index, as the kernels' grid z), casts each operand to fp32
 and follows the JAX oracle's order of operations.  Per-matrix scalars
 (``coef``, ``clip``, ``wd_coef``) are Python floats or tensors of the
-batch shape.  The oracles of the kernels not on a ported path
-(``tangent_gram``, ``adam_lowrank`` alone) come with their kernels.
+batch shape.
 """
 
 from __future__ import annotations
@@ -69,6 +68,21 @@ def project_tangent_colnorms_ref(S: torch.Tensor, G: torch.Tensor
     W = G A^T, equal to S (A A^T) up to the order of its sums."""
     A, gsq = project_colnorms_ref(S, G)
     return A, gsq, tangent_ref(G, A, S)
+
+
+def tangent_gram_ref(S: torch.Tensor, T: torch.Tensor, G: torch.Tensor
+                     ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                torch.Tensor]:
+    """The gram schedule's sums over rows, all fp32:
+
+        TtG = T^T G  (..., r, n)    u^T G = v^T TtG / sigma
+        StT = S^T T  (..., r, r)    the stabiliser's in-subspace part
+        C   = T^T T  (..., r, r)    the tangent Gram (top-1 triple)
+        StS = S^T S  (..., r, r)    the orthonormality correction
+
+    S, T: (..., m, r) fp32; G: (..., m, n) any float."""
+    S32, T32 = S.float(), T.float()
+    return T32.mT @ G.float(), S32.mT @ T32, T32.mT @ T32, S32.mT @ S32
 
 
 def fused_update_ref(G, S, Gt, Gto, phi, coef, clip, *, out_dtype=None,
@@ -166,3 +180,49 @@ def paged_attention_ref(q: torch.Tensor, k_pool: torch.Tensor,
     num = torch.einsum("bkgt,btkh->bkgh", p, vg)
     den = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     return (num / den).reshape(B, Hq, hd).to(q.dtype)
+
+
+FLASH_MASKED = -1e30    # a masked logit, as the TPU kernel writes it
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        *, causal: bool = True, window: int = 0,
+                        softcap: float = 0.0) -> torch.Tensor:
+    """Attention with the TPU flash kernel's semantics
+    (``repro/kernels/flash_attention.py``), all in fp32.
+
+    q: (B, S, Hq, hd); k, v: (B, T, Hkv, hd); query head h reads KV head
+    h // (Hq // Hkv).  logits = q.k / sqrt(hd), then ``softcap *
+    tanh(logits / softcap)`` when softcap != 0, then the masks, with query
+    and key positions both counted from 0 (top-left aligned when S != T):
+    causal keeps k <= q, window > 0 keeps k > q - window.  A masked logit
+    is -1e30, not -inf, so a row no key may see averages all T values, as
+    the kernel's online softmax (started at -1e30) does.  P stays fp32
+    for the P V product (the JAX ``blocked_attention`` rounds it to v's
+    dtype; the kernel does not).  -> (B, S, Hq, hd) in q's dtype.  Query
+    rows go in chunks, so the (S, T) logits never exist whole."""
+    B, S, Hq, hd = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = 1.0 / math.sqrt(hd)
+    qf = q.float().transpose(1, 2)                               # (B, Hq, S, hd)
+    kf = k.float().repeat_interleave(G, dim=2).transpose(1, 2)   # (B, Hq, T, hd)
+    vf = v.float().repeat_interleave(G, dim=2).transpose(1, 2)
+    out = torch.empty((B, Hq, S, hd), dtype=torch.float32, device=q.device)
+    k_pos = torch.arange(T, device=q.device)
+    chunk = max(1, (1 << 26) // max(1, B * Hq * T))
+    for s0 in range(0, S, chunk):
+        logits = (qf[:, :, s0:s0 + chunk] @ kf.mT) * scale
+        if softcap:
+            logits = softcap * torch.tanh(logits / softcap)
+        q_pos = torch.arange(s0, s0 + logits.shape[2], device=q.device)[:, None]
+        mask = torch.ones_like(logits[0, 0], dtype=torch.bool)
+        if causal:
+            mask &= k_pos <= q_pos
+        if window:
+            mask &= k_pos > q_pos - window
+        logits = torch.where(mask, logits, FLASH_MASKED)
+        p = torch.exp(logits - logits.amax(dim=-1, keepdim=True))
+        out[:, :, s0:s0 + chunk] = (
+            (p @ vf) / p.sum(dim=-1, keepdim=True).clamp_min(1e-30))
+    return out.transpose(1, 2).to(q.dtype)

@@ -251,9 +251,11 @@ def test_optimizer_dispatch_counts_launches(cuda):
     # m = 64 takes the single-launch front end
     assert counts == {"paged_attention": 0, "project": 1,
                       "project_colnorms": 0, "tangent": 0,
+                      "tangent_gram": 0,
                       "project_tangent_colnorms": 1, "backproject": 0,
                       "recovery": 0, "adam_lowrank_norms": 1,
-                      "fused_update": 1, "grad_tap": 0}
+                      "adam_lowrank": 0, "fused_update": 1, "grad_tap": 0,
+                      "flash_attention": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -506,3 +508,202 @@ def test_tapped_backward_launches_grad_tap_per_site(cuda):
     assert counts == {k: int(k == "grad_tap") for k in counts}
     for a, b in zip(grads[0], grads[1]):
         assert _rel_err(b.cpu(), a) < TAP_REL
+
+
+# ---------------------------------------------------------------------------
+# adam_lowrank (csrc/adam_lowrank_norms.cu, norms compiled out),
+# tangent_gram (csrc/grassmann_tangent_gram.cu) and the gram schedule
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,n", [(1024, 11008), (1024, 32000), (129, 1000)])
+def test_adam_lowrank_kernel_matches_oracle(cuda, r, n):
+    gen = torch.Generator(device=cuda).manual_seed(n + r)
+    Gt, M = (torch.randn(2, r, n, generator=gen, device=cuda)
+             for _ in range(2))
+    V = torch.rand(2, r, n, generator=gen, device=cuda)
+    for step, bc in ((0, True), (1000, True), (7, False)):
+        got = gk.adam_lowrank(Gt, M, V, step, bias_correction=bc)
+        want = ref.adam_lowrank_ref(Gt, M, V, step, 0.9, 0.999, 1e-8, bc)
+        assert len(got) == 3
+        for g, w in zip(got, want):
+            assert _rel_err(g, w) < REL["adam"]
+        # the norms variant's first three outputs are the same bits
+        for g, w in zip(got, gk.adam_lowrank_norms(Gt, M, V, step,
+                                                   bias_correction=bc)):
+            assert torch.equal(g, w)
+
+
+def _gram_errs(got, want, T):
+    """max error of (TtG, StT, TtT, StS) over the largest entry; S^T T is
+    analytically zero, so its error is judged against max |T| (as
+    tests/test_kernels.py judges the TPU kernel)."""
+    tmax = T.abs().max()
+    return [((g - w).abs().max() / (tmax if i == 1 else w.abs().max())
+             ).item() for i, (g, w) in enumerate(zip(got, want))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gdtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("m,n,r,transposed", [
+    (4096, 11008, 1024, False), (2048, 11008, 1024, True),
+    (200, 333, 70, False), (130, 1000, 129, True), (64, 96, 1, False)])
+def test_tangent_gram_kernel_matches_oracle(cuda, gdtype, m, n, r,
+                                            transposed):
+    """2e-5 of the largest entry (fp32 sums over m in another order);
+    deterministic: a second launch gives the same bits; the symmetric Grams
+    are exactly symmetric."""
+    S, G, _ = _opt_case(2, m, n, r, gdtype, cuda, seed=5,
+                        transposed=transposed)
+    T = ref.tangent_ref(G, ref.project_ref(S, G), S)
+    got = gk.tangent_gram(S, T, G)
+    torch.cuda.synchronize()
+    assert [t.shape for t in got] == [(2, r, n)] + [(2, r, r)] * 3
+    assert max(_gram_errs(got, ref.tangent_gram_ref(S, T, G), T)) < 2e-5
+    for a, b in zip(got, gk.tangent_gram(S, T, G)):
+        assert torch.equal(a, b)
+    # T^T T and S^T S: the upper tiles, mirrored, so exactly symmetric
+    for gram in got[2:]:
+        assert torch.equal(gram, gram.mT)
+
+
+@pytest.mark.cuda
+def test_gram_schedule_on_the_card(cuda):
+    """track_subspace(schedule="gram", backend=ops): exactly the three
+    launches project_colnorms, tangent, tangent_gram; the CPU's result from
+    the same S and G within 1e-4 of the largest entry (the card's kernels
+    sum in another order than the CPU's GEMMs, and the power iteration
+    carries it); the tangent schedule's S_new and A_new within the 1e-3
+    tracking budget."""
+    from repro_torch.core import subspace as tsub
+
+    S, G, _ = _opt_case(2, 512, 1000, 64, torch.bfloat16, cuda, seed=6)
+    eta = 0.5 / torch.linalg.matrix_norm(
+        ref.tangent_ref(G[0], ref.project_ref(S[0], G[0]), S[0]), ord=2)
+    eta = float(eta)
+    ops.reset_launch_counts()
+    gram = tsub.track_subspace(S, G, eta=eta, schedule="gram", backend=ops)
+    counts = ops.launch_counts()
+    assert counts == {k: int(k in ("project_colnorms", "tangent",
+                                   "tangent_gram")) for k in counts}
+    cpu = tsub.track_subspace(S.cpu(), G.cpu(), eta=eta, schedule="gram",
+                              backend=ops)
+    for name in ("S_new", "A_new", "cos_theta", "v"):
+        assert _rel_err(getattr(gram, name).cpu(), getattr(cpu, name)) < 1e-4
+    tang = tsub.track_subspace(S, G, eta=eta, backend=ops)
+    assert _rel_err(gram.S_new @ gram.S_new.mT,
+                    tang.S_new @ tang.S_new.mT) < 1e-3
+    assert _rel_err(gram.A_new, ref.project_ref(tang.S_new, G)) < 1e-3
+
+
+# ---------------------------------------------------------------------------
+# flash_attention (csrc/flash_attention.cu)
+# ---------------------------------------------------------------------------
+#
+# Tolerances: fp32 inputs, 2e-5 (sums over hd and T in another order, expf
+# and tanhf against PyTorch's); bf16 inputs, one bf16 rounding of the output
+# plus 1e-5 (both compute in fp32 from the same bf16 values).
+
+from repro_torch.kernels import flash_attention as fk  # noqa: E402
+
+
+def _flash_case(B, S, T, Hq, Hkv, hd, dtype, device, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=gen, device=device).to(dtype)
+                 for shape in ((B, S, Hq, hd), (B, T, Hkv, hd),
+                               (B, T, Hkv, hd)))
+
+
+def _flash_close(got, want):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    g, w = got.float(), want.float()
+    if got.dtype == torch.bfloat16:
+        _, e = torch.frexp(w)
+        ulp = torch.where(w == 0, torch.zeros_like(w),
+                          torch.ldexp(torch.ones_like(w), e - 8))
+        assert ((g - w).abs() <= ulp + 1e-5 + 1e-5 * w.abs()).all()
+    else:
+        torch.testing.assert_close(g, w, atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,T,Hq,Hkv,hd", [
+    (2, 256, 256, 4, 4, 128),      # MHA
+    (1, 200, 200, 8, 2, 128),      # GQA 4, ragged S = T
+    (1, 130, 130, 4, 1, 64),       # MQA
+    (1, 256, 256, 32, 8, 160),     # stablelm-12b heads
+    (1, 192, 192, 24, 24, 85),     # llama-1b: hd 85, scalar loads
+    (1, 100, 300, 4, 2, 21),       # S < T, odd hd
+    (1, 300, 100, 4, 2, 256),      # S > T, widest head
+])
+@pytest.mark.parametrize("causal,window,softcap", [
+    (True, 0, 0.0), (True, 64, 0.0), (True, 0, 50.0), (False, 0, 0.0),
+    (False, 48, 30.0)])
+def test_flash_kernel_matches_oracle(cuda, dtype, B, S, T, Hq, Hkv, hd,
+                                     causal, window, softcap):
+    q, k, v = _flash_case(B, S, T, Hq, Hkv, hd, dtype, cuda, seed=S + hd)
+    kw = dict(causal=causal, window=window, softcap=softcap)
+    got = fk.flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    _flash_close(got, ref.flash_attention_ref(q, k, v, **kw))
+
+
+@pytest.mark.cuda
+def test_flash_rows_no_key_sees_average_every_value(cuda):
+    """window 32, S > T - 1 + window: those rows take the mean of V, as the
+    TPU kernel's online softmax started at -1e30 gives them."""
+    q, k, v = _flash_case(1, 300, 64, 4, 2, 64, torch.float32, cuda, seed=1)
+    got = fk.flash_attention(q, k, v, causal=False, window=32)
+    _flash_close(got, ref.flash_attention_ref(q, k, v, causal=False,
+                                              window=32))
+    mean = v.repeat_interleave(2, dim=2).mean(dim=1)      # (1, Hq, hd)
+    torch.testing.assert_close(got[:, 95:], mean[:, None].expand_as(
+        got[:, 95:]), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+def test_new_kernels_dispatch_and_count(cuda):
+    q, k, v = _flash_case(1, 64, 64, 2, 1, 32, torch.bfloat16, cuda)
+    S, G, _ = _opt_case(2, 64, 96, 16, torch.bfloat16, cuda)
+    A = ref.project_ref(S, G)
+    T = ref.tangent_ref(G, A, S)
+    ops.reset_launch_counts()
+    ops.flash_attention(q, k, v, window=8)
+    ops.flash_attention(q, k, v)
+    ops.tangent_gram(S, T, G)
+    ops.adam_lowrank(A, A, A.abs(), 0)
+    counts = ops.launch_counts()
+    assert counts == {k: {"flash_attention": 2, "tangent_gram": 1,
+                          "adam_lowrank": 1}.get(k, 0) for k in counts}
+
+
+@pytest.mark.cuda
+def test_new_kernels_reject_what_they_do_not_take(cuda):
+    S, G, _ = _opt_case(2, 64, 96, 16, torch.float32, cuda)
+    A = ref.project_ref(S, G)
+    T = ref.tangent_ref(G, A, S)
+    with pytest.raises(ValueError, match="contiguous"):
+        gk.tangent_gram(S.mT.contiguous().mT, T, G)
+    with pytest.raises(ValueError, match="contiguous"):
+        gk.tangent_gram(S, T.mT.contiguous().mT, G)
+    with pytest.raises(ValueError, match="CUDA device"):
+        gk.tangent_gram(S, T, G.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        gk.adam_lowrank(A, A.mT.contiguous().mT, A, 0)
+    with pytest.raises(ValueError, match="contiguous"):
+        gk.adam_lowrank(A, A, A.mT.contiguous().mT, 0)
+    with pytest.raises(ValueError, match="CUDA device"):
+        gk.adam_lowrank(A, A.cpu(), A, 0)
+    q, k, v = _flash_case(1, 64, 64, 2, 1, 32, torch.float32, cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        fk.flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                           k, v)
+    with pytest.raises(ValueError, match="CUDA device"):
+        fk.flash_attention(q, k.cpu(), v)
+    with pytest.raises(ValueError, match="dtype"):
+        fk.flash_attention(q, k.bfloat16(), v)
+    with pytest.raises(ValueError, match="head dim"):
+        fk.flash_attention(*_flash_case(1, 8, 8, 1, 1, 257, torch.float32,
+                                        cuda))
