@@ -12,15 +12,21 @@ non-zero:
 2. build every CUDA kernel of the ported paths from ``src/repro_torch/csrc``
    with nvcc for sm_90a (one nvcc per source, all at once) and print the
    build time and the compiler's register report;
-3. hold the paged-attention kernel against its plain-PyTorch version on the
-   card, in fp32 (atol = rtol = 2e-5) and bf16 (atol 3e-2, rtol 5e-2), at
-   the llama-7b decode shape (B 8, Hq = Hkv = 32, hd 128, bs 16, length
-   576), stablelm-12b's (Hq 32 / Hkv 8, hd 160), llama-1b's (Hq = Hkv =
-   24, hd 85: rows of scalar loads), and a batch with a dead lane (exactly
-   0 out) and partial blocks;
-4. time it with CUDA events at the llama-7b shape in bf16, beside its
-   bound, its plain version, and ``scaled_dot_product_attention`` over the
-   same K/V already gathered (a yardstick the port never calls);
+3. hold the split-K paged-attention kernel against its plain-PyTorch
+   version on the card, in fp32 (atol = rtol = 2e-5) and bf16 (atol 3e-2,
+   rtol 5e-2), at the wrapper's split count: the llama-7b decode shape (B
+   8, Hq = Hkv = 32, hd 128, bs 16, length 576), stablelm-12b's (Hq 32 /
+   Hkv 8, hd 160), llama-1b's (Hq = Hkv = 24, hd 85: the element-load
+   ring), a batch with a dead lane (exactly 0 out) and partial blocks; and
+   at forced split counts: lengths across split ranges, one short sequence
+   among long ones, more splits than blocks; a broken table word and a
+   length past the table give NaN in their lanes only;
+4. time it at the llama-7b shape in bf16 beside its bound, its plain
+   version, and ``scaled_dot_product_attention`` over the same K/V already
+   gathered (a yardstick the port never calls): the kernel and SDPA alike
+   in a CUDA graph of 200 calls (the reported time) and by the profiler's
+   device time, the eager loop printed beside them; forced split counts
+   timed too;
 5. serve the fp32 smoke llama through ``run_paged`` on CUDA and on the CPU
    from the same weights: greedy tokens must be identical, and the CUDA run
    must have launched the kernel;
@@ -34,11 +40,19 @@ non-zero:
    at the three llama-7b matrix shapes (m, n) = (4096, 4096), (4096,
    11008), (4096, 32000), rank 1024, a batch of 2 matrices, G in fp32 and
    bf16, with the tolerances of ``OPT_REL`` (max error over the largest
-   entry: fp32 sums of 4096 to 32000 terms in another order);
+   entry: fp32 sums of 4096 to 32000 terms in another order); project and
+   project_colnorms also at ``PROJ_SHAPES`` (llama-1b's (2048, 5461, r
+   512) and a ragged (1000, 777, r 129), as plain and transposed views, so
+   both producers of the bf16 tensor-core route run), printing each call's
+   route (bf16 G must take wgmma, fp32 G the CUDA cores), and the bf16
+   route's split of S bit for bit against ``ref.split_bf16_ref``;
 8. time each optimizer kernel at (4096, 11008, r 1024) with bf16 G beside
-   its bound (bytes and fp32 operations written out), its plain version
-   and, where one exists, the PyTorch expression for the same product with
-   TF32 off (a yardstick the port never calls);
+   its bound (bytes and fp32 operations written out; for project and
+   project_colnorms 3 bf16 passes at the tensor cores' peak, with the fp32
+   bound beside it), its plain version and, where one exists, the PyTorch
+   expression for the same product with TF32 off (a yardstick the port
+   never calls), by CUDA events over eager calls; project_colnorms also at
+   llama-1b's (2048, 5461, r 512) on both producers;
 9. hold grad_tap against its plain version at llama-7b's tapped shapes (b
    1024, r 1024; (m, n) = (4096, 4096), (4096, 11008), (4096, 32000) and
    w_down's swapped orientation with dW stored in the leaf's layout), a
@@ -185,6 +199,54 @@ def _time_ms(fn, iters, repeats=5) -> float:
     return sorted(times)[len(times) // 2]
 
 
+def _graph_ms(fn, iters, repeats=5) -> float:
+    """Median over ``repeats`` of the mean time of ``iters`` calls captured
+    in one CUDA graph and replayed, by CUDA events: the device's time for
+    the calls without the host's (Python, ctypes) between launches."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(repeats):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / iters)
+    del graph
+    return sorted(times)[len(times) // 2]
+
+
+def _profiler_ms(fn, iters) -> float:
+    """Device time of ``iters`` eager calls per call: the sum of the CUDA
+    kernels' durations in a ``torch.profiler`` trace (no gaps between
+    them, whoever launched them)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    return total_us / 1e3 / iters
+
+
 def phase_device() -> str:
     line = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -212,22 +274,31 @@ def phase_build() -> None:
 
 
 def phase_check_paged_attention() -> float:
-    """Kernel vs oracle at every case; returns the max abs error at the
-    llama-7b bf16 shape (the one timed)."""
+    """Kernel vs oracle at every case, at the wrapper's split count and at
+    forced ones; returns the max abs error at the llama-7b bf16 shape (the
+    one timed)."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attention import paged_attention
 
+    # name -> (B, Hq, Hkv, hd, bs, lengths, forced split count or None)
     cases = {
-        "llama-7b": (8, 32, 32, 128, 16, [576] * 8),
-        "stablelm-12b": (8, 32, 8, 160, 16, [576] * 8),
-        "llama-1b hd 85": (8, 24, 24, 85, 16, [576] * 8),
-        "dead-lane+partial": (4, 32, 8, 128, 16, [0, 1, 300, 576]),
+        "llama-7b": (8, 32, 32, 128, 16, [576] * 8, None),
+        "stablelm-12b": (8, 32, 8, 160, 16, [576] * 8, None),
+        "llama-1b hd 85": (8, 24, 24, 85, 16, [576] * 8, None),
+        "dead-lane+partial": (4, 32, 8, 128, 16, [0, 1, 300, 576], None),
+        # 3 splits of 12 words = 192 positions: no length a multiple of it
+        "lengths across split ranges": (4, 32, 8, 128, 16,
+                                        [500, 333, 575, 129], 3),
+        "one short among long": (8, 32, 32, 128, 16, [576] * 7 + [17], 4),
+        "more splits than blocks": (4, 24, 24, 85, 16, [100, 5, 0, 64], 11),
+        "llama-7b, 5 splits": (8, 32, 32, 128, 16, [576] * 8, 5),
     }
     err_7b = math.nan
     for dtype in (torch.float32, torch.bfloat16):
-        for i, (name, (B, Hq, Hkv, hd, bs, lens)) in enumerate(cases.items()):
+        for i, (name, (B, Hq, Hkv, hd, bs, lens, splits)) in enumerate(
+                cases.items()):
             args = _paged_case(B, Hq, Hkv, hd, bs, lens, dtype, SEED + i)
-            got = paged_attention(*args)
+            got = paged_attention(*args, splits=splits)
             torch.cuda.synchronize()
             want = ref.paged_attention_ref(*args)
             torch.testing.assert_close(got.float(), want.float(),
@@ -239,9 +310,26 @@ def phase_check_paged_attention() -> float:
                     raise AssertionError("dead lane is not exactly 0")
             if name == "llama-7b" and dtype == torch.bfloat16:
                 err_7b = err
-            print(f"[check] paged_attention {name} {dtype}: max abs err "
-                  f"{err:.3e} (atol {TOL[dtype]['atol']:g}, rtol "
-                  f"{TOL[dtype]['rtol']:g})", flush=True)
+            print(f"[check] paged_attention {name} {dtype}, splits "
+                  f"{splits or 'chosen'}: max abs err {err:.3e} (atol "
+                  f"{TOL[dtype]['atol']:g}, rtol {TOL[dtype]['rtol']:g})",
+                  flush=True)
+    # a broken table word (one lane) and a length past the table (another)
+    # give NaN there and only there, whichever split meets them
+    for splits in (None, 1, 2, 3):
+        q, kp, vp, tables, lens = _paged_case(3, 32, 8, 128, 16, [200] * 3,
+                                              torch.bfloat16, SEED)
+        tables[1, 9] = kp.shape[0]                  # one past the pool
+        lens[2] = tables.shape[1] * 16 + 1
+        out = paged_attention(q, kp, vp, tables, lens, splits=splits)
+        torch.cuda.synchronize()
+        if not (torch.isnan(out[1:].float()).all()
+                and torch.isfinite(out[0].float()).all()):
+            raise AssertionError(f"paged_attention, splits {splits}: a "
+                                 "broken table or length is not NaN")
+    print("[check] paged_attention broken table word and length past the "
+          "table: NaN in their lanes only (splits chosen, 1, 2, 3)",
+          flush=True)
     return err_7b
 
 
@@ -253,21 +341,34 @@ def phase_time_paged_attention() -> dict:
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attention import paged_attention
 
+    from repro_torch.kernels import paged_attention as pa
+
     B, Hq, Hkv, hd, bs, L = 8, 32, 32, 128, 16, 576
     dtype = torch.bfloat16
     args = _paged_case(B, Hq, Hkv, hd, bs, [L] * B, dtype, SEED)
     q, kp, vp, tables, lens = args
-    ms = _time_ms(lambda: paged_attention(*args), iters=200)
-    plain_ms = _time_ms(lambda: ref.paged_attention_ref(*args), iters=20)
-    # yardstick: the same attention over K/V gathered beforehand (not timed)
     W = tables.shape[1]
+    splits = pa.choose_splits(B, Hkv, W, bs, pa._capacity(1, hd, 1, 0))
+    # yardstick: the same attention over K/V gathered beforehand (not timed)
     kg = kp[tables.long()].reshape(B, W * bs, Hkv, hd)[:, :L].transpose(
         1, 2).contiguous()
     vg = vp[tables.long()].reshape(B, W * bs, Hkv, hd)[:, :L].transpose(
         1, 2).contiguous()
     q4 = q[:, :, None, :]
-    library_ms = _time_ms(
-        lambda: F.scaled_dot_product_attention(q4, kg, vg), iters=200)
+
+    def kernel():
+        return paged_attention(*args)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q4, kg, vg)
+
+    # at tens of microseconds a launch, an eager loop times the host: the
+    # kernel and SDPA are timed alike, in a CUDA graph of 200 calls (the
+    # table's method) and by the profiler's device time; eager for reference
+    ms, library_ms = _graph_ms(kernel, iters=200), _graph_ms(sdpa, iters=200)
+    dev_ms, dev_lib = _profiler_ms(kernel, 200), _profiler_ms(sdpa, 200)
+    eager_ms, eager_lib = _time_ms(kernel, 200), _time_ms(sdpa, 200)
+    plain_ms = _time_ms(lambda: ref.paged_attention_ref(*args), iters=20)
     torch.testing.assert_close(
         F.scaled_dot_product_attention(q4, kg, vg)[:, :, 0].float(),
         ref.paged_attention_ref(*args).float(), **TOL[dtype])
@@ -284,11 +385,25 @@ def phase_time_paged_attention() -> dict:
     out = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-           "bytes": nbytes}
-    print(f"[time] paged_attention llama-7b decode bf16: kernel {ms:.4f} ms, "
-          f"bound {out['bound_ms']:.4f} ms ({out['bound_by']}, "
-          f"{nbytes / 1e6:.1f} MB), plain {plain_ms:.4f} ms, sdpa over "
-          f"gathered K/V {library_ms:.4f} ms", flush=True)
+           "bytes": nbytes, "splits": splits, "timing": "cuda graph",
+           "profiler_ms": dev_ms, "library_profiler_ms": dev_lib}
+    print(f"[time] paged_attention llama-7b decode bf16, {splits} splits: "
+          f"kernel {ms:.4f} ms (CUDA graph of 200; profiler device time "
+          f"{dev_ms:.4f}, eager loop {eager_ms:.4f}), bound "
+          f"{out['bound_ms']:.4f} ms ({out['bound_by']}, {nbytes / 1e6:.1f} "
+          f"MB), plain {plain_ms:.4f} ms (eager), sdpa over gathered K/V "
+          f"{library_ms:.4f} ms (CUDA graph; profiler {dev_lib:.4f}, eager "
+          f"{eager_lib:.4f})", flush=True)
+    for forced in (1, 2, 4, 6):
+        print(f"[time] paged_attention llama-7b decode bf16, {forced} splits "
+              f"forced: {_graph_ms(lambda: paged_attention(*args, splits=forced), 200):.4f} ms "
+              "(CUDA graph)", flush=True)
+    # the same bytes with one KV head (B 256): each table block is 4 KB of
+    # contiguous rows instead of 256-byte rows 8 KB apart
+    one = _paged_case(B * Hkv, 1, 1, hd, bs, [L] * B * Hkv, dtype, SEED)
+    print(f"[time] paged_attention, the same bytes as (B 256, Hkv 1): "
+          f"{_graph_ms(lambda: paged_attention(*one), 200):.4f} ms (CUDA "
+          "graph)", flush=True)
     return out
 
 
@@ -391,6 +506,13 @@ OPT_KERNELS = {   # name -> (CUDA source, def line of the TPU kernel)
 OPT_REL = {"project": 2e-5, "project_colnorms": 2e-5, "tangent": 1e-4,
            "adam_lowrank_norms": 2e-5, "fused_update": 2e-5}
 OPT_SHAPES = [(4096, 4096), (4096, 11008), (4096, 32000)]
+PROJ_SHAPES = {   # name -> (m, n, r, G a transposed view): both producers
+    "llama-1b w_gate (2048, 5461, r 512)": (2048, 5461, 512, False),
+    "llama-1b w_down view (2048, 5461, r 512)": (2048, 5461, 512, True),
+    "ragged (1000, 777, r 129)": (1000, 777, 129, False),
+    "ragged view (1000, 777, r 129)": (1000, 777, 129, True),
+}
+PROJ_PASSES = 3   # bf16 G: S_hi, S_mid, S_lo through the tensor cores
 RANK_7B = 1024
 TIMED = (4096, 11008)
 SMOKE_LOSS_ATOL = 1e-4   # fp32 smoke llama, 6 steps, CUDA vs CPU sum orders
@@ -398,16 +520,18 @@ N_LOWRANK_LEAVES = 9     # wq wk wv wo w_gate w_up w_down embed lm_head
 N_UNTAPPED_LOWRANK = 1   # embed: a lookup, not a matmul the backward can tap
 
 
-def _opt_inputs(m, n, r, gdtype, seed):
-    """A batch of 2 matrices: orthonormal S, G in ``gdtype``, Adam states,
-    phi and two different per-matrix clips, all on the card."""
+def _opt_inputs(m, n, r, gdtype, seed, transposed=False):
+    """A batch of 2 matrices: orthonormal S, G in ``gdtype`` (a transposed
+    view of (2, n, m) storage if asked), Adam states, phi and two different
+    per-matrix clips, all on the card."""
     gen = torch.Generator(device="cuda").manual_seed(seed)
 
     def rn(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
 
     return dict(S=torch.linalg.qr(rn(2, m, r))[0].contiguous(),
-                G=rn(2, m, n).to(gdtype), M=0.1 * rn(2, r, n),
+                G=(rn(2, n, m).to(gdtype).mT if transposed
+                   else rn(2, m, n).to(gdtype)), M=0.1 * rn(2, r, n),
                 V=0.01 * rn(2, r, n).abs(), phi=rn(2, n).abs(),
                 clip=torch.tensor([0.9, 0.25], device="cuda"))
 
@@ -461,10 +585,22 @@ def _opt_error(got, want) -> tuple[float, float]:
     return abs_err, rel
 
 
+def _want_route(name, dtype, route):
+    """bf16 G takes the tensor cores, fp32 G the CUDA cores."""
+    want = "wgmma" if dtype == torch.bfloat16 else "cuda-cores"
+    if not route.startswith(want):
+        raise AssertionError(f"{name} with {dtype} G took route {route}")
+
+
 def phase_check_optimizer() -> dict:
     """Every optimizer kernel against its plain version at the three 7b
-    matrix shapes, G fp32 and bf16.  Returns name -> max abs error at the
-    timed shape in bf16."""
+    matrix shapes, G fp32 and bf16; project and project_colnorms also at
+    ``PROJ_SHAPES`` (both producers of the bf16 route), and the bf16 route's
+    split of S bit for bit.  Returns name -> max abs error at the timed
+    shape in bf16."""
+    from repro_torch.kernels import grassmann as gk
+    from repro_torch.kernels import ref
+
     errs = {}
     for i, (m, n) in enumerate(OPT_SHAPES):
         for dtype in (torch.float32, torch.bfloat16):
@@ -482,15 +618,51 @@ def phase_check_optimizer() -> dict:
                 if (m, n) == TIMED and dtype == torch.bfloat16:
                     errs[name] = abs_err
                 line.append(f"{name} {abs_err:.2e} ({rel:.1e})")
+            for name in ("project", "project_colnorms"):
+                _want_route(name, dtype, getattr(gk, name).route)
             del x, kern, plain
             print(f"[check] ({m}, {n}, r {RANK_7B}) x2 {dtype}: max abs err "
-                  f"(of largest entry) " + ", ".join(line), flush=True)
+                  f"(of largest entry) " + ", ".join(line) + "; project "
+                  f"route {gk.project.route}", flush=True)
+    for i, (label, (m, n, r, transposed)) in enumerate(PROJ_SHAPES.items()):
+        for dtype in (torch.float32, torch.bfloat16):
+            x = _opt_inputs(m, n, r, dtype, SEED + 10 + i, transposed)
+            S, G = x["S"], x["G"]
+            line = []
+            for name in ("project", "project_colnorms"):
+                got = getattr(gk, name)(S, G)
+                torch.cuda.synchronize()
+                route = getattr(gk, name).route
+                _want_route(name, dtype, route)
+                abs_err, rel = _opt_error(
+                    got, getattr(ref, f"{name}_ref")(S, G))
+                if rel > OPT_REL[name]:
+                    raise AssertionError(
+                        f"{name} at {label} {dtype} ({route}): error "
+                        f"{rel:.3e} of the largest entry > {OPT_REL[name]:g}")
+                line.append(f"{name} {abs_err:.2e} ({rel:.1e}) by {route}")
+            if dtype == torch.bfloat16 and not torch.equal(
+                    gk.split_bf16(S), ref.split_bf16_ref(S)):
+                raise AssertionError(f"split_bf16 at {label}: not bit for "
+                                     "bit its plain version")
+            del x, S, G
+            print(f"[check] {label} x2 {dtype}: max abs err (of largest "
+                  f"entry) " + ", ".join(line)
+                  + ("; split of S bit for bit" if dtype == torch.bfloat16
+                     else ""), flush=True)
     return errs
 
 
 def phase_time_optimizer() -> dict:
     """Each optimizer kernel at (4096, 11008, r 1024), 2 matrices, bf16 G,
-    beside its bound, its plain version and the PyTorch yardstick."""
+    beside its bound, its plain version and the PyTorch yardstick (all by
+    CUDA events over eager calls).  project and project_colnorms run on the
+    bf16 tensor cores: their bound counts ``PROJ_PASSES`` bf16 products at
+    the bf16 peak (the fp32 CUDA-core bound of their first design is kept
+    beside it); project_colnorms is also timed at llama-1b's (2048, 5461,
+    r 512) on both producers."""
+    from repro_torch.kernels import grassmann as gk
+
     m, n = TIMED
     r, b, g = RANK_7B, 2, 2          # matrices, bytes per bf16 element
     x = _opt_inputs(m, n, r, torch.bfloat16, SEED)
@@ -514,11 +686,16 @@ def phase_time_optimizer() -> dict:
                               + 12),
                          b * (2 * r * m * n + 2 * r * n + 3 * m * n)),
     }
+    tensor_core = {"project", "project_colnorms"}
     out = {}
     for name in OPT_KERNELS:
         nbytes, flops = work[name]
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / FP32_FLOPS * 1e3
+        t_ops = t_fp32 = flops / FP32_FLOPS * 1e3
+        if name in tensor_core:  # the products on the bf16 tensor cores
+            mma = b * 2 * r * m * n
+            t_ops = (PROJ_PASSES * mma / BF16_FLOPS
+                     + (flops - mma) / FP32_FLOPS) * 1e3
         res = {"ms": _time_ms(kern[name], iters=10, repeats=3),
                "plain_ms": _time_ms(plain[name], iters=10, repeats=3),
                "library_ms": (_time_ms(library[name], iters=10, repeats=3)
@@ -529,11 +706,34 @@ def phase_time_optimizer() -> dict:
         out[name] = res
         lib = ("-" if res["library_ms"] is None
                else f"{res['library_ms']:.4f} ms")
+        how = f"{flops / 1e9:.1f} GFLOP fp32"
+        if name in tensor_core:
+            route = getattr(gk, name).route
+            if not route.startswith("wgmma-tma"):
+                raise AssertionError(f"timed {name} took route {route}")
+            res["bound_fp32_ms"] = max(t_bytes, t_fp32)
+            how = (f"{PROJ_PASSES} bf16 passes, "
+                   f"{PROJ_PASSES * b * 2 * r * m * n / 1e9:.1f} GFLOP at the "
+                   f"bf16 peak; fp32 CUDA-core bound "
+                   f"{res['bound_fp32_ms']:.4f} ms; route {route}")
         print(f"[time] {name} ({m}, {n}, r {r}) x{b} bf16 G: kernel "
-              f"{res['ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
-              f"({res['bound_by']}: {nbytes / 1e6:.1f} MB, "
-              f"{flops / 1e9:.1f} GFLOP fp32), plain {res['plain_ms']:.4f} "
+              f"{res['ms']:.4f} ms (CUDA events, eager), bound "
+              f"{res['bound_ms']:.4f} ms ({res['bound_by']}: "
+              f"{nbytes / 1e6:.1f} MB, {how}), plain {res['plain_ms']:.4f} "
               f"ms, torch yardstick {lib}", flush=True)
+    del x, kern, plain, S, G, A
+    for label in list(PROJ_SHAPES)[:2]:
+        m1, n1, r1, transposed = PROJ_SHAPES[label]
+        x = _opt_inputs(m1, n1, r1, torch.bfloat16, SEED, transposed)
+        S, G = x["S"], x["G"]
+        ms = _time_ms(lambda: gk.project_colnorms(S, G), iters=10, repeats=3)
+        bound = max(b * (4 * m1 * r1 + g * m1 * n1 + 4 * r1 * n1 + 4 * n1)
+                    / HBM_BYTES_PER_S,
+                    PROJ_PASSES * b * 2 * r1 * m1 * n1 / BF16_FLOPS) * 1e3
+        print(f"[time] project_colnorms {label} x{b} bf16 G: kernel "
+              f"{ms:.4f} ms (CUDA events), bound {bound:.4f} ms, route "
+              f"{gk.project_colnorms.route}", flush=True)
+        del x, S, G
     return out
 
 
@@ -1616,6 +1816,7 @@ def main() -> int:
         "max_abs_err": err, "ms": timing["ms"],
         "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"], "library_ms": timing["library_ms"],
+        "timing": timing["timing"], "splits": timing["splits"],
     }]
     for name, (src, line) in OPT_KERNELS.items():
         t = opt_time[name]
@@ -1627,6 +1828,8 @@ def main() -> int:
             "max_abs_err": opt_err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+        if "bound_fp32_ms" in t:
+            kernels[-1]["bound_fp32_ms"] = t["bound_fp32_ms"]
     kernels.append({
         "name": "grad_tap", "route": "cuda",
         "source": "src/repro_torch/csrc/grad_tap.cu",

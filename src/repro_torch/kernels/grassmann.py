@@ -16,9 +16,11 @@ They replace the Pallas TPU kernels of the same names in
 file says how the design differs from the TPU's and what bounds it on
 the H100.  Every kernel but ``grad_tap`` (called per layer from the
 backward) takes a leading batch dim (one matrix per index, one launch
-for a whole layer stack) and accumulates in fp32 on CUDA
-cores.  There is no shape gate: ragged tiles are masked in the kernels
-(the TPU's 256-multiples were MXU/VMEM limits).  One kernel has a size
+for a whole layer stack) and accumulates in fp32: on CUDA cores,
+except ``project`` and ``project_colnorms`` with bf16 G, which run on the
+bf16 tensor cores (``wgmma``) over S split into three exact bf16 terms
+(``ref.split_bf16_ref``).  There is no shape gate: ragged tiles are
+masked in the kernels (the TPU's 256-multiples were MXU/VMEM limits).  One kernel has a size
 limit of its own: ``project_tangent_colnorms`` takes m <= ``MAX_FRONT_M``
 (a thread-block cluster of at most 16 CTAs holds the whole m extent, 128
 rows each; ``csrc/grassmann_tangent_front.cu``).
@@ -50,7 +52,7 @@ _vp, _i, _ll, _f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                     ctypes.c_float)
 _SIGNATURES = {
     "grassmann_project": ("grassmann_project_launch",
-                          [_vp] * 4 + [_i] * 6 + [_ll] * 3 + [_vp]),
+                          [_vp] * 5 + [_i] * 6 + [_ll] * 3 + [_vp, _vp]),
     "grassmann_tangent": ("grassmann_tangent_launch",
                           [_vp] * 5 + [_i] * 5 + [_ll] * 3 + [_vp]),
     "grassmann_tangent_gram": ("grassmann_tangent_gram_launch",
@@ -82,6 +84,12 @@ def _lib(name: str) -> ctypes.CDLL:
     if name == "grad_tap":
         lib.grad_tap_scratch_bytes.argtypes = [_i] * 4
         lib.grad_tap_scratch_bytes.restype = _ll
+    if name == "grassmann_project":
+        lib.grassmann_project_r_pad.argtypes = [_i]
+        lib.grassmann_project_r_pad.restype = _i
+        lib.grassmann_split_bf16_launch.argtypes = [_vp, _vp] + [_i] * 3 + [
+            _vp]
+        lib.grassmann_split_bf16_launch.restype = _i
     if name == "grassmann_tangent_front":
         lib.tangent_front_scratch_bytes.argtypes = [_i] * 4
         lib.tangent_front_scratch_bytes.restype = _ll
@@ -141,7 +149,15 @@ def _stream(dev: torch.device) -> int:
         return torch.cuda.current_stream().cuda_stream
 
 
+# the routes grassmann_project_launch reports (bit 4: G staged K-major)
+PROJECT_ROUTES = {0: "cuda-cores", 1: "wgmma-tma", 2: "wgmma-loads",
+                  5: "wgmma-tma-kmajor", 6: "wgmma-loads-kmajor"}
+
+
 def _project(S: torch.Tensor, G: torch.Tensor, norms: bool):
+    """Returns (A, gsq or None, route name).  bf16 G takes the tensor
+    cores: the wrapper allocates the (batch, 3, m, r_pad) split of S the
+    kernel writes first; fp32 G takes the CUDA-core GEMM."""
     if G.dim() < 2:
         raise ValueError(f"G must be (..., m, n); got {tuple(G.shape)}")
     lead, (m, n) = tuple(G.shape[:-2]), tuple(G.shape[-2:])
@@ -155,17 +171,27 @@ def _project(S: torch.Tensor, G: torch.Tensor, norms: bool):
     A = torch.empty((batch, r, n), dtype=torch.float32, device=dev)
     gsq = (torch.empty((batch, n), dtype=torch.float32, device=dev)
            if norms else None)
+    scratch = None
+    if G.dtype == torch.bfloat16:
+        r_pad = _lib("grassmann_project").grassmann_project_r_pad(r)
+        scratch = torch.empty((batch, 3, m, r_pad), dtype=torch.bfloat16,
+                              device=dev)
+    route = ctypes.c_int(-1)
     _launch("grassmann_project", S.data_ptr(), G3.data_ptr(), A.data_ptr(),
-            gsq.data_ptr() if norms else None, dtype, int(norms), batch, m,
-            n, r, *G3.stride(), _stream(dev))
-    return A.reshape(lead + (r, n)), (gsq.reshape(lead + (n,))
-                                      if norms else None)
+            gsq.data_ptr() if norms else None,
+            None if scratch is None else scratch.data_ptr(), dtype,
+            int(norms), batch, m, n, r, *G3.stride(), ctypes.byref(route),
+            _stream(dev))
+    return (A.reshape(lead + (r, n)),
+            gsq.reshape(lead + (n,)) if norms else None,
+            PROJECT_ROUTES[route.value])
 
 
 def project(S: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
     """A = S^T G.  S (..., m, r) fp32; G (..., m, n) fp32 or bf16, any
-    strides -> (..., r, n) fp32."""
-    A, _ = _project(S, G, norms=False)
+    strides -> (..., r, n) fp32.  ``project.route`` names the route of the
+    last call (``PROJECT_ROUTES``)."""
+    A, _, project.route = _project(S, G, norms=False)
     project.launches += 1
     return A
 
@@ -173,9 +199,32 @@ def project(S: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
 def project_colnorms(S: torch.Tensor, G: torch.Tensor
                      ) -> tuple[torch.Tensor, torch.Tensor]:
     """(A = S^T G, ||G_:,j||^2) from one read of G -> ((..., r, n),
-    (..., n)) fp32."""
-    out = _project(S, G, norms=True)
+    (..., n)) fp32.  ``project_colnorms.route`` names the last call's
+    route."""
+    A, gsq, project_colnorms.route = _project(S, G, norms=True)
     project_colnorms.launches += 1
+    return A, gsq
+
+
+def split_bf16(S: torch.Tensor) -> torch.Tensor:
+    """The bf16 route's first kernel alone: S (..., m, r) fp32 contiguous
+    -> (..., 3, m, r_pad) bf16 (S_hi, S_mid, S_lo; ``ref.split_bf16_ref``).
+    Not a wrapper of its own: ``project`` and ``project_colnorms`` launch
+    it and count it as theirs."""
+    if S.dim() < 2:
+        raise ValueError(f"S must be (..., m, r); got {tuple(S.shape)}")
+    _fp32_contiguous(S=S)
+    dev = _device(S=S)
+    lead, (m, r) = tuple(S.shape[:-2]), tuple(S.shape[-2:])
+    batch = _stack3(S).shape[0]
+    lib = _lib("grassmann_project")
+    out = torch.empty(lead + (3, m, lib.grassmann_project_r_pad(r)),
+                      dtype=torch.bfloat16, device=dev)
+    err = lib.grassmann_split_bf16_launch(S.data_ptr(), out.data_ptr(), batch,
+                                          m, r, _stream(dev))
+    if err:
+        raise RuntimeError("split_bf16 launch failed: "
+                           f"{lib.repro_cuda_error_string(err).decode()}")
     return out
 
 
@@ -486,3 +535,4 @@ for _fn in (project, project_colnorms, tangent, tangent_gram,
             project_tangent_colnorms, backproject, recovery,
             adam_lowrank_norms, adam_lowrank, fused_update, grad_tap):
     _fn.launches = 0          # kernel launches since the last reset
+project.route = project_colnorms.route = None    # route of the last call

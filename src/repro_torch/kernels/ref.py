@@ -33,6 +33,26 @@ def project_ref(S: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
     return S.float().mT @ G.float()
 
 
+SPLIT_R_PAD = 64    # the split's r pads to a multiple of this (wgmma's M)
+
+
+def split_bf16_ref(S: torch.Tensor) -> torch.Tensor:
+    """S (..., m, r) fp32 as three bf16 terms S = S_hi + S_mid + S_lo, each
+    the round-to-nearest bf16 of what the terms before it left, stacked
+    -> (..., 3, m, r_pad) with r padded to a multiple of ``SPLIT_R_PAD``
+    by zeros.  Three 8-bit significands hold fp32's 24, so the terms add
+    back to S exactly (for S in bf16's normal range, as an orthonormal S
+    is): the bf16 projection's tensor-core operand."""
+    m, r = S.shape[-2:]
+    r_pad = -(-r // SPLIT_R_PAD) * SPLIT_R_PAD
+    x = torch.nn.functional.pad(S.float(), (0, r_pad - r))
+    hi = x.bfloat16()
+    rest = x - hi.float()
+    mid = rest.bfloat16()
+    lo = (rest - mid.float()).bfloat16()
+    return torch.stack([hi, mid, lo], dim=-3)
+
+
 def backproject_ref(S: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     """S @ X.  S: (..., m, r); X: (..., r, n) -> (..., m, n) fp32."""
     return S.float() @ X.float()

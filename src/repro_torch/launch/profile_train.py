@@ -31,9 +31,10 @@ from repro_torch.launch.train import _parse_args, prepare, run
 from repro_torch.models.api import build_model
 
 # CUDA function names of the port's optimizer kernels (csrc/*.cu)
-PORT_KERNELS = ("project_kernel", "tangent_kernel", "front_kernel",
-                "backproject_kernel", "adam_norms_kernel",
-                "fused_update_kernel", "xs_kernel", "tap_kernel")
+PORT_KERNELS = ("project_kernel", "project_wgmma_kernel", "split_bf16_kernel",
+                "tangent_kernel", "front_kernel", "backproject_kernel",
+                "adam_norms_kernel", "fused_update_kernel", "xs_kernel",
+                "tap_kernel")
 
 
 def main(argv=None) -> list[dict]:

@@ -228,3 +228,57 @@ def test_cpu_dispatch_runs_the_oracles_and_launches_nothing():
     ops.adam_lowrank_norms(A, A, A.abs(), 0)
     ops.fused_update(G, S, A, A, gsq, 0.1, 1.0)
     assert all(v == 0 for v in ops.launch_counts().values())
+
+
+# ---------------------------------------------------------------------------
+# The bf16 tensor-core route of project / project_colnorms: S in three
+# bf16 terms
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("m,r", [(256, 32), (256, 128), (200, 70),
+                                 (1000, 129), (64, 64)])
+def test_split_bf16_ref_reconstructs_orthonormal_S_bit_for_bit(m, r):
+    """S_hi + S_mid + S_lo == S exactly (in either order of the adds),
+    each term bf16, r padded to a multiple of 64 by zeros."""
+    rng = np.random.default_rng(m + r)
+    S = _t(np.linalg.qr(rng.standard_normal((B, m, r)))[0].astype(
+        np.float32))
+    split = ref.split_bf16_ref(S)
+    r_pad = -(-r // 64) * 64
+    assert split.dtype == torch.bfloat16
+    assert tuple(split.shape) == (B, 3, m, r_pad)
+    hi, mid, lo = (split[:, k].float() for k in range(3))
+    assert torch.equal((hi + mid + lo)[..., :r], S)
+    assert torch.equal((hi + (mid + lo))[..., :r], S)
+    assert not split[..., r:].float().any()
+    # each term is the rounding of what the terms before it left
+    assert torch.equal(split[:, 0, :, :r], S.bfloat16())
+    assert (lo.abs() <= mid.abs()).all() and (mid.abs() <= hi.abs()).all()
+
+
+@pytest.mark.parametrize("m,n,r", [(256, 512, 32), (1000, 777, 129),
+                                   (2048, 96, 64)])
+def test_three_bf16_passes_with_bf16_G_hold_fp32_accuracy(m, n, r):
+    """sum_k S_k^T G in fp32 (the products exact, as in the tensor cores)
+    is within 2e-5 of the largest entry of the fp64 product: the budget
+    of the bf16 route (``OPT_REL`` / ``REL``)."""
+    rng = np.random.default_rng(n)
+    S64 = np.linalg.qr(rng.standard_normal((2, m, r)))[0]
+    S = _t(S64.astype(np.float32))
+    G = _t(rng.standard_normal((2, m, n)).astype(np.float32), "bfloat16")
+    split = ref.split_bf16_ref(S)[..., :r].float()
+    A = sum(split[:, k].mT @ G.float() for k in range(3))
+    want = S.double().mT @ G.double()
+    rel = ((A.double() - want).abs().max() / want.abs().max()).item()
+    assert rel < 2e-5
+    # one bf16 term alone is far outside that budget
+    one = (split[:, 0].mT @ G.float()).double()
+    assert ((one - want).abs().max() / want.abs().max()).item() > 2e-4
+
+
+def test_split_bf16_wrapper_needs_the_card():
+    from repro_torch.kernels import grassmann as gk
+    S = torch.zeros(2, 64, 32)
+    with pytest.raises(ValueError, match="CUDA device"):
+        gk.split_bf16(S)

@@ -87,6 +87,56 @@ def test_broken_table_gives_nan_not_garbage(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Hq,Hkv,hd,bs,lengths", [
+    (32, 32, 128, 16, [576, 575, 17, 0]),   # llama-7b heads; short, dead
+    (32, 8, 160, 16, [500, 333, 129, 576]),  # stablelm G = 4
+    (24, 24, 85, 16, [100, 5, 0, 64]),       # hd 85: element-load ring
+    (32, 1, 256, 8, [100, 77, 3, 1]),        # G = 32 at hd 256: two groups
+])
+@pytest.mark.parametrize("splits", [1, 2, 3, 7, 40])   # 40: past the table
+def test_kernel_at_forced_split_counts(cuda, dtype, Hq, Hkv, hd, bs, lengths,
+                                       splits):
+    """Every split count gives the oracle's attention, a dead lane exactly
+    0; the output does not depend on the split count beyond the sums'
+    order."""
+    W = -(-max(lengths) // bs)
+    args = _case(4, Hq, Hkv, hd, bs, W, dtype, cuda, seed=splits,
+                 lengths=lengths)
+    got = paged_attention(*args, splits=splits)
+    torch.cuda.synchronize()
+    want = ref.paged_attention_ref(*args)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    if 0 in lengths:
+        assert torch.count_nonzero(got[lengths.index(0)]).item() == 0
+    again = paged_attention(*args, splits=splits)
+    assert torch.equal(got, again)                 # deterministic merge
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 2, 3, 9])
+def test_broken_table_or_length_is_nan_whichever_split(cuda, splits):
+    q, kp, vp, tables, lengths = _case(3, 4, 2, 32, 8, 6, torch.float32,
+                                       cuda, lengths=[48, 48, 48])
+    tables[1, 4] = -1                            # below the pool
+    lengths[2] = 6 * 8 + 1                       # past the table
+    out = paged_attention(q, kp, vp, tables, lengths, splits=splits)
+    assert torch.isnan(out[1:]).all() and torch.isfinite(out[0]).all()
+    torch.testing.assert_close(
+        out[:1], ref.paged_attention_ref(q[:1], kp, vp, tables[:1],
+                                         lengths[:1]), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.cuda
+def test_chosen_splits_fill_the_card_in_one_wave(cuda):
+    from repro_torch.kernels import paged_attention as pa
+    cap = pa._capacity(1, 128, 1, torch.cuda.current_device())
+    assert cap >= torch.cuda.get_device_properties(0).multi_processor_count
+    splits = pa.choose_splits(8, 32, 36, 16, cap)
+    assert 1 < splits <= 36 and 8 * 32 * splits <= cap
+
+
+@pytest.mark.cuda
 def test_dispatch_launches_kernel_and_counts(cuda):
     args = _case(2, 4, 2, 32, 8, 3, torch.bfloat16, cuda)
     ops.reset_launch_counts()
@@ -165,6 +215,57 @@ def test_projection_and_tangent_kernels_match_oracles(cuda, gdtype, m, n, r,
     assert _rel_err(gk.project(S, G), Ar) < REL["project"]
     T = gk.tangent(G, Ar, S)
     assert _rel_err(T, ref.tangent_ref(G, Ar, S)) < REL["tangent"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gdtype,route", [
+    (torch.bfloat16, "wgmma-tma"), (torch.float32, "cuda-cores")])
+@pytest.mark.parametrize("m,n,r,transposed,producer", [
+    (2048, 5461, 512, False, "loads"),     # llama-1b w_gate: 10,922-byte rows
+    (2048, 5461, 512, True, "tma"),        # w_down's transposed view
+    (1000, 777, 129, False, "loads"),      # ragged, rows off 16 bytes
+    (1000, 777, 129, True, "tma"),         # ragged transposed view
+    (130, 1001, 129, True, "loads"),       # transposed, columns off 16 bytes
+    (4096, 4096, 1024, False, "tma"),      # llama-7b wq
+    (64, 256, 64, False, "tma"),           # one stage, one tile
+])
+def test_projection_routes_and_producers(cuda, gdtype, route, m, n, r,
+                                         transposed, producer):
+    """bf16 G takes the tensor cores, through the TMA producer where G has
+    a tensor map (16-byte aligned base and strides) and the element-load
+    producer elsewhere, N- or K-major by G's layout; fp32 G the CUDA cores.
+    A and the norms within 2e-5 of the largest entry on every one."""
+    S, G, _ = _opt_case(2, m, n, r, gdtype, cuda, seed=m + n,
+                        transposed=transposed)
+    A, gsq = gk.project_colnorms(S, G)
+    got_route = gk.project_colnorms.route
+    A1 = gk.project(S, G)
+    torch.cuda.synchronize()
+    Ar, gr = ref.project_colnorms_ref(S, G)
+    assert _rel_err(A, Ar) < REL["project"]
+    assert _rel_err(gsq, gr) < REL["project"]
+    assert torch.equal(A, A1)                   # one main loop, with or without norms
+    if gdtype == torch.bfloat16:
+        want = f"wgmma-{producer}" + ("-kmajor" if transposed else "")
+        assert got_route == gk.project.route == want
+        assert torch.equal(gk.split_bf16(S), ref.split_bf16_ref(S))
+    else:
+        assert got_route == gk.project.route == route
+
+
+@pytest.mark.cuda
+def test_projection_of_a_stack_slice_and_empty_m(cuda):
+    """A view one layer into a stack (base off the stack's start) and
+    m = 0 (A = 0, norms 0)."""
+    S, G, _ = _opt_case(3, 256, 512, 64, torch.bfloat16, cuda, seed=5)
+    A, gsq = gk.project_colnorms(S[1:], G[1:])
+    Ar, gr = ref.project_colnorms_ref(S[1:], G[1:])
+    assert _rel_err(A, Ar) < REL["project"] and _rel_err(gsq, gr) < 2e-5
+    S0 = torch.zeros(0, 64, device=cuda)
+    G0 = torch.zeros(0, 96, device=cuda, dtype=torch.bfloat16)
+    A0, g0 = gk.project_colnorms(S0, G0)
+    torch.cuda.synchronize()
+    assert not A0.any() and not g0.any() and A0.shape == (64, 96)
 
 
 @pytest.mark.cuda
