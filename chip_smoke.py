@@ -39,28 +39,36 @@ non-zero:
    adam_lowrank_norms, fused_update) against its plain version on the card
    at the three llama-7b matrix shapes (m, n) = (4096, 4096), (4096,
    11008), (4096, 32000), rank 1024, a batch of 2 matrices, G in fp32 and
-   bf16, with the tolerances of ``OPT_REL`` (max error over the largest
-   entry: fp32 sums of 4096 to 32000 terms in another order); project and
-   project_colnorms also at ``PROJ_SHAPES`` (llama-1b's (2048, 5461, r
-   512) and a ragged (1000, 777, r 129), as plain and transposed views, so
-   both producers of the bf16 tensor-core route run), printing each call's
-   route (bf16 G must take wgmma, fp32 G the CUDA cores), and the bf16
-   route's split of S bit for bit against ``ref.split_bf16_ref``;
+   bf16 (the update in G's dtype, all four variants: recovery x decay),
+   with the tolerances of ``OPT_REL`` (max error over the largest entry:
+   fp32 sums of 4096 to 32000 terms in another order); project,
+   project_colnorms and fused_update also at ``PROJ_SHAPES`` (llama-1b's
+   (2048, 5461, r 512) and a ragged (1000, 777, r 129), as plain and
+   transposed views, so both producers of the projections' bf16 route
+   run), printing each call's route (bf16 G must take wgmma, fp32 G the CUDA
+   cores; fused_update wgmma for every dtype), and the bf16 splits of S and
+   of the update's direction D bit for bit against ``ref.split_bf16_ref``
+   and ``ref.split_direction_ref``;
 8. time each optimizer kernel at (4096, 11008, r 1024) with bf16 G beside
-   its bound (bytes and fp32 operations written out; for project and
-   project_colnorms 3 bf16 passes at the tensor cores' peak, with the fp32
-   bound beside it), its plain version and, where one exists, the PyTorch
-   expression for the same product with TF32 off (a yardstick the port
-   never calls), by CUDA events over eager calls; project_colnorms also at
-   llama-1b's (2048, 5461, r 512) on both producers;
+   its bound (bytes and operations written out; for the tensor-core
+   kernels ``TC_PASSES`` bf16 passes at the tensor cores' peak: 3 for
+   project and project_colnorms, 6 for fused_update, with the fp32 bound of
+   their first designs beside it), its plain version and, where one
+   exists, the PyTorch expression for the same product with TF32 off (a
+   yardstick the port never calls; for fused_update
+   ``torch.baddbmm(G.float() * phic, S, D)``), by CUDA events over eager
+   calls; project_colnorms also at llama-1b's (2048, 5461, r 512) on both
+   producers;
 9. hold grad_tap against its plain version at llama-7b's tapped shapes (b
    1024, r 1024; (m, n) = (4096, 4096), (4096, 11008), (4096, 32000) and
    w_down's swapped orientation with dW stored in the leaf's layout), a
-   ragged case and b = 4096, x/dy fp32 and bf16 (``TAP_REL``), and time it
-   at (4096, 11008) beside its bound (dW's bf16 products at the bf16 tensor
-   cores' peak, the rest at the fp32 peak), its plain version and the
+   ragged case and b = 4096, x/dy fp32 and bf16 (``TAP_REL``), printing the
+   route (bf16 on the tensor cores, fp32 on the CUDA cores), and time it
+   at (4096, 11008) beside its bound (dW's one pass and P's and A's three
+   at the bf16 tensor cores' peak, the norms' squares at the fp32 peak; the
+   first design's mixed bound beside it), its plain version and the
    PyTorch expression ``x.float().T @ dy.float()``, ``S.T @ dW``,
-   ``(dW*dW).sum(0)``; time its first kernel (P = x S) alone too;
+   ``(dW*dW).sum(0)``; time P = x S alone too, beside its own bound;
 10. train the fp32 smoke llama 6 steps (rank 32, update interval 3, kernels
    on) through ``run`` on CUDA and on the CPU from the same params,
    warm-started state and batches, plain and grad-fused: loss histories
@@ -513,6 +521,13 @@ PROJ_SHAPES = {   # name -> (m, n, r, G a transposed view): both producers
     "ragged view (1000, 777, r 129)": (1000, 777, 129, True),
 }
 PROJ_PASSES = 3   # bf16 G: S_hi, S_mid, S_lo through the tensor cores
+# bf16 passes over the tensor cores of each tensor-core kernel: the
+# projections 3 (S's terms against G), the fused update 6 (the term
+# products of S and D of order >= 2^-16)
+TC_PASSES = {"project": PROJ_PASSES, "project_colnorms": PROJ_PASSES,
+             "fused_update": 6}
+UPDATE_VARIANTS = [(True, False), (True, True), (False, False),
+                   (False, True)]   # (recovery, decay); the first is timed
 RANK_7B = 1024
 TIMED = (4096, 11008)
 SMOKE_LOSS_ATOL = 1e-4   # fp32 smoke llama, 6 steps, CUDA vs CPU sum orders
@@ -565,6 +580,28 @@ def _opt_calls(x, impl):
             G, S, A, Gto, phi, 0.01, clip, out_dtype=G.dtype)}
 
 
+def _update_calls(x, recovery, decay):
+    """(kernel call, plain call) of fused_update on ``x`` in one variant:
+    the update in G's dtype; with decay a parameter of that dtype, stored
+    like G (a transposed view when G is one), and per-matrix decays."""
+    from repro_torch.kernels import grassmann as gk
+    from repro_torch.kernels import ref
+
+    S, G, M, V, phi, clip = (x[k] for k in ("S", "G", "M", "V", "phi",
+                                            "clip"))
+    A, _ = ref.project_colnorms_ref(S, G)
+    Gto = ref.adam_lowrank_norms_ref(A, M, V, 3, 0.9, 0.999, 1e-8)[2]
+    param = (torch.empty_like(G).copy_(0.1 * G.float().flip(-1))
+             if decay else None)
+    kw = dict(out_dtype=G.dtype, param=param,
+              wd_coef=torch.tensor([1e-3, 5e-3], device="cuda")
+              if decay else None)
+    args = ((G, S, A, Gto, phi, 0.01, clip) if recovery
+            else (None, S, None, Gto, None, 0.01, 1.0))
+    return (lambda: gk.fused_update(*args, **kw),
+            lambda: ref.fused_update_ref(*args, **kw))
+
+
 def _opt_error(got, want) -> tuple[float, float]:
     """(max abs error, max error over the largest entry); for a bf16 output
     the first bf16 ulp of each entry is forgiven in the second."""
@@ -586,18 +623,45 @@ def _opt_error(got, want) -> tuple[float, float]:
 
 
 def _want_route(name, dtype, route):
-    """bf16 G takes the tensor cores, fp32 G the CUDA cores."""
-    want = "wgmma" if dtype == torch.bfloat16 else "cuda-cores"
+    """bf16 G takes the tensor cores, fp32 G the CUDA cores; the fused
+    update takes the tensor cores for every dtype."""
+    want = ("wgmma" if dtype == torch.bfloat16 or name == "fused_update"
+            else "cuda-cores")
     if not route.startswith(want):
         raise AssertionError(f"{name} with {dtype} G took route {route}")
 
 
+def _check_updates(x, label, dtype, variants) -> list[str]:
+    """fused_update in each of ``variants`` against its plain version on
+    ``x``, route printed; raises past ``OPT_REL``."""
+    from repro_torch.kernels import grassmann as gk
+
+    line = []
+    for recovery, decay in variants:
+        kern, plain = _update_calls(x, recovery, decay)
+        got = kern()
+        torch.cuda.synchronize()
+        route = gk.fused_update.route
+        _want_route("fused_update", dtype, route)
+        abs_err, rel = _opt_error(got, plain())
+        if rel > OPT_REL["fused_update"]:
+            raise AssertionError(
+                f"fused_update (recovery {recovery}, decay {decay}) at "
+                f"{label} {dtype}: error {rel:.3e} of the largest entry > "
+                f"{OPT_REL['fused_update']:g}")
+        line.append(f"update{'+rec' if recovery else ''}"
+                    f"{'+wd' if decay else ''} {abs_err:.2e} ({rel:.1e})")
+        del got
+    return line + [f"update route {route}"]
+
+
 def phase_check_optimizer() -> dict:
     """Every optimizer kernel against its plain version at the three 7b
-    matrix shapes, G fp32 and bf16; project and project_colnorms also at
-    ``PROJ_SHAPES`` (both producers of the bf16 route), and the bf16 route's
-    split of S bit for bit.  Returns name -> max abs error at the timed
-    shape in bf16."""
+    matrix shapes, G fp32 and bf16 (the update in G's dtype, all four
+    variants); project, project_colnorms and fused_update also at
+    ``PROJ_SHAPES`` (both producers of the projections' bf16 route), and
+    the bf16 splits of S and of the update's direction D bit for bit.
+    Returns name -> max abs error at the timed shape in bf16."""
     from repro_torch.kernels import grassmann as gk
     from repro_torch.kernels import ref
 
@@ -618,8 +682,10 @@ def phase_check_optimizer() -> dict:
                 if (m, n) == TIMED and dtype == torch.bfloat16:
                     errs[name] = abs_err
                 line.append(f"{name} {abs_err:.2e} ({rel:.1e})")
-            for name in ("project", "project_colnorms"):
+            for name in ("project", "project_colnorms", "fused_update"):
                 _want_route(name, dtype, getattr(gk, name).route)
+            line += _check_updates(x, f"({m}, {n}, r {RANK_7B})", dtype,
+                                   UPDATE_VARIANTS[1:])
             del x, kern, plain
             print(f"[check] ({m}, {n}, r {RANK_7B}) x2 {dtype}: max abs err "
                   f"(of largest entry) " + ", ".join(line) + "; project "
@@ -641,26 +707,35 @@ def phase_check_optimizer() -> dict:
                         f"{name} at {label} {dtype} ({route}): error "
                         f"{rel:.3e} of the largest entry > {OPT_REL[name]:g}")
                 line.append(f"{name} {abs_err:.2e} ({rel:.1e}) by {route}")
-            if dtype == torch.bfloat16 and not torch.equal(
-                    gk.split_bf16(S), ref.split_bf16_ref(S)):
-                raise AssertionError(f"split_bf16 at {label}: not bit for "
-                                     "bit its plain version")
+            line += _check_updates(x, label, dtype, UPDATE_VARIANTS)
+            if dtype == torch.bfloat16:
+                if not torch.equal(gk.split_bf16(S), ref.split_bf16_ref(S)):
+                    raise AssertionError(f"split_bf16 at {label}: not bit "
+                                         "for bit its plain version")
+                D = (x["M"], 0.5 * x["M"].flip(-1).contiguous(), x["phi"],
+                     x["clip"])
+                for args in (D, (D[0], None, None, D[3])):
+                    if not torch.equal(gk.split_direction(*args),
+                                       ref.split_direction_ref(*args)):
+                        raise AssertionError(
+                            f"split_direction at {label}: not bit for bit "
+                            "its plain version")
             del x, S, G
             print(f"[check] {label} x2 {dtype}: max abs err (of largest "
                   f"entry) " + ", ".join(line)
-                  + ("; split of S bit for bit" if dtype == torch.bfloat16
-                     else ""), flush=True)
+                  + ("; splits of S and D bit for bit"
+                     if dtype == torch.bfloat16 else ""), flush=True)
     return errs
 
 
 def phase_time_optimizer() -> dict:
     """Each optimizer kernel at (4096, 11008, r 1024), 2 matrices, bf16 G,
     beside its bound, its plain version and the PyTorch yardstick (all by
-    CUDA events over eager calls).  project and project_colnorms run on the
-    bf16 tensor cores: their bound counts ``PROJ_PASSES`` bf16 products at
-    the bf16 peak (the fp32 CUDA-core bound of their first design is kept
-    beside it); project_colnorms is also timed at llama-1b's (2048, 5461,
-    r 512) on both producers."""
+    CUDA events over eager calls).  project, project_colnorms and
+    fused_update run on the bf16 tensor cores: their bound counts
+    ``TC_PASSES`` bf16 products at the bf16 peak (the fp32 CUDA-core bound
+    of their first designs is kept beside it); project_colnorms is also
+    timed at llama-1b's (2048, 5461, r 512) on both producers."""
     from repro_torch.kernels import grassmann as gk
 
     m, n = TIMED
@@ -669,9 +744,16 @@ def phase_time_optimizer() -> dict:
     kern, plain = _opt_calls(x, "kernel"), _opt_calls(x, "plain")
     S, G = x["S"], x["G"]
     A = plain["project"]()
+    # the update's product as one PyTorch call: baddbmm(G phi clip, S, D)
+    # with D = Gto - (phi clip) Gt formed beforehand (TF32 off)
+    phic = x["phi"] * x["clip"][:, None]
+    Gto = _opt_calls(x, "plain")["adam_lowrank_norms"]()[2]
+    D = Gto - phic[:, None, :] * A
+    Gphic = G.float() * phic[:, None, :]
     library = {"project": lambda: S.mT @ G.float(),
                "tangent": lambda: -2.0 * (G.float() @ A.mT)
-               + 2.0 * (S @ (A @ A.mT))}
+               + 2.0 * (S @ (A @ A.mT)),
+               "fused_update": lambda: torch.baddbmm(Gphic, S, D)}
     # bytes each function must move (inputs once, outputs once) and the
     # fp32 operations it needs, per the whole batch
     work = {
@@ -686,7 +768,7 @@ def phase_time_optimizer() -> dict:
                               + 12),
                          b * (2 * r * m * n + 2 * r * n + 3 * m * n)),
     }
-    tensor_core = {"project", "project_colnorms"}
+    tensor_core = set(TC_PASSES)
     out = {}
     for name in OPT_KERNELS:
         nbytes, flops = work[name]
@@ -694,7 +776,7 @@ def phase_time_optimizer() -> dict:
         t_ops = t_fp32 = flops / FP32_FLOPS * 1e3
         if name in tensor_core:  # the products on the bf16 tensor cores
             mma = b * 2 * r * m * n
-            t_ops = (PROJ_PASSES * mma / BF16_FLOPS
+            t_ops = (TC_PASSES[name] * mma / BF16_FLOPS
                      + (flops - mma) / FP32_FLOPS) * 1e3
         res = {"ms": _time_ms(kern[name], iters=10, repeats=3),
                "plain_ms": _time_ms(plain[name], iters=10, repeats=3),
@@ -712,16 +794,17 @@ def phase_time_optimizer() -> dict:
             if not route.startswith("wgmma-tma"):
                 raise AssertionError(f"timed {name} took route {route}")
             res["bound_fp32_ms"] = max(t_bytes, t_fp32)
-            how = (f"{PROJ_PASSES} bf16 passes, "
-                   f"{PROJ_PASSES * b * 2 * r * m * n / 1e9:.1f} GFLOP at the "
-                   f"bf16 peak; fp32 CUDA-core bound "
+            res["kernel_route"] = route
+            how = (f"{TC_PASSES[name]} bf16 passes, "
+                   f"{TC_PASSES[name] * b * 2 * r * m * n / 1e9:.1f} GFLOP at "
+                   f"the bf16 peak; fp32 CUDA-core bound "
                    f"{res['bound_fp32_ms']:.4f} ms; route {route}")
         print(f"[time] {name} ({m}, {n}, r {r}) x{b} bf16 G: kernel "
               f"{res['ms']:.4f} ms (CUDA events, eager), bound "
               f"{res['bound_ms']:.4f} ms ({res['bound_by']}: "
               f"{nbytes / 1e6:.1f} MB, {how}), plain {res['plain_ms']:.4f} "
               f"ms, torch yardstick {lib}", flush=True)
-    del x, kern, plain, S, G, A
+    del x, kern, plain, S, G, A, Gto, D, Gphic
     for label in list(PROJ_SHAPES)[:2]:
         m1, n1, r1, transposed = PROJ_SHAPES[label]
         x = _opt_inputs(m1, n1, r1, torch.bfloat16, SEED, transposed)
@@ -761,10 +844,14 @@ def _tap_inputs(b, m, n, r, dtype, seed):
             torch.linalg.qr(rn(m, r))[0].contiguous())
 
 
+TAP_PASSES = 3     # bf16 x/dy: P = x S and A = P^T dy over three terms; dW 1
+
+
 def phase_check_grad_tap() -> float:
     """grad_tap against its plain version at llama-7b's tapped shapes (w_down
     swapped, its dW stored in the leaf's layout), a ragged case and b = 4096,
-    x/dy fp32 and bf16 (dW in the same dtype).  Returns the max abs error
+    x/dy fp32 and bf16 (dW in the same dtype); the route printed (bf16 on
+    the tensor cores, fp32 on the CUDA cores).  Returns the max abs error
     at the timed shape in bf16."""
     from repro_torch.kernels import grassmann as gk
     from repro_torch.kernels import ref
@@ -785,6 +872,10 @@ def phase_check_grad_tap() -> float:
             else:
                 got = gk.grad_tap(x, dy, S, out_dtype=dtype)
             torch.cuda.synchronize()
+            route = gk.grad_tap.route
+            if not route.startswith("wgmma" if dtype == torch.bfloat16
+                                    else "cuda-cores"):
+                raise AssertionError(f"grad_tap {name} {dtype}: route {route}")
             dW, tap = got
             want = ref.grad_tap_ref(x, dy, S)
             line = []
@@ -800,14 +891,15 @@ def phase_check_grad_tap() -> float:
                 line.append(f"{part} {abs_err:.2e} ({rel:.1e})")
             del x, dy, S, got, dW, tap, want
             print(f"[check] grad_tap {name} b {b} r {r} {dtype}: max abs err "
-                  f"(of largest entry) " + ", ".join(line), flush=True)
+                  f"(of largest entry) " + ", ".join(line) + f"; route "
+                  f"{route}", flush=True)
     return err_timed
 
 
 def phase_time_grad_tap() -> dict:
     """grad_tap at one (4096, 11008) site, b 1024, r 1024, bf16 x/dy and
     dW, beside its bound, its plain version and the PyTorch expression; and
-    its first kernel (P = x S) alone."""
+    P = x S alone (S's split and the P tiles) beside its own bound."""
     from repro_torch.kernels import grassmann as gk
     from repro_torch.kernels import ref
 
@@ -819,15 +911,20 @@ def phase_time_grad_tap() -> dict:
         return dW, S.T @ dW, (dW * dW).sum(0)
 
     # bytes the function must move: x, dy, S read once; dW (bf16), A and
-    # gsq written once.  Operations, each at the card's peak for its
-    # operands' type: dW = x^T dy has bf16 x bf16 products (exact in fp32,
-    # bf16 tensor cores); P = x S, A = P^T dy and the squares of the norms
-    # take an fp32 operand (CUDA cores)
+    # gsq written once.  Operations, each at the card's peak for the type
+    # it runs in: on the tensor cores dW = x^T dy (bf16 x bf16, one pass),
+    # P = x S and A = P^T dy (``TAP_PASSES`` passes over split fp32
+    # factors); the squares of the norms on the fp32 CUDA cores.  The
+    # first design's bound (all but dW at the fp32 peak) is kept beside it.
     nbytes = 2 * b * m + 2 * b * n + 4 * m * r + 2 * m * n + 4 * r * n + 4 * n
-    flops_bf16 = 2 * b * m * n
-    flops_fp32 = 2 * b * m * r + 2 * b * r * n + 2 * m * n
+    flops_dw = 2 * b * m * n
+    flops_pa = 2 * b * m * r + 2 * b * r * n
+    flops_norms = 2 * m * n
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (flops_bf16 / BF16_FLOPS + flops_fp32 / FP32_FLOPS) * 1e3
+    t_ops = ((flops_dw + TAP_PASSES * flops_pa) / BF16_FLOPS
+             + flops_norms / FP32_FLOPS) * 1e3
+    t_mixed = (flops_dw / BF16_FLOPS
+               + (flops_pa + flops_norms) / FP32_FLOPS) * 1e3
     res = {"ms": _time_ms(lambda: gk.grad_tap(x, dy, S,
                                               out_dtype=torch.bfloat16),
                           iters=10, repeats=3),
@@ -837,17 +934,25 @@ def phase_time_grad_tap() -> dict:
                                 iters=10, repeats=3),
            "library_ms": _time_ms(library, iters=10, repeats=3),
            "bound_ms": max(t_bytes, t_ops),
-           "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-    xs_bound = max((2 * b * m + 4 * m * r + 4 * b * r) / HBM_BYTES_PER_S,
-                   2 * b * m * r / FP32_FLOPS) * 1e3
+           "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+           "bound_mixed_ms": max(t_bytes, t_mixed),
+           "kernel_route": gk.grad_tap.route}
+    if not res["kernel_route"].startswith("wgmma-tma"):
+        raise AssertionError(f"timed grad_tap took route {res['kernel_route']}")
+    xs_bound = max((2 * b * m + 4 * m * r + 6 * b * r) / HBM_BYTES_PER_S,
+                   TAP_PASSES * 2 * b * m * r / BF16_FLOPS) * 1e3
+    res["xs_bound_ms"] = xs_bound
     print(f"[time] grad_tap ({m}, {n}, b {b}, r {r}) bf16 x/dy/dW: kernel "
-          f"{res['ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
-          f"({res['bound_by']}: {nbytes / 1e6:.1f} MB, "
-          f"{flops_bf16 / 1e9:.1f} GFLOP bf16 + {flops_fp32 / 1e9:.1f} "
-          f"GFLOP fp32), plain {res['plain_ms']:.4f} ms, torch expression "
+          f"{res['ms']:.4f} ms (route {res['kernel_route']}), bound "
+          f"{res['bound_ms']:.4f} ms ({res['bound_by']}: {nbytes / 1e6:.1f} "
+          f"MB, {flops_dw / 1e9:.1f} GFLOP dW + {TAP_PASSES} x "
+          f"{flops_pa / 1e9:.1f} GFLOP P and A at the bf16 peak, "
+          f"{flops_norms / 1e9:.2f} GFLOP fp32 norms; first design's mixed "
+          f"bound {res['bound_mixed_ms']:.4f} ms), plain "
+          f"{res['plain_ms']:.4f} ms, torch expression "
           f"{res['library_ms']:.4f} ms; of it P = x S alone "
-          f"{res['xs_ms']:.4f} ms (bound {xs_bound:.4f} ms, "
-          f"{2 * b * m * r / 1e9:.1f} GFLOP fp32)", flush=True)
+          f"{res['xs_ms']:.4f} ms (bound {xs_bound:.4f} ms, {TAP_PASSES} x "
+          f"{2 * b * m * r / 1e9:.1f} GFLOP bf16)", flush=True)
     return res
 
 
@@ -1828,8 +1933,9 @@ def main() -> int:
             "max_abs_err": opt_err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
-        if "bound_fp32_ms" in t:
-            kernels[-1]["bound_fp32_ms"] = t["bound_fp32_ms"]
+        for key in ("bound_fp32_ms", "kernel_route"):
+            if key in t:
+                kernels[-1][key] = t[key]
     kernels.append({
         "name": "grad_tap", "route": "cuda",
         "source": "src/repro_torch/csrc/grad_tap.cu",
@@ -1838,7 +1944,10 @@ def main() -> int:
         "max_abs_err": tap_err, "ms": tap_time["ms"],
         "plain_ms": tap_time["plain_ms"], "bound_ms": tap_time["bound_ms"],
         "bound_by": tap_time["bound_by"],
-        "library_ms": tap_time["library_ms"]})
+        "library_ms": tap_time["library_ms"],
+        "bound_mixed_ms": tap_time["bound_mixed_ms"],
+        "kernel_route": tap_time["kernel_route"], "xs_ms": tap_time["xs_ms"],
+        "xs_bound_ms": tap_time["xs_bound_ms"]})
     for name, (src, line) in FRONT_KERNELS.items():
         t = front_time[name]
         kernels.append({

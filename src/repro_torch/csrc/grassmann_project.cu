@@ -55,8 +55,7 @@
 //   of A, S and G slices staged in shared memory, G widened on load; the
 //   norm switch adds one row of CTAs that sum g^2 down 128 columns each.
 
-#include <cuda.h>
-
+#include "hopper_mma.cuh"
 #include "tile_gemm.cuh"
 
 namespace {
@@ -146,7 +145,9 @@ cudaError_t launch_cuda_cores(const float* S, const void* G, float* A, float* gs
 
 namespace wg {
 
-constexpr int kTerms = 3;                       // S_hi, S_mid, S_lo
+using namespace hopper;
+
+constexpr int kTerms = kSplitTerms;             // S_hi, S_mid, S_lo
 constexpr int kBM = 128;                        // rows of A (r) per CTA
 constexpr int kBN = 128;                        // columns of A (n) per CTA
 constexpr int kBK = 64;                         // rows of S and G (m) per stage
@@ -157,7 +158,7 @@ constexpr int kBox = kBK * 64 * 2;              // 64 rows of 128 bytes: one TMA
 constexpr int kABytes = kTerms * (kBM / 64) * kBox;
 constexpr int kBBytes = kBK * kBN * 2;
 constexpr int kStageBytes = kABytes + kBBytes;  // 64 KB
-constexpr int kRPad = 64;                       // r of the split scratch pads to this
+constexpr int kRPad = kSplitRPad;               // r of the split scratch pads to this
 constexpr size_t kSmemBytes = (size_t)kStages * kStageBytes + 1024 + 64;
 constexpr int kLoadBatch = 32;                  // element loads in flight per producer thread
 
@@ -165,105 +166,6 @@ constexpr int kLoadBatch = 32;                  // element loads in flight per p
 static_assert(kBN % 64 == 0 && kBK == 64, "a stage is whole 128-byte swizzle rows");
 static_assert(kSmemBytes <= 232448, "one CTA per SM");
 static_assert(kBN == 128, "one m64n128 accumulator per consumer warpgroup");
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-// A wait that never completes (a copy that never lands) traps after ~2^32
-// clocks (about two seconds) instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  const long long t0 = clock64();
-  uint32_t done;
-  for (;;) {
-    asm volatile(
-        "{\n .reg .pred p;\n"
-        " mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        " selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (clock64() - t0 > (1ll << 32)) __trap();
-  }
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar, int c0,
-                                         int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled tile.
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
-         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-// byte offset of a 128-byte swizzled row layout (TMA's SWIZZLE_128B)
-__device__ __forceinline__ uint32_t swizzle(uint32_t off) { return off ^ (((off >> 7) & 7) << 4); }
-
-#define WG_F8(i)                                                                         \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
-      "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// d (64 x 128, fp32) = A (64 x 16, M-major) * B (16 x 128) [+ d if
-// accumulate], both bf16 in shared memory; kTransB = 1 for an N-major B,
-// 0 for a K-major B.
-template <int kTransB>
-__device__ __forceinline__ void wgmma_128(float (&d)[64], uint64_t da, uint64_t db,
-                                          int accumulate) {
-  asm volatile(
-      "{\n .reg .pred p;\n setp.ne.b32 p, %66, 0;\n"
-      " wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
-      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
-      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, "
-      "%53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 1, %67;\n}\n"
-      : WG_F8(0), WG_F8(8), WG_F8(16), WG_F8(24), WG_F8(32), WG_F8(40), WG_F8(48), WG_F8(56)
-      : "l"(da), "l"(db), "r"(accumulate), "n"(kTransB));
-}
-#undef WG_F8
-
-__device__ __forceinline__ void fence_operands(float (&d)[64]) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// S (batch, m, r) fp32 -> (batch, 3, m, r_pad) bf16: hi, mid, lo, each the
-// round-to-nearest bf16 of what the terms before it left; columns past r 0.
-__global__ void split_bf16_kernel(const float* __restrict__ S, __nv_bfloat16* __restrict__ out,
-                                  int m, int r, int r_pad, long long total) {
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < total;
-       i += (long long)gridDim.x * blockDim.x) {
-    const long long row = i / r_pad;  // b * m + k
-    const int c = (int)(i - row * r_pad);
-    const long long b = row / m;
-    const float x = c < r ? S[row * r + c] : 0.f;
-    const __nv_bfloat16 hi = __float2bfloat16_rn(x);
-    const float rest = x - __bfloat162float(hi);
-    const __nv_bfloat16 mid = __float2bfloat16_rn(rest);
-    const __nv_bfloat16 lo = __float2bfloat16_rn(rest - __bfloat162float(mid));
-    const long long plane = (long long)m * r_pad;
-    const long long o = (b * kTerms) * plane + (row - b * m) * r_pad + c;
-    out[o] = hi;
-    out[o + plane] = mid;
-    out[o + 2 * plane] = lo;
-  }
-}
 
 // Grid (r tiles, n tiles, batch).  kKMajorB: G is staged K-major (rows of
 // m contiguous); kTmaB: G comes by TMA, else by element loads of the
@@ -448,46 +350,6 @@ project_wgmma_kernel(const __grid_constant__ CUtensorMap s_map,
   }
 }
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled through the runtime: the library links no libcuda.
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult status;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                             cudaEnableDefault, &status);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &status);
-#endif
-    if (err == cudaSuccess && status == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// A 3-D bf16 map (d0 contiguous) with a 128-byte swizzled box (64, box1, 1).
-bool make_map(CUtensorMap* map, const void* ptr, uint64_t d0, uint64_t d1, uint64_t d2,
-              uint64_t stride1, uint64_t stride2, uint32_t box1) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[3] = {d0, d1, d2};
-  const cuuint64_t strides[2] = {stride1, stride2};
-  const cuuint32_t box[3] = {64, box1, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-bool tma_stride_ok(long long bytes) { return bytes > 0 && bytes % 16 == 0 && bytes < (1LL << 40); }
-
 template <bool kK, bool kTma, bool kNorms>
 cudaError_t launch_kernel(const CUtensorMap& s_map, const CUtensorMap& g_map, const void* G,
                           float* A, float* gsq, int batch, int m, int n, int r, long long gsb,
@@ -520,15 +382,6 @@ cudaError_t dispatch(bool kmajor, bool tma, const CUtensorMap& s_map, const CUte
                                              gsn, stream);
 }
 
-cudaError_t split(const float* S, void* out, int batch, int m, int r, cudaStream_t stream) {
-  const int r_pad = (r + kRPad - 1) / kRPad * kRPad;
-  const long long total = (long long)batch * m * r_pad;
-  const long long blocks = (total + 255) / 256;
-  split_bf16_kernel<<<(unsigned)(blocks < 132 * 32 ? blocks : 132 * 32), 256, 0, stream>>>(
-      S, static_cast<__nv_bfloat16*>(out), m, r, r_pad, total);
-  return cudaGetLastError();
-}
-
 // Routes reported to the caller.
 enum Route { kCudaCores = 0, kWgmmaTma = 1, kWgmmaLoads = 2, kKMajor = 4 };
 
@@ -546,7 +399,7 @@ cudaError_t launch_bf16(const float* S, const void* G, float* A, float* gsq, voi
       err = cudaMemsetAsync(gsq, 0, sizeof(float) * (size_t)batch * n, stream);
     return err;
   }
-  cudaError_t err = split(S, scratch, batch, m, r, stream);
+  cudaError_t err = split_bf16(S, scratch, batch, m, r, stream);
   if (err != cudaSuccess) return err;
   const int r_pad = (r + kRPad - 1) / kRPad * kRPad;
   CUtensorMap s_map, g_map;
@@ -605,7 +458,7 @@ int grassmann_project_r_pad(int r) { return (r + wg::kRPad - 1) / wg::kRPad * wg
 int grassmann_split_bf16_launch(const float* S, void* out, int batch, int m, int r,
                                 void* stream) {
   if (batch == 0 || m == 0) return cudaSuccess;
-  return wg::split(S, out, batch, m, r, static_cast<cudaStream_t>(stream));
+  return hopper::split_bf16(S, out, batch, m, r, static_cast<cudaStream_t>(stream));
 }
 
 const char* repro_cuda_error_string(int err) {

@@ -17,9 +17,13 @@ file says how the design differs from the TPU's and what bounds it on
 the H100.  Every kernel but ``grad_tap`` (called per layer from the
 backward) takes a leading batch dim (one matrix per index, one launch
 for a whole layer stack) and accumulates in fp32: on CUDA cores,
-except ``project`` and ``project_colnorms`` with bf16 G, which run on the
-bf16 tensor cores (``wgmma``) over S split into three exact bf16 terms
-(``ref.split_bf16_ref``).  There is no shape gate: ragged tiles are
+except three that run on the bf16 tensor cores (``wgmma``, the shared
+machinery in ``csrc/hopper_mma.cuh``) over fp32 factors split into three
+exact bf16 terms (``ref.split3_ref``): ``project`` and
+``project_colnorms`` with bf16 G (S split), ``fused_update`` always (S and
+the direction D split, 6 term products), and ``grad_tap`` with bf16 x and
+dy (S and P = x S split; dW exact in one pass).  Each reports the route
+of its last call in ``<wrapper>.route``.  There is no shape gate: ragged tiles are
 masked in the kernels (the TPU's 256-multiples were MXU/VMEM limits).  One kernel has a size
 limit of its own: ``project_tangent_colnorms`` takes m <= ``MAX_FRONT_M``
 (a thread-block cluster of at most 16 CTAs holds the whole m extent, 128
@@ -33,8 +37,9 @@ x, dy and the dW it writes.  Every other
 operand (S, T, A, Gt, Gto, M, V, phi) must be contiguous fp32; anything else
 raises ``ValueError``.  Each wrapper runs on PyTorch's current stream,
 raises ``RuntimeError`` when its launch reports an error, and counts its
-launches in ``<wrapper>.launches`` (``grad_tap`` counts its calls, of two
-kernels each).
+launches in ``<wrapper>.launches``: one per call, however many CUDA
+kernels the call runs (a split pre-pass, ``grad_tap``'s two tile
+launches, ``fused_update``'s chunks of a stack).
 """
 
 from __future__ import annotations
@@ -60,8 +65,9 @@ _SIGNATURES = {
     "adam_lowrank_norms": ("adam_lowrank_norms_launch",
                            [_vp] * 8 + [_i] * 3 + [_f] * 7 + [_vp]),
     "fused_update": ("fused_update_launch",
-                     [_vp] * 11 + [_i] * 8 + [_vp]),
-    "grad_tap": ("grad_tap_launch", [_vp] * 6 + [_i] * 7 + [_ll] * 6 + [_vp]),
+                     [_vp] * 12 + [_i] * 8 + [_vp, _vp]),
+    "grad_tap": ("grad_tap_launch",
+                 [_vp] * 6 + [_i] * 7 + [_ll] * 6 + [_vp, _vp]),
     "grassmann_tangent_front": ("tangent_front_launch",
                                 [_vp] * 6 + [_i] * 5 + [_ll] * 3 + [_vp]),
     "grassmann_backproject": ("grassmann_backproject_launch",
@@ -82,8 +88,14 @@ def _lib(name: str) -> ctypes.CDLL:
     lib.repro_cuda_error_string.argtypes = [ctypes.c_int]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     if name == "grad_tap":
-        lib.grad_tap_scratch_bytes.argtypes = [_i] * 4
+        lib.grad_tap_scratch_bytes.argtypes = [_i] * 5
         lib.grad_tap_scratch_bytes.restype = _ll
+    if name == "fused_update":
+        lib.fused_update_scratch_bytes.argtypes = [_i] * 4
+        lib.fused_update_scratch_bytes.restype = _ll
+        lib.fused_update_split_direction_launch.argtypes = [_vp] * 5 + [
+            _i] * 4 + [_vp]
+        lib.fused_update_split_direction_launch.restype = _i
     if name == "grassmann_project":
         lib.grassmann_project_r_pad.argtypes = [_i]
         lib.grassmann_project_r_pad.restype = _i
@@ -420,6 +432,17 @@ def _per_matrix_column(x, lead: tuple, dev) -> torch.Tensor:
                       device=dev).reshape(-1)
 
 
+# the routes fused_update_launch and grad_tap_launch report
+UPDATE_ROUTES = {1: "wgmma-tma"}
+TAP_ROUTES = {0: "cuda-cores", 1: "wgmma-tma", 2: "wgmma-loads"}
+
+
+def _scalars(lead, dev, *xs) -> torch.Tensor:
+    """Per-matrix scalars as a (batch, len(xs)) fp32 device array."""
+    return torch.stack([_per_matrix_column(x, lead, dev) for x in xs],
+                       dim=-1).contiguous()
+
+
 def fused_update(G, S, Gt, Gto, phi, coef, clip, *, out_dtype=None,
                  param=None, wd_coef=None) -> torch.Tensor:
     """upd = -coef (S Gto + (G - S Gt) phi clip) [- wd_coef param] written
@@ -428,7 +451,11 @@ def fused_update(G, S, Gt, Gto, phi, coef, clip, *, out_dtype=None,
     tensors of the batch shape, passed to the kernel as a (batch, 3) device
     array.  G and ``param`` may be strided views; the update is allocated
     in G's layout (else the parameter's), so a transposed canonical view
-    of a leaf comes back in the leaf's own layout."""
+    of a leaf comes back in the leaf's own layout.  One route for every
+    dtype: S and D = Gto - (phi clip) Gt split into three bf16 terms each
+    (a wrapper-allocated scratch of 256 MiB at most, or one matrix's split
+    where that is more, a chunk of the stack at a time), 6 term products on
+    the tensor cores; ``fused_update.route`` names it."""
     recovery, decay = G is not None, param is not None
     if S.dim() < 2 or Gto.dim() < 2:
         raise ValueError("S and Gto must be (..., m, r) and (..., r, n)")
@@ -452,10 +479,8 @@ def fused_update(G, S, Gt, Gto, phi, coef, clip, *, out_dtype=None,
     g_dtype = _float_dtype("G", G) if recovery else 0
     dev = _device(S=S, Gto=Gto, G=G, Gt=Gt, phi=phi, param=param)
     batch = _stack3(S).shape[0]
-    scalars = torch.stack([_per_matrix_column(x, lead, dev)
-                           for x in (coef, clip,
-                                     0.0 if wd_coef is None else wd_coef)],
-                          dim=-1).contiguous()
+    scalars = _scalars(lead, dev, coef, clip,
+                       0.0 if wd_coef is None else wd_coef)
     G3 = _stack3(G) if recovery else None
     P3 = _stack3(param) if decay else None
     like = G3 if recovery else P3
@@ -464,15 +489,47 @@ def fused_update(G, S, Gt, Gto, phi, coef, clip, *, out_dtype=None,
     strides = [(ctypes.c_longlong * 3)(*(t.stride() if t is not None
                                          else (0, 0, 0)))
                for t in (G3, P3, out3)]
+    lib = _lib("fused_update")
+    scratch = torch.empty((lib.fused_update_scratch_bytes(batch, m, n, r),),
+                          dtype=torch.uint8, device=dev)
+    route = ctypes.c_int(-1)
     _launch("fused_update", S.data_ptr(), Gto.data_ptr(),
             Gt.data_ptr() if recovery else None,
             phi.data_ptr() if recovery else None, scalars.data_ptr(),
             G3.data_ptr() if recovery else None, strides[0],
             P3.data_ptr() if decay else None, strides[1], out3.data_ptr(),
-            strides[2], g_dtype, _DTYPES[out_dtype], int(recovery),
-            int(decay), batch, m, n, r, _stream(dev))
+            strides[2], scratch.data_ptr(), g_dtype, _DTYPES[out_dtype],
+            int(recovery), int(decay), batch, m, n, r, ctypes.byref(route),
+            _stream(dev))
+    fused_update.route = UPDATE_ROUTES[route.value]
     fused_update.launches += 1
     return out3.reshape(lead + (m, n))
+
+
+def split_direction(Gto: torch.Tensor, Gt: torch.Tensor | None,
+                    phi: torch.Tensor | None, clip) -> torch.Tensor:
+    """``fused_update``'s second pre-pass alone: D = Gto - (phi clip) Gt
+    (or Gto when Gt is None) as three bf16 terms -> (..., 3, r, n)
+    (``ref.split_direction_ref``).  Not a wrapper of its own: no path calls
+    it, and it does not count."""
+    if Gto.dim() < 2:
+        raise ValueError(f"Gto must be (..., r, n); got {tuple(Gto.shape)}")
+    recovery = Gt is not None
+    _fp32_contiguous(Gto=Gto, Gt=Gt, phi=phi)
+    lead, (r, n) = tuple(Gto.shape[:-2]), tuple(Gto.shape[-2:])
+    dev = _device(Gto=Gto, Gt=Gt, phi=phi)
+    batch = _stack3(Gto).shape[0]
+    scalars = _scalars(lead, dev, 0.0, clip, 0.0)
+    out = torch.empty(lead + (3, r, n), dtype=torch.bfloat16, device=dev)
+    lib = _lib("fused_update")
+    err = lib.fused_update_split_direction_launch(
+        Gto.data_ptr(), Gt.data_ptr() if recovery else None,
+        phi.data_ptr() if recovery else None, scalars.data_ptr(),
+        out.data_ptr(), int(recovery), batch, r, n, _stream(dev))
+    if err:
+        raise RuntimeError("split_direction launch failed: "
+                           f"{lib.repro_cuda_error_string(err).decode()}")
+    return out
 
 
 def _grad_tap(x, dy, S, out_dtype, transposed_out, stages):
@@ -498,12 +555,14 @@ def _grad_tap(x, dy, S, out_dtype, transposed_out, stages):
           torch.empty((m, n), dtype=out_dtype, device=dev))
     tap = torch.empty((r + 1, n), dtype=torch.float32, device=dev)
     scratch = torch.empty((_lib("grad_tap").grad_tap_scratch_bytes(
-                              b, m, n, r),),
+                              b, m, n, r, dtype),),
                           dtype=torch.uint8, device=dev)
+    route = ctypes.c_int(-1)
     _launch("grad_tap", x.data_ptr(), dy.data_ptr(), S.data_ptr(),
             dW.data_ptr(), tap.data_ptr(), scratch.data_ptr(), dtype,
             _DTYPES[out_dtype], stages, b, m, n, r, *x.stride(),
-            *dy.stride(), *dW.stride(), _stream(dev))
+            *dy.stride(), *dW.stride(), ctypes.byref(route), _stream(dev))
+    grad_tap.route = TAP_ROUTES[route.value]
     return dW, tap
 
 
@@ -516,18 +575,21 @@ def grad_tap(x: torch.Tensor, dy: torch.Tensor, S: torch.Tensor, *,
     row r the column norms ||dW_:,j||^2, both from the fp32 dW.
     ``transposed_out`` stores dW in (n, m) row-major memory and returns the
     (m, n) view of it, so a transposed leaf's gradient lands in the leaf's
-    own layout.  Any b: the token extent streams through the tiles.  One
-    call launches two kernels (P = x S, then the dW and A tiles) and counts
-    once."""
+    own layout.  Any b: the token extent streams through the tiles.  bf16
+    x and dy take the tensor cores (TMA where x and dy have a tensor map,
+    element loads otherwise), fp32 the CUDA cores; ``grad_tap.route``
+    names the last call's route (``TAP_ROUTES``).  One call launches
+    several kernels (S's split, then the P and dW tiles, then the A tiles;
+    fp32: P, then the dW and A tiles) and counts once."""
     out = _grad_tap(x, dy, S, out_dtype, transposed_out, stages=3)
     grad_tap.launches += 1
     return out
 
 
 def grad_tap_xs(x: torch.Tensor, dy: torch.Tensor, S: torch.Tensor) -> None:
-    """Only the first of grad_tap's two kernels, P = x S, on grad_tap's
-    inputs, so that it can be timed apart.  No path calls it, and it does
-    not count."""
+    """Only grad_tap's P = x S (bf16: S's split and the P tiles alone), on
+    grad_tap's inputs, so that it can be timed apart.  No path calls it,
+    and it does not count."""
     _grad_tap(x, dy, S, torch.float32, False, stages=1)
 
 
@@ -535,4 +597,6 @@ for _fn in (project, project_colnorms, tangent, tangent_gram,
             project_tangent_colnorms, backproject, recovery,
             adam_lowrank_norms, adam_lowrank, fused_update, grad_tap):
     _fn.launches = 0          # kernel launches since the last reset
-project.route = project_colnorms.route = None    # route of the last call
+# route of the last call
+project.route = project_colnorms.route = fused_update.route = None
+grad_tap.route = None

@@ -36,21 +36,62 @@ def project_ref(S: torch.Tensor, G: torch.Tensor) -> torch.Tensor:
 SPLIT_R_PAD = 64    # the split's r pads to a multiple of this (wgmma's M)
 
 
-def split_bf16_ref(S: torch.Tensor) -> torch.Tensor:
-    """S (..., m, r) fp32 as three bf16 terms S = S_hi + S_mid + S_lo, each
-    the round-to-nearest bf16 of what the terms before it left, stacked
-    -> (..., 3, m, r_pad) with r padded to a multiple of ``SPLIT_R_PAD``
-    by zeros.  Three 8-bit significands hold fp32's 24, so the terms add
-    back to S exactly (for S in bf16's normal range, as an orthonormal S
-    is): the bf16 projection's tensor-core operand."""
-    m, r = S.shape[-2:]
-    r_pad = -(-r // SPLIT_R_PAD) * SPLIT_R_PAD
-    x = torch.nn.functional.pad(S.float(), (0, r_pad - r))
+def split3_ref(x: torch.Tensor) -> torch.Tensor:
+    """x fp32 as three bf16 terms x = hi + mid + lo, each the
+    round-to-nearest bf16 of what the terms before it left, stacked on a
+    new dim -3 -> (..., 3, a, b).  Three 8-bit significands hold fp32's 24,
+    so the terms add back to x exactly (for x in bf16's normal range; a lo
+    term below it loses at most 2^-133 absolute): the tensor cores' operand
+    for an fp32 factor."""
+    x = x.float()
     hi = x.bfloat16()
     rest = x - hi.float()
     mid = rest.bfloat16()
     lo = (rest - mid.float()).bfloat16()
     return torch.stack([hi, mid, lo], dim=-3)
+
+
+def split_bf16_ref(S: torch.Tensor) -> torch.Tensor:
+    """S (..., m, r) fp32 split by ``split3_ref`` -> (..., 3, m, r_pad)
+    with r padded to a multiple of ``SPLIT_R_PAD`` by zeros: the bf16
+    projection's and fused update's operand."""
+    m, r = S.shape[-2:]
+    r_pad = -(-r // SPLIT_R_PAD) * SPLIT_R_PAD
+    return split3_ref(torch.nn.functional.pad(S.float(), (0, r_pad - r)))
+
+
+def split_direction_ref(Gto: torch.Tensor, Gt, phi, clip) -> torch.Tensor:
+    """The fused update's right factor D = Gto - (phi * clip) Gt (Gto
+    alone when Gt is None), each operation rounded in fp32, split by
+    ``split3_ref`` -> (..., 3, r, n)."""
+    D = Gto.float()
+    if Gt is not None:
+        phic = phi.float() * _per_matrix(clip, 1)
+        D = D - phic[..., None, :] * Gt.float()
+    return split3_ref(D)
+
+
+# The term products (A term, B term) the fused update sums, smallest first
+# (0 hi, 1 mid, 2 lo): the 6 of 9 whose order is >= 2^-16 of |S||D|.
+UPDATE_PASSES = ((2, 0), (0, 2), (1, 1), (1, 0), (0, 1), (0, 0))
+
+
+def split_matmul_ref(A: torch.Tensor, B: torch.Tensor,
+                     passes=UPDATE_PASSES, k_tile: int = 64) -> torch.Tensor:
+    """The tensor cores' arithmetic for A (..., M, K) @ B (..., K, N), both
+    fp32: each split in three bf16 terms, and per ``k_tile``-deep slice of K
+    the products of the term pairs in ``passes`` (each exact in fp32)
+    summed in fp32 into a fresh partial, which is then added into an fp32
+    total.  An emulation for the accuracy argument: the kernel sums inside
+    a slice in the tensor cores' order, not in this one."""
+    a, b = split3_ref(A).float(), split3_ref(B).float()
+    K = A.shape[-1]
+    total = torch.zeros(A.shape[:-1] + B.shape[-1:], dtype=torch.float32)
+    for k0 in range(0, K, k_tile):
+        part = sum(a[..., i, :, k0:k0 + k_tile] @ b[..., j, k0:k0 + k_tile, :]
+                   for i, j in passes)
+        total = total + part
+    return total
 
 
 def backproject_ref(S: torch.Tensor, X: torch.Tensor) -> torch.Tensor:

@@ -288,7 +288,7 @@ def test_adam_norms_kernel_matches_oracle(cuda, n):
 @pytest.mark.parametrize("decay", [True, False])
 @pytest.mark.parametrize("m,n,r,transposed", [
     (200, 333, 70, False), (4096, 11008, 1024, False),
-    (4096, 11008, 1024, True)])
+    (4096, 11008, 1024, True), (1000, 777, 129, True)])
 def test_fused_update_kernel_matches_oracle(cuda, gdtype, recovery, decay,
                                             m, n, r, transposed):
     """All four variants; differing per-matrix clips (a single scalar for
@@ -308,6 +308,7 @@ def test_fused_update_kernel_matches_oracle(cuda, gdtype, recovery, decay,
     got = gk.fused_update(*args, **kw)
     want = ref.fused_update_ref(*args, **kw)
     torch.cuda.synchronize()
+    assert gk.fused_update.route == "wgmma-tma"
     if recovery:
         assert got.stride() == G.stride()
     if gdtype == torch.bfloat16:
@@ -319,6 +320,57 @@ def test_fused_update_kernel_matches_oracle(cuda, gdtype, recovery, decay,
         # gives another update
         alt = ref.fused_update_ref(*args[:6], clip[[0, 0]], **kw)
         assert _rel_err(got[1], alt[1]) > 10 * REL["update"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gdtype,out_dtype", [
+    (torch.bfloat16, torch.float32), (torch.float32, torch.bfloat16)])
+def test_fused_update_mixed_dtypes_and_strided_output(cuda, gdtype,
+                                                      out_dtype):
+    """One tensor-core route for every dtype pair: G only enters the
+    epilogue.  A parameter with a row stride past its width (a slice of a
+    wider buffer) is read in place, and the update is allocated in G's
+    transposed layout."""
+    m, n, r = 300, 520, 96
+    S, G, rn = _opt_case(2, m, n, r, gdtype, cuda, seed=2, transposed=True)
+    Gt, Gto, phi = rn(2, r, n), rn(2, r, n), rn(2, n).abs()
+    P = rn(2, m, n + 40).to(out_dtype)[..., :n]
+    wd = torch.tensor([1e-3, 5e-3], device=cuda)
+    clip = torch.tensor([0.9, 0.25], device=cuda)
+    kw = dict(out_dtype=out_dtype, param=P, wd_coef=wd)
+    got = gk.fused_update(G, S, Gt, Gto, phi, 0.01, clip, **kw)
+    want = ref.fused_update_ref(G, S, Gt, Gto, phi, 0.01, clip, **kw)
+    torch.cuda.synchronize()
+    assert gk.fused_update.route == "wgmma-tma"
+    assert got.dtype == out_dtype and got.stride() == G.stride()
+    if out_dtype == torch.bfloat16:
+        _bf16_close(got, want, REL["update"])
+    else:
+        assert _rel_err(got, want) < REL["update"]
+
+
+@pytest.mark.cuda
+def test_fused_update_stack_in_chunks_and_direction_split(cuda):
+    """A stack whose split does not fit the scratch budget at once (two
+    (4096, 32000, r 1024) matrices: one per chunk) gives each matrix its
+    own update; the direction's split is bit for bit its plain version."""
+    m, n, r = 4096, 32000, 1024
+    assert gk._lib("fused_update").fused_update_scratch_bytes(2, m, n, r) \
+        < gk._lib("fused_update").fused_update_scratch_bytes(1, m, n, r) * 2
+    S, G, rn = _opt_case(2, m, n, r, torch.bfloat16, cuda, seed=6)
+    Gt, Gto, phi = rn(2, r, n), rn(2, r, n), rn(2, n).abs()
+    clip = torch.tensor([0.5, 0.75], device=cuda)
+    got = gk.fused_update(G, S, Gt, Gto, phi, 0.01, clip,
+                          out_dtype=torch.bfloat16)
+    want = ref.fused_update_ref(G, S, Gt, Gto, phi, 0.01, clip,
+                                out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    _bf16_close(got, want, REL["update"])
+    small = (Gto[:, :200, :300].contiguous(), Gt[:, :200, :300].contiguous(),
+             phi[:, :300].contiguous())
+    for args in (small, (small[0], None, None)):
+        assert torch.equal(gk.split_direction(*args, clip),
+                           ref.split_direction_ref(*args, clip))
 
 
 @pytest.mark.cuda
@@ -523,6 +575,11 @@ def test_grad_tap_kernel_matches_oracle(cuda, dtype, b, m, n, r):
     got = gk.grad_tap(x, dy, S, out_dtype=dtype)
     torch.cuda.synchronize()
     _check_tap(got, want, dtype)
+    if b and dtype == torch.float32:
+        assert gk.grad_tap.route == "cuda-cores"
+    elif b:   # TMA where x's and dy's rows are whole 16-byte units
+        aligned = (2 * m) % 16 == 0 and (2 * n) % 16 == 0
+        assert gk.grad_tap.route == ("wgmma-tma" if aligned else "wgmma-loads")
     # the statistics are those of the fp32 dW, not of the rounded copy
     A2, gsq2 = ref.project_colnorms_ref(S, want[0])
     assert _rel_err(got[1][:-1], A2) < TAP_REL
@@ -565,6 +622,43 @@ def test_grad_tap_reads_strided_operands(cuda):
     dys = torch.cat([dy, dy], dim=1)[:, :dy.shape[1]]   # row stride 2n
     got = gk.grad_tap(xs, dys, S)
     _check_tap(got, ref.grad_tap_ref(x, dy, S), torch.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,route", [
+    ("contiguous", "wgmma-tma"),
+    ("x column-major", "wgmma-loads"),
+    ("dy row stride 2n", "wgmma-tma"),
+    ("x rows off 16 bytes", "wgmma-loads"),
+    ("dy offset by one element", "wgmma-loads"),
+])
+def test_grad_tap_bf16_producers_and_strides(cuda, case, route):
+    """bf16 x and dy take the tensor cores: by TMA where both have a tensor
+    map (unit column stride, 16-byte aligned base and row stride), else by
+    element loads, for x, dy or both; ragged b (not a multiple of 64), m, n
+    and r = 129; dW written in the leaf's transposed layout; the same
+    result again, bit for bit (the norms' partials add in a fixed
+    order)."""
+    from repro_torch.kernels import grassmann as gk
+
+    # rows of 512 and 672 bytes; 261 elements (522 bytes) are off 16 bytes
+    b, m, n, r = 300, 261 if case == "x rows off 16 bytes" else 256, 336, 129
+    x, dy, S = _tap_case(b, m, n, r, torch.bfloat16, cuda, seed=9)
+    if case == "x column-major":
+        x = x.mT.contiguous().mT
+    elif case == "dy row stride 2n":
+        dy = torch.cat([dy, dy], dim=1)[:, :n]
+    elif case == "dy offset by one element":
+        dy = torch.cat([dy[:, :1], dy], dim=1)[:, 1:]
+    got = gk.grad_tap(x, dy, S, out_dtype=torch.bfloat16,
+                      transposed_out=True)
+    torch.cuda.synchronize()
+    assert gk.grad_tap.route == route
+    assert got[0].mT.is_contiguous()
+    _check_tap(got, ref.grad_tap_ref(x, dy, S), torch.bfloat16)
+    again = gk.grad_tap(x, dy, S, out_dtype=torch.bfloat16,
+                        transposed_out=True)
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
 
 
 @pytest.mark.cuda
