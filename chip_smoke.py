@@ -41,24 +41,28 @@ non-zero:
    11008), (4096, 32000), rank 1024, a batch of 2 matrices, G in fp32 and
    bf16 (the update in G's dtype, all four variants: recovery x decay),
    with the tolerances of ``OPT_REL`` (max error over the largest entry:
-   fp32 sums of 4096 to 32000 terms in another order); project,
-   project_colnorms and fused_update also at ``PROJ_SHAPES`` (llama-1b's
-   (2048, 5461, r 512) and a ragged (1000, 777, r 129), as plain and
-   transposed views, so both producers of the projections' bf16 route
-   run), printing each call's route (bf16 G must take wgmma, fp32 G the CUDA
+   fp32 sums of 4096 to 32000 terms in another order), the tangent also
+   on the same G stored transposed (its MN-major route); project,
+   project_colnorms, tangent and fused_update also at ``PROJ_SHAPES``
+   (llama-1b's (2048, 5461, r 512) and a ragged (1000, 777, r 129), as
+   plain and transposed views, so both producers of the bf16 routes run),
+   printing each call's route (bf16 G must take wgmma, fp32 G the CUDA
    cores; fused_update wgmma for every dtype), and the bf16 splits of S and
    of the update's direction D bit for bit against ``ref.split_bf16_ref``
    and ``ref.split_direction_ref``;
 8. time each optimizer kernel at (4096, 11008, r 1024) with bf16 G beside
    its bound (bytes and operations written out; for the tensor-core
-   kernels ``TC_PASSES`` bf16 passes at the tensor cores' peak: 3 for
-   project and project_colnorms, 6 for fused_update, with the fp32 bound of
-   their first designs beside it), its plain version and, where one
+   kernels their bf16 passes at the tensor cores' peak, ``_tc_work``: 3
+   for project and project_colnorms, 6 for fused_update, 3 for tangent's
+   G A^T and 6 for its S (2C) and its Gram C = A A^T, with the fp32 bound
+   of their first designs beside it), its plain version and, where one
    exists, the PyTorch expression for the same product with TF32 off (a
    yardstick the port never calls; for fused_update
    ``torch.baddbmm(G.float() * phic, S, D)``), by CUDA events over eager
-   calls; project_colnorms also at llama-1b's (2048, 5461, r 512) on both
-   producers;
+   calls; on a line of its own the fp32 ``torch.matmul`` that formed
+   tangent's Gram before its tensor-core route, beside the new call, and
+   the call's kernels by name (profiler); project_colnorms also at
+   llama-1b's (2048, 5461, r 512) on both producers;
 9. hold grad_tap against its plain version at llama-7b's tapped shapes (b
    1024, r 1024; (m, n) = (4096, 4096), (4096, 11008), (4096, 32000) and
    w_down's swapped orientation with dW stored in the leaf's layout), a
@@ -89,13 +93,19 @@ non-zero:
    schedule's ``backproject`` and ``recovery`` against their plain versions
    at llama-1b's three canonical shapes (2040, 2048), (2048, 5461) and
    (2048, 32000), rank 512, 2 matrices, G fp32 and bf16 (``OPT_REL``), a
-   ragged case, and llama-7b's (4096, 11008, r 1024), where the front end's
-   dispatch takes the project_colnorms + tangent composite (m past the
-   kernel's 2048);
+   ragged case (the front end's route printed: bf16 G on wgmma, fp32 G on
+   the CUDA cores), and llama-7b's (4096, 11008, r 1024), where the front
+   end's dispatch takes the project_colnorms + tangent composite (m past
+   the kernel's 2048);
 14. time the three at (2048, 5461, r 512), bf16 G, 2 matrices, beside their
-   bounds, plain versions and PyTorch expressions (TF32 off), and the front
-   end's single launch against the two-launch composite there, and the
-   composite at llama-7b's shape;
+   bounds (the front end's: A = S^T G and W = G A^T at 3 bf16 passes each,
+   its tail's S^T W and S (2C) at 6, its norms in fp32; the fp32 bound
+   beside it), plain versions and PyTorch expressions (TF32 off), and the
+   front end's single launch against the two-launch composite
+   (project_colnorms + the tensor-core tangent) there, on G by element
+   loads (w_gate) and by TMA (w_down's
+   transposed view) and on a stack of 32; one n-tile and the tail alone;
+   the composite at llama-7b's shape;
 15. run the unfused ``lowrank_adam_step(lr=None, backend=ops)`` at
    (2048, 5461, r 512) on CUDA and on the CPU from the same state: the same
    step (``UNFUSED_REL``), exactly 1 project, 1 backproject and 1 recovery
@@ -521,11 +531,44 @@ PROJ_SHAPES = {   # name -> (m, n, r, G a transposed view): both producers
     "ragged view (1000, 777, r 129)": (1000, 777, 129, True),
 }
 PROJ_PASSES = 3   # bf16 G: S_hi, S_mid, S_lo through the tensor cores
-# bf16 passes over the tensor cores of each tensor-core kernel: the
-# projections 3 (S's terms against G), the fused update 6 (the term
-# products of S and D of order >= 2^-16)
-TC_PASSES = {"project": PROJ_PASSES, "project_colnorms": PROJ_PASSES,
-             "fused_update": 6}
+
+
+def _tc_work(name, m, n, r, b):
+    """The tensor-core kernels' operations at (m, n, r) x b: ([(bf16 passes,
+    operations of one pass)], operations left on the fp32 CUDA cores).  The
+    projections: 3 passes (S's terms against G), their norms' squares in
+    fp32; the fused update: 6 (the term products of S and D of order >=
+    2^-16), its epilogue in fp32; the tangent: W = G A^T 3 passes (G
+    against A's terms), S (2C) and C = A A^T 6 each, C's upper triangle
+    only (r (r + 1) n: symmetric, mirrored); the front end: A = S^T G and
+    W = G A^T 3 passes each, its tail's S^T W and S (2C) 6 each, its norms
+    and -2 W in fp32."""
+    mma = b * 2 * r * m * n
+    return {"project": ([(PROJ_PASSES, mma)], 0),
+            "project_tangent_colnorms": ([(3, mma), (3, mma),
+                                          (6, b * 2 * m * r * r),
+                                          (6, b * 2 * m * r * r)],
+                                         b * (2 * m * n + 2 * m * r)),
+            "project_colnorms": ([(PROJ_PASSES, mma)], b * 2 * m * n),
+            "fused_update": ([(6, mma)], b * (2 * r * n + 3 * m * n)),
+            "tangent": ([(3, mma), (6, b * 2 * m * r * r),
+                         (6, b * r * (r + 1) * n)], 0)}.get(name)
+
+
+def _kernel_ms_by_name(fn, iters=3) -> dict:
+    """Device time per call of each CUDA kernel ``fn`` launches, by name,
+    from a ``torch.profiler`` trace of ``iters`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: e.self_device_time_total / 1e3 / iters
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA}
 UPDATE_VARIANTS = [(True, False), (True, True), (False, False),
                    (False, True)]   # (recovery, decay); the first is timed
 RANK_7B = 1024
@@ -682,11 +725,28 @@ def phase_check_optimizer() -> dict:
                 if (m, n) == TIMED and dtype == torch.bfloat16:
                     errs[name] = abs_err
                 line.append(f"{name} {abs_err:.2e} ({rel:.1e})")
-            for name in ("project", "project_colnorms", "fused_update"):
+            for name in ("project", "project_colnorms", "tangent",
+                         "fused_update"):
                 _want_route(name, dtype, getattr(gk, name).route)
             line += _check_updates(x, f"({m}, {n}, r {RANK_7B})", dtype,
                                    UPDATE_VARIANTS[1:])
-            del x, kern, plain
+            # the tangent on the same G stored transposed (a canonical
+            # w_down or wo view: the MN-major route for bf16 G)
+            S, Gv = x["S"], x["G"].mT.contiguous().mT
+            A = ref.project_ref(S, Gv)
+            got = gk.tangent(Gv, A, S)
+            torch.cuda.synchronize()
+            route = gk.tangent.route
+            _want_route("tangent", dtype, route)
+            abs_err, rel = _opt_error(got, ref.tangent_ref(Gv, A, S))
+            if rel > OPT_REL["tangent"]:
+                raise AssertionError(
+                    f"tangent at ({m}, {n}, r {RANK_7B}) {dtype}, G a "
+                    f"transposed view ({route}): error {rel:.3e} of the "
+                    f"largest entry > {OPT_REL['tangent']:g}")
+            line.append(f"tangent on a transposed view {abs_err:.2e} "
+                        f"({rel:.1e}) by {route}")
+            del x, kern, plain, S, Gv, A, got
             print(f"[check] ({m}, {n}, r {RANK_7B}) x2 {dtype}: max abs err "
                   f"(of largest entry) " + ", ".join(line) + "; project "
                   f"route {gk.project.route}", flush=True)
@@ -707,6 +767,18 @@ def phase_check_optimizer() -> dict:
                         f"{name} at {label} {dtype} ({route}): error "
                         f"{rel:.3e} of the largest entry > {OPT_REL[name]:g}")
                 line.append(f"{name} {abs_err:.2e} ({rel:.1e}) by {route}")
+            A = ref.project_ref(S, G)
+            got = gk.tangent(G, A, S)
+            torch.cuda.synchronize()
+            route = gk.tangent.route
+            _want_route("tangent", dtype, route)
+            abs_err, rel = _opt_error(got, ref.tangent_ref(G, A, S))
+            if rel > OPT_REL["tangent"]:
+                raise AssertionError(
+                    f"tangent at {label} {dtype} ({route}): error {rel:.3e} "
+                    f"of the largest entry > {OPT_REL['tangent']:g}")
+            line.append(f"tangent {abs_err:.2e} ({rel:.1e}) by {route}")
+            del got, A
             line += _check_updates(x, label, dtype, UPDATE_VARIANTS)
             if dtype == torch.bfloat16:
                 if not torch.equal(gk.split_bf16(S), ref.split_bf16_ref(S)):
@@ -731,11 +803,12 @@ def phase_check_optimizer() -> dict:
 def phase_time_optimizer() -> dict:
     """Each optimizer kernel at (4096, 11008, r 1024), 2 matrices, bf16 G,
     beside its bound, its plain version and the PyTorch yardstick (all by
-    CUDA events over eager calls).  project, project_colnorms and
-    fused_update run on the bf16 tensor cores: their bound counts
-    ``TC_PASSES`` bf16 products at the bf16 peak (the fp32 CUDA-core bound
-    of their first designs is kept beside it); project_colnorms is also
-    timed at llama-1b's (2048, 5461, r 512) on both producers."""
+    CUDA events over eager calls).  project, project_colnorms, tangent and
+    fused_update run on the bf16 tensor cores: their bound counts their
+    bf16 products at the bf16 peak (``_tc_work``; the fp32 CUDA-core bound
+    of their first designs is kept beside it); the fp32 Gram that tangent's
+    first design formed is timed beside it; project_colnorms is also timed
+    at llama-1b's (2048, 5461, r 512) on both producers."""
     from repro_torch.kernels import grassmann as gk
 
     m, n = TIMED
@@ -768,16 +841,15 @@ def phase_time_optimizer() -> dict:
                               + 12),
                          b * (2 * r * m * n + 2 * r * n + 3 * m * n)),
     }
-    tensor_core = set(TC_PASSES)
     out = {}
     for name in OPT_KERNELS:
         nbytes, flops = work[name]
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = t_fp32 = flops / FP32_FLOPS * 1e3
-        if name in tensor_core:  # the products on the bf16 tensor cores
-            mma = b * 2 * r * m * n
-            t_ops = (TC_PASSES[name] * mma / BF16_FLOPS
-                     + (flops - mma) / FP32_FLOPS) * 1e3
+        tc = _tc_work(name, m, n, r, b)
+        if tc:  # the products on the bf16 tensor cores, the rest in fp32
+            t_ops = (sum(p * f for p, f in tc[0]) / BF16_FLOPS
+                     + tc[1] / FP32_FLOPS) * 1e3
         res = {"ms": _time_ms(kern[name], iters=10, repeats=3),
                "plain_ms": _time_ms(plain[name], iters=10, repeats=3),
                "library_ms": (_time_ms(library[name], iters=10, repeats=3)
@@ -789,21 +861,33 @@ def phase_time_optimizer() -> dict:
         lib = ("-" if res["library_ms"] is None
                else f"{res['library_ms']:.4f} ms")
         how = f"{flops / 1e9:.1f} GFLOP fp32"
-        if name in tensor_core:
+        if tc:
             route = getattr(gk, name).route
             if not route.startswith("wgmma-tma"):
                 raise AssertionError(f"timed {name} took route {route}")
             res["bound_fp32_ms"] = max(t_bytes, t_fp32)
             res["kernel_route"] = route
-            how = (f"{TC_PASSES[name]} bf16 passes, "
-                   f"{TC_PASSES[name] * b * 2 * r * m * n / 1e9:.1f} GFLOP at "
-                   f"the bf16 peak; fp32 CUDA-core bound "
+            how = (" + ".join(f"{p} x {f / 1e9:.1f}" for p, f in tc[0])
+                   + f" GFLOP in bf16 passes at the bf16 peak, "
+                   f"{tc[1] / 1e9:.2f} fp32; fp32 CUDA-core bound "
                    f"{res['bound_fp32_ms']:.4f} ms; route {route}")
         print(f"[time] {name} ({m}, {n}, r {r}) x{b} bf16 G: kernel "
               f"{res['ms']:.4f} ms (CUDA events, eager), bound "
               f"{res['bound_ms']:.4f} ms ({res['bound_by']}: "
               f"{nbytes / 1e6:.1f} MB, {how}), plain {res['plain_ms']:.4f} "
               f"ms, torch yardstick {lib}", flush=True)
+    # the tangent's Gram: the fp32 torch.matmul that formed 2 A A^T before
+    # the tensor-core route (fp32 G keeps it) beside the whole new call, and
+    # the call's kernels by name (the splits, the Gram tiles, the T tiles)
+    gram_ms = _time_ms(lambda: 2.0 * (A @ A.mT), iters=10, repeats=3)
+    parts = _kernel_ms_by_name(kern["tangent"])
+    out["tangent"].update(gram_matmul_ms=gram_ms, parts_ms=parts)
+    print(f"[time] tangent's C = A A^T ({m}, {n}, r {r}) x{b} by the fp32 "
+          f"torch.matmul of its first design (fp32 G's route): {gram_ms:.4f} "
+          f"ms, {gram_ms / out['tangent']['ms']:.2f} of the new call's "
+          f"{out['tangent']['ms']:.4f} ms; the call's kernels (profiler, ms a "
+          f"call): " + ", ".join(f"{k} {v:.4f}" for k, v in sorted(
+              parts.items(), key=lambda kv: -kv[1])), flush=True)
     del x, kern, plain, S, G, A, Gto, D, Gphic
     for label in list(PROJ_SHAPES)[:2]:
         m1, n1, r1, transposed = PROJ_SHAPES[label]
@@ -1303,6 +1387,9 @@ def phase_check_front() -> dict:
                 parts = (zip(("A", "gsq", "T"), got, want)
                          if kname == "project_tangent_colnorms"
                          else [(kname, got, want)])
+                if kname == "project_tangent_colnorms":
+                    _want_route(kname, dtype, gk.project_tangent_colnorms.route)
+                    line.append(f"route {gk.project_tangent_colnorms.route}")
                 for part, g, w in parts:
                     abs_err, rel = _opt_error(g, w)
                     if rel > FRONT_REL[part]:
@@ -1381,18 +1468,31 @@ def phase_time_front() -> dict:
     for name in FRONT_KERNELS:
         nbytes, flops = work[name]
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / FP32_FLOPS * 1e3
+        t_ops = t_fp32 = flops / FP32_FLOPS * 1e3
+        tc = _tc_work(name, m, n, r, b)
+        if tc:  # the products on the bf16 tensor cores, the rest in fp32
+            t_ops = (sum(p * f for p, f in tc[0]) / BF16_FLOPS
+                     + tc[1] / FP32_FLOPS) * 1e3
         res = {"ms": _time_ms(kern[name], iters=10, repeats=3),
                "plain_ms": _time_ms(plain[name], iters=10, repeats=3),
                "library_ms": _time_ms(library[name], iters=10, repeats=3),
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
         out[name] = res
+        how = f"{flops / 1e9:.1f} GFLOP fp32"
+        if tc:
+            res["bound_fp32_ms"] = max(t_bytes, t_fp32)
+            res["kernel_route"] = gk.project_tangent_colnorms.route
+            how = (" + ".join(f"{p} x {f / 1e9:.1f}" for p, f in tc[0])
+                   + f" GFLOP in bf16 passes at the bf16 peak, "
+                   f"{tc[1] / 1e9:.2f} fp32; fp32 CUDA-core bound "
+                   f"{res['bound_fp32_ms']:.4f} ms; route "
+                   f"{res['kernel_route']}")
         print(f"[time] {name} ({m}, {n}, r {r}) x{b} bf16 G: kernel "
               f"{res['ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
-              f"({res['bound_by']}: {nbytes / 1e6:.1f} MB, "
-              f"{flops / 1e9:.1f} GFLOP fp32), plain {res['plain_ms']:.4f} "
-              f"ms, torch expression {res['library_ms']:.4f} ms", flush=True)
+              f"({res['bound_by']}: {nbytes / 1e6:.1f} MB, {how}), plain "
+              f"{res['plain_ms']:.4f} ms, torch expression "
+              f"{res['library_ms']:.4f} ms", flush=True)
 
     def composite(S, G):
         A, gsq = gk.project_colnorms(S, G)
@@ -1406,8 +1506,31 @@ def phase_time_front() -> dict:
           f"+ tangent {comp_ms:.4f} ms (single / composite "
           f"{out['project_tangent_colnorms']['ms'] / comp_ms:.2f}); "
           f"{b * -(-r // 128)} clusters of {-(-m // 128)} CTAs, {clusters} "
-          f"resident at once", flush=True)
+          f"resident at once; route {gk.project_tangent_colnorms.route}",
+          flush=True)
     del x, kern, plain, S, G, X, phi
+    # the same against w_down's transposed view (G by TMA)
+    xt = _front_inputs(m, n, r, torch.bfloat16, SEED, transposed=True)
+    single_t = _time_ms(lambda: gk.project_tangent_colnorms(xt["S"], xt["G"]),
+                        iters=10, repeats=3)
+    route_t = gk.project_tangent_colnorms.route
+    comp_t = _time_ms(lambda: composite(xt["S"], xt["G"]), iters=10,
+                      repeats=3)
+    out["project_tangent_colnorms"].update(transposed_ms=single_t,
+                                           transposed_composite_ms=comp_t)
+    print(f"[time] front end ({m}, {n}, r {r}) x{b} bf16 G, w_down's "
+          f"transposed view: single launch {single_t:.4f} ms ({route_t}), "
+          f"project_colnorms + tangent {comp_t:.4f} ms (single / composite "
+          f"{single_t / comp_t:.2f})", flush=True)
+    del xt
+    # one n-tile and the tail (S^T W, then T, on the engine) alone
+    x1 = _front_inputs(m, 128, r, torch.bfloat16, SEED)
+    tail_ms = _time_ms(lambda: gk.project_tangent_colnorms(x1["S"], x1["G"]),
+                       iters=10, repeats=3)
+    out["project_tangent_colnorms"]["one_tile_and_tail_ms"] = tail_ms
+    print(f"[time] front end ({m}, 128, r {r}) x{b} bf16 G (one n-tile of "
+          f"{-(-n // 128)}, then the tail): {tail_ms:.4f} ms", flush=True)
+    del x1
     # a whole layer stack, as the llama-1b tracking step launches it
     x32 = _front_inputs(m, n, r, torch.bfloat16, SEED)
     S32 = x32["S"].repeat(16, 1, 1)
@@ -1960,6 +2083,9 @@ def main() -> int:
             "max_abs_err": front_err[name], "ms": t["ms"],
             "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"], "library_ms": t["library_ms"]})
+        for key in ("bound_fp32_ms", "kernel_route", "composite_ms"):
+            if key in t:
+                kernels[-1][key] = t[key]
     for name, src, line, launches in (
             ("tangent_gram", "grassmann_tangent_gram.cu", 479,
              gram["launches"]),

@@ -7,17 +7,18 @@
 //    m64n128k16 bf16 wgmma, and the exact three-term bf16 split of an fp32
 //    matrix (x = hi + mid + lo, each term the round-to-nearest bf16 of what
 //    the terms before it left; three 8-bit significands hold fp32's 24).
-//    grassmann_project.cu, fused_update.cu and grad_tap.cu include them.
+//    grassmann_project.cu, grassmann_tangent.cu, grassmann_tangent_front.cu,
+//    fused_update.cu and grad_tap.cu include them.
 //
 // 2. The split-product tile engine (`Engine`), the main loop of
-//    fused_update.cu and grad_tap.cu: one CTA owns a 128 x 128 fp32 output
-//    tile C = sum over K of A (128 x K) B (K x 128), where A and B each come
-//    as 1 or 3 bf16 terms and a compile-time list of term pairs ("passes")
-//    says which products of terms enter the sum.  Two consumer warpgroups
-//    own 64 rows of C each; a producer warpgroup fills a ring of stages
-//    (all the terms of A and B for one k-tile, 64 or 128 deep) by TMA, or,
-//    for a one-term operand without a tensor map, by element loads into the
-//    same swizzled layout.  The ring position runs on across tiles, so a
+//    fused_update.cu, grad_tap.cu and grassmann_tangent.cu: one CTA owns a
+//    128 x 128 fp32 output tile C = sum over K of A (128 x K) B (K x 128),
+//    where A and B each come as 1 or 3 bf16 terms and a compile-time list
+//    of term pairs ("passes") says which products of terms enter the sum.
+//    Two consumer warpgroups own 64 rows of C each; a producer warpgroup
+//    fills a ring of stages (all the terms of A and B for one k-tile, 64
+//    or 128 deep) by TMA, or, for a one-term operand without a tensor map,
+//    by element loads into the same swizzled layout.  The ring position runs on across tiles, so a
 //    persistent CTA's producer fills its next tile's stages while the
 //    consumers finish the last.  Per k-tile the passes start a fresh wgmma
 //    accumulator, which is then added into an fp32 total in registers, so
@@ -25,9 +26,11 @@
 //    sum's size (grassmann_project.cu found one accumulator over all of K
 //    too coarse).  Each operand is staged MN-major (rows of 64 k's apart,
 //    the 128 outputs contiguous in 64-wide boxes) or K-major (128 rows of
-//    64 contiguous k's), the two wgmma transpose bits.  The caller writes
-//    the epilogue from the totals; `frag_row` / `frag_col` give each total's
-//    place in the tile.
+//    64 contiguous k's), the two wgmma transpose bits.  Two engines whose
+//    stages differ share one ring through a common slot size, and a second
+//    contraction may add onto the first's totals (grassmann_tangent.cu:
+//    G A^T, then S (2C)).  The caller writes the epilogue from the totals;
+//    `frag_row` / `frag_col` give each total's place in the tile.
 
 #pragma once
 
@@ -276,9 +279,11 @@ __device__ __forceinline__ void consumers_sync() {
 // kK: the depth of a k-tile (64; 128 where both operands are MN-major).
 // kArriveAll: every producer thread arrives on a stage's full barrier
 // (needed by element loads; two engines that share one ring in a kernel
-// set it alike).
+// set it alike).  kSlotBytes: the ring's slot per stage, 0 for the
+// engine's own stage; two engines whose stages differ share one ring by
+// giving both the larger stage as their slot (same slots, same count).
 template <int kTA, int kTB, bool kKA, bool kKB, bool kTmaA, bool kTmaB, unsigned kPassCode,
-          int kPasses, int kK = 64, bool kArriveAll = !kTmaA || !kTmaB>
+          int kPasses, int kK = 64, bool kArriveAll = !kTmaA || !kTmaB, int kSlotBytes = 0>
 struct Engine {
   static constexpr int kDepth = kK;
   static constexpr int kBox = kK * 128;   // one 64-wide MN box of kK rows of 128 bytes
@@ -286,8 +291,10 @@ struct Engine {
   static constexpr int kStageA = kTA * kTerm;
   static constexpr int kStageB = kTB * kTerm;
   static constexpr int kStage = kStageA + kStageB;
+  static constexpr int kSlot = kSlotBytes ? kSlotBytes : kStage;
   static constexpr int kStages =
-      kEngRing / kStage < kEngMaxStages ? kEngRing / kStage : kEngMaxStages;
+      kEngRing / kSlot < kEngMaxStages ? kEngRing / kSlot : kEngMaxStages;
+  static_assert(kSlot >= kStage && kSlot % 1024 == 0, "a slot holds a stage, 1024-aligned");
   static constexpr uint32_t kTx = (kTmaA ? kStageA : 0) + (kTmaB ? kStageB : 0);
   static_assert(kStages >= 2, "a ring of at least two stages");
   static_assert((kTmaA || kTA == 1) && (kTmaB || kTB == 1), "element loads stage one term");
@@ -361,7 +368,7 @@ struct Engine {
     if (!kArriveAll && pt != 0) return;
     for (int kt = 0; kt < num_k; ++kt, ++it) {
       const int s = it % kStages;
-      const uint32_t stage = base + s * kStage;
+      const uint32_t stage = base + s * kSlot;
       mbar_wait(empty + 8 * s, ((it / kStages) & 1) ^ 1);
       const int k0 = kt * kK;
       if (pt == 0) {
@@ -370,8 +377,8 @@ struct Engine {
         if (kTmaB) tma_operand<kTB, kKB>(stage + kStageA, b, full + 8 * s, k0, xb);
       }
       if (kArriveAll) {
-        if (!kTmaA) load_operand<kKA>(smem + s * kStage, a, k0, xa, pt);
-        if (!kTmaB) load_operand<kKB>(smem + s * kStage + kStageA, b, k0, xb, pt);
+        if (!kTmaA) load_operand<kKA>(smem + s * kSlot, a, k0, xa, pt);
+        if (!kTmaB) load_operand<kKB>(smem + s * kSlot + kStageA, b, k0, xb, pt);
         asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");  // for wgmma's reads
         mbar_arrive(full + 8 * s);
       }
@@ -379,19 +386,22 @@ struct Engine {
   }
 
   // A consumer warpgroup (wgi 0 or 1): its 64 rows of one tile of C as
-  // fp32 totals; `it` as in produce.
+  // fp32 totals (added to `total` as it stands when `zero` is false: a
+  // second contraction into the same tile); `it` as in produce.
   __device__ static void consume(float (&total)[64], uint32_t base, uint32_t full,
-                                 uint32_t empty, int num_k, int wgi, int& it) {
+                                 uint32_t empty, int num_k, int wgi, int& it, bool zero = true) {
+    if (zero) {
 #pragma unroll
-    for (int i = 0; i < 64; ++i) total[i] = 0.f;
+      for (int i = 0; i < 64; ++i) total[i] = 0.f;
+    }
     float acc[64];
     for (int kt = 0; kt < num_k; ++kt, ++it) {
       const int s = it % kStages;
       mbar_wait(full + 8 * s, (it / kStages) & 1);
       // the warpgroup's 64 rows of A: box wgi (MN-major) or rows 64 wgi on
       // (K-major, 128-byte rows: the same offset at kK = 64)
-      const uint32_t sa = base + s * kStage + wgi * kBox;
-      const uint32_t sb = base + s * kStage + kStageA;
+      const uint32_t sa = base + s * kSlot + wgi * kBox;
+      const uint32_t sb = base + s * kSlot + kStageA;
       asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 #pragma unroll
       for (int p = 0; p < kPasses; ++p) {

@@ -17,10 +17,13 @@ file says how the design differs from the TPU's and what bounds it on
 the H100.  Every kernel but ``grad_tap`` (called per layer from the
 backward) takes a leading batch dim (one matrix per index, one launch
 for a whole layer stack) and accumulates in fp32: on CUDA cores,
-except three that run on the bf16 tensor cores (``wgmma``, the shared
+except five that run on the bf16 tensor cores (``wgmma``, the shared
 machinery in ``csrc/hopper_mma.cuh``) over fp32 factors split into three
 exact bf16 terms (``ref.split3_ref``): ``project`` and
-``project_colnorms`` with bf16 G (S split), ``fused_update`` always (S and
+``project_colnorms`` with bf16 G (S split), ``tangent`` with bf16 G (A,
+S and the Gram 2 A A^T split; 6 term products for the fp32 x fp32 ones),
+``project_tangent_colnorms`` with bf16 G (S and A split; its tail's
+S^T W and S (2C) over 6 term products), ``fused_update`` always (S and
 the direction D split, 6 term products), and ``grad_tap`` with bf16 x and
 dy (S and P = x S split; dW exact in one pass).  Each reports the route
 of its last call in ``<wrapper>.route``.  There is no shape gate: ragged tiles are
@@ -59,7 +62,7 @@ _SIGNATURES = {
     "grassmann_project": ("grassmann_project_launch",
                           [_vp] * 5 + [_i] * 6 + [_ll] * 3 + [_vp, _vp]),
     "grassmann_tangent": ("grassmann_tangent_launch",
-                          [_vp] * 5 + [_i] * 5 + [_ll] * 3 + [_vp]),
+                          [_vp] * 6 + [_i] * 5 + [_ll] * 3 + [_vp, _vp]),
     "grassmann_tangent_gram": ("grassmann_tangent_gram_launch",
                                [_vp] * 7 + [_i] * 5 + [_ll] * 3 + [_vp]),
     "adam_lowrank_norms": ("adam_lowrank_norms_launch",
@@ -69,7 +72,7 @@ _SIGNATURES = {
     "grad_tap": ("grad_tap_launch",
                  [_vp] * 6 + [_i] * 7 + [_ll] * 6 + [_vp, _vp]),
     "grassmann_tangent_front": ("tangent_front_launch",
-                                [_vp] * 6 + [_i] * 5 + [_ll] * 3 + [_vp]),
+                                [_vp] * 6 + [_i] * 5 + [_ll] * 3 + [_vp, _vp]),
     "grassmann_backproject": ("grassmann_backproject_launch",
                               [_vp] * 5 + [_i] * 6 + [_ll] * 3 + [_vp]),
 }
@@ -102,8 +105,11 @@ def _lib(name: str) -> ctypes.CDLL:
         lib.grassmann_split_bf16_launch.argtypes = [_vp, _vp] + [_i] * 3 + [
             _vp]
         lib.grassmann_split_bf16_launch.restype = _i
+    if name == "grassmann_tangent":
+        lib.grassmann_tangent_scratch_bytes.argtypes = [_i] * 5
+        lib.grassmann_tangent_scratch_bytes.restype = _ll
     if name == "grassmann_tangent_front":
-        lib.tangent_front_scratch_bytes.argtypes = [_i] * 4
+        lib.tangent_front_scratch_bytes.argtypes = [_i] * 5
         lib.tangent_front_scratch_bytes.restype = _ll
         lib.tangent_front_max_m.argtypes = []
         lib.tangent_front_max_m.restype = _i
@@ -164,6 +170,12 @@ def _stream(dev: torch.device) -> int:
 # the routes grassmann_project_launch reports (bit 4: G staged K-major)
 PROJECT_ROUTES = {0: "cuda-cores", 1: "wgmma-tma", 2: "wgmma-loads",
                   5: "wgmma-tma-kmajor", 6: "wgmma-loads-kmajor"}
+# ... grassmann_tangent_launch (bit 4: G staged MN-major, a transposed view)
+TANGENT_ROUTES = {0: "cuda-cores", 1: "wgmma-tma", 2: "wgmma-loads",
+                  5: "wgmma-tma-mnmajor", 6: "wgmma-loads-mnmajor"}
+# ... tangent_front_launch (bit 4: a transposed view)
+FRONT_ROUTES = {0: "cuda-cores", 1: "wgmma-tma", 2: "wgmma-loads",
+                5: "wgmma-tma-transposed", 6: "wgmma-loads-transposed"}
 
 
 def _project(S: torch.Tensor, G: torch.Tensor, norms: bool):
@@ -242,9 +254,14 @@ def split_bf16(S: torch.Tensor) -> torch.Tensor:
 
 def tangent(G: torch.Tensor, A: torch.Tensor,
             S: torch.Tensor) -> torch.Tensor:
-    """T = -2 G A^T + 2 S (A A^T) -> (..., m, r) fp32.  The (r, r) Gram is
-    formed before the launch, as the TPU wrapper forms it outside its
-    kernel (``repro/kernels/grassmann.py:205``)."""
+    """T = -2 G A^T + 2 S (A A^T) -> (..., m, r) fp32.  bf16 G takes the
+    tensor cores: A, S and the Gram 2 A A^T split in three bf16 terms
+    (pre-passes and a Gram kernel inside the call, into a wrapper-allocated
+    scratch of 256 MiB at most, or one matrix's split where that is more,
+    a chunk of the stack at a time).  fp32 G takes the CUDA cores, with the
+    (r, r) Gram formed before the launch, as the TPU wrapper forms it
+    outside its kernel (``repro/kernels/grassmann.py:205``).
+    ``tangent.route`` names the last call's route (``TANGENT_ROUTES``)."""
     if G.dim() < 2:
         raise ValueError(f"G must be (..., m, n); got {tuple(G.shape)}")
     lead, (m, n) = tuple(G.shape[:-2]), tuple(G.shape[-2:])
@@ -254,13 +271,19 @@ def tangent(G: torch.Tensor, A: torch.Tensor,
     _fp32_contiguous(S=S, A=A)
     dtype = _float_dtype("G", G)
     dev = _device(G=G, A=A, S=S)
-    C2 = 2.0 * (A @ A.mT)                       # (..., r, r), tiny
+    C2 = 2.0 * (A @ A.mT) if dtype == 0 else None   # (..., r, r)
     G3 = _stack3(G)
     batch = G3.shape[0]
     T = torch.empty((batch, m, r), dtype=torch.float32, device=dev)
+    scratch = torch.empty(
+        (_lib("grassmann_tangent").grassmann_tangent_scratch_bytes(
+            batch, m, n, r, dtype),), dtype=torch.uint8, device=dev)
+    route = ctypes.c_int(-1)
     _launch("grassmann_tangent", G3.data_ptr(), A.data_ptr(), S.data_ptr(),
-            C2.data_ptr(), T.data_ptr(), dtype, batch, m, n, r,
-            *G3.stride(), _stream(dev))
+            None if C2 is None else C2.data_ptr(), T.data_ptr(),
+            scratch.data_ptr(), dtype, batch, m, n, r, *G3.stride(),
+            ctypes.byref(route), _stream(dev))
+    tangent.route = TANGENT_ROUTES[route.value]
     tangent.launches += 1
     return T.reshape(lead + (m, r))
 
@@ -298,9 +321,15 @@ def project_tangent_colnorms(S: torch.Tensor, G: torch.Tensor
                              ) -> tuple[torch.Tensor, torch.Tensor,
                                         torch.Tensor]:
     """(A = S^T G, ||G_:,j||^2, T = -2 W + 2 S (S^T W)) with W = G A^T,
-    from one launch: S (..., m, r) fp32 contiguous, G (..., m, n) fp32 or
-    bf16, any strides -> ((..., r, n), (..., n), (..., m, r)) fp32.  Takes
-    m <= MAX_FRONT_M and raises ValueError past it."""
+    from one read of G: S (..., m, r) fp32 contiguous, G (..., m, n) fp32
+    or bf16, any strides -> ((..., r, n), (..., n), (..., m, r)) fp32.
+    Takes m <= MAX_FRONT_M and raises ValueError past it.  bf16 G sweeps
+    on the tensor cores and runs the tail (S^T W, then T) on them after
+    the sweep, within the call (S and W split in three bf16 terms into a
+    wrapper-allocated scratch, 256 MiB at most, a chunk of the stack at a
+    time); fp32 G runs on the CUDA cores in one launch.
+    ``project_tangent_colnorms.route`` names the last call's route
+    (``FRONT_ROUTES``)."""
     if G.dim() < 2:
         raise ValueError(f"G must be (..., m, n); got {tuple(G.shape)}")
     lead, (m, n) = tuple(G.shape[:-2]), tuple(G.shape[-2:])
@@ -318,11 +347,15 @@ def project_tangent_colnorms(S: torch.Tensor, G: torch.Tensor
     gsq = torch.empty((batch, n), dtype=torch.float32, device=dev)
     T = torch.empty((batch, m, r), dtype=torch.float32, device=dev)
     lib = _lib("grassmann_tangent_front")
-    scratch = torch.empty((lib.tangent_front_scratch_bytes(batch, m, n, r),),
-                          dtype=torch.uint8, device=dev)
+    scratch = torch.empty(
+        (lib.tangent_front_scratch_bytes(batch, m, n, r, dtype),),
+        dtype=torch.uint8, device=dev)
+    route = ctypes.c_int(-1)
     _launch("grassmann_tangent_front", S.data_ptr(), G3.data_ptr(),
             A.data_ptr(), gsq.data_ptr(), T.data_ptr(), scratch.data_ptr(),
-            dtype, batch, m, n, r, *G3.stride(), _stream(dev))
+            dtype, batch, m, n, r, *G3.stride(), ctypes.byref(route),
+            _stream(dev))
+    project_tangent_colnorms.route = FRONT_ROUTES[route.value]
     project_tangent_colnorms.launches += 1
     return (A.reshape(lead + (r, n)), gsq.reshape(lead + (n,)),
             T.reshape(lead + (m, r)))
@@ -599,4 +632,4 @@ for _fn in (project, project_colnorms, tangent, tangent_gram,
     _fn.launches = 0          # kernel launches since the last reset
 # route of the last call
 project.route = project_colnorms.route = fused_update.route = None
-grad_tap.route = None
+tangent.route = project_tangent_colnorms.route = grad_tap.route = None

@@ -254,6 +254,50 @@ def test_projection_routes_and_producers(cuda, gdtype, route, m, n, r,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("gdtype,m,n,r,transposed,route", [
+    (torch.bfloat16, 4096, 4096, 1024, False, "wgmma-tma"),     # llama-7b wq
+    (torch.bfloat16, 4096, 4096, 1024, True, "wgmma-tma-mnmajor"),  # wo view
+    (torch.bfloat16, 2048, 5461, 512, False, "wgmma-loads"),   # 10,922-byte rows
+    (torch.bfloat16, 1000, 777, 129, True, "wgmma-tma-mnmajor"),
+    (torch.bfloat16, 130, 1001, 129, True, "wgmma-loads-mnmajor"),
+    (torch.bfloat16, 64, 64, 32, False, "wgmma-tma"),          # one k-tile each
+    (torch.float32, 1000, 777, 129, False, "cuda-cores"),
+])
+def test_tangent_routes_and_producers(cuda, gdtype, m, n, r, transposed,
+                                      route):
+    """bf16 G takes the tensor cores (A, S and 2 A A^T split in three bf16
+    terms), by TMA where G has a tensor map and by element loads elsewhere,
+    K- or MN-major by G's layout; fp32 G the CUDA cores.  T within 1e-4 of
+    its largest entry; two calls give the same bits."""
+    S, G, _ = _opt_case(2, m, n, r, gdtype, cuda, seed=m + r,
+                        transposed=transposed)
+    A = ref.project_ref(S, G)
+    T = gk.tangent(G, A, S)
+    assert gk.tangent.route == route
+    torch.cuda.synchronize()
+    assert _rel_err(T, ref.tangent_ref(G, A, S)) < REL["tangent"]
+    assert torch.equal(T, gk.tangent(G, A, S))
+
+
+@pytest.mark.cuda
+def test_tangent_stack_in_chunks(cuda):
+    """Three llama-7b w_gate matrices: the split terms of A, S and 2 A A^T
+    (~99 MB a matrix) take two chunks of the 256 MiB scratch; each matrix
+    gets its own tangent."""
+    m, n, r = 4096, 11008, 1024
+    lib = gk._lib("grassmann_tangent")
+    assert lib.grassmann_tangent_scratch_bytes(3, m, n, r, 1) \
+        <= 256 * 2 ** 20 < 3 * lib.grassmann_tangent_scratch_bytes(1, m, n, r, 1)
+    S, G, _ = _opt_case(3, m, n, r, torch.bfloat16, cuda, seed=9)
+    A = ref.project_ref(S, G)
+    T = gk.tangent(G, A, S)
+    torch.cuda.synchronize()
+    want = ref.tangent_ref(G, A, S)
+    for z in range(3):
+        assert _rel_err(T[z], want[z]) < REL["tangent"]
+
+
+@pytest.mark.cuda
 def test_projection_of_a_stack_slice_and_empty_m(cuda):
     """A view one layer into a stack (base off the stack's start) and
     m = 0 (A = 0, norms 0)."""
@@ -443,6 +487,31 @@ def test_tangent_front_kernel_matches_oracle(cuda, gdtype, m, n, r,
     again = gk.project_tangent_colnorms(S, G)
     for a, b in zip((A, gsq, T), again):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,r,transposed,route", [
+    (2048, 5461, 512, False, "wgmma-loads"),             # w_gate, w_up
+    (2040, 2048, 512, True, "wgmma-tma-transposed"),     # wq .. wo views
+    (1000, 776, 129, False, "wgmma-tma"),       # rows of 1552 bytes
+])
+def test_tangent_front_bf16_route_is_deterministic(cuda, m, n, r, transposed,
+                                                   route):
+    """bf16 G sweeps on the tensor cores by the route its layout allows; a
+    stack of 3 gives bit-identical A, norms and T on two calls (sums over
+    the cluster's ranks in rank order, no atomics)."""
+    S, G, _ = _opt_case(3, m, n, r, torch.bfloat16, cuda, seed=m + 7,
+                        transposed=transposed)
+    got = gk.project_tangent_colnorms(S, G)
+    assert gk.project_tangent_colnorms.route == route
+    again = gk.project_tangent_colnorms(S, G)
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    Ar, gr, Tr = ref.project_tangent_colnorms_ref(S, G)
+    assert _rel_err(got[0], Ar) < REL["project"]
+    assert _rel_err(got[1], gr) < REL["project"]
+    assert _rel_err(got[2], Tr) < REL["tangent"]
 
 
 @pytest.mark.cuda

@@ -17,7 +17,14 @@ products per 64-deep k-tile into an fp32 total.  Here, without a card:
 * that arithmetic, run through each kernel's schedule, matches the JAX
   package's oracles (``repro.kernels.ref``) on the same numpy inputs within
   their 1e-5 of the largest entry: the update in all four variants, and
-  grad_tap's dW, A = (x S)^T dy and column norms.
+  grad_tap's dW, A = (x S)^T dy and column norms;
+* the tracking front end's two kernels with bf16 G: ``tangent`` (G exact
+  against A's three terms; A A^T and S (2C) over 6 term products) and
+  ``project_tangent_colnorms`` (S's terms against G per 128-row rank, the
+  ranks summed in order, G against A re-split; S^T W and S (2C) over 6
+  term products), each against fp64 at r =
+  1024 and against the JAX Pallas kernels in interpret mode (T within 1e-4
+  of its largest entry, A and the norms within 2e-5).
 """
 
 import jax
@@ -26,6 +33,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import grassmann as jgrassmann
 from repro.kernels import ref as jref
 from repro_torch.kernels import ref
 
@@ -171,3 +179,143 @@ def test_emulated_grad_tap_matches_jax(b):
                                       jnp.asarray(S.numpy()))
     for got, want in ((dW, jdW), (A, jA), (gsq, jgsq)):
         assert _rel(got, jax.device_get(want)) < 1e-5
+
+
+# ---------------------------------------------------------------------------
+# The tracking step's front end on the tensor cores: tangent (#3) and
+# project_tangent_colnorms (#6), bf16 G
+# ---------------------------------------------------------------------------
+
+# one exact bf16 term of G against A's three: lo, mid, hi
+G_PASSES = ((0, 2), (0, 1), (0, 0))
+
+
+def _passes(total, a, b, passes, k_tile=64):
+    """``total`` plus the products of the term pairs ``passes`` of a (terms,
+    M, K) and b (terms, K, N): per ``k_tile``-deep slice of K a fresh fp32
+    sum, added into the fp32 total (the kernels' flush)."""
+    for k0 in range(0, a.shape[-1], k_tile):
+        total = total + sum(a[i, :, k0:k0 + k_tile] @ b[j, k0:k0 + k_tile]
+                            for i, j in passes)
+    return total
+
+
+def _emulated_tangent(G, A, S):
+    """tangent's bf16 route: W = G A^T over n (G one exact term, A's three),
+    C = A A^T (6 products of A's terms), then -2 W + S (2C) (6 products of
+    S's and 2C's terms) on the same total."""
+    (m, r), a = S.shape, ref.split3_ref(A).float()
+    W = _passes(torch.zeros(m, r), G[None], a.mT, G_PASSES)
+    C = _passes(torch.zeros(r, r), a, a.mT, ref.UPDATE_PASSES)
+    return _passes(-2.0 * W, ref.split3_ref(S).float(),
+                   ref.split3_ref(2.0 * C).float(), ref.UPDATE_PASSES)
+
+
+def _emulated_front(G, S, rows=128, n_tile=128):
+    """project_tangent_colnorms' bf16 route: per 128-row rank one fp32 sum
+    A^k = S_k^T G_k over S's three terms, the ranks (and their column
+    norms) added in rank order; W += G A^T per 128-column n-tile over A's
+    three terms; the tail: C = S^T W (6 products of S's and W's terms),
+    then S (2C) (6 products of S's and 2C's terms) - 2 W."""
+    (m, n), r = G.shape, S.shape[1]
+    s = ref.split3_ref(S).float()
+    A, gsq = torch.zeros(r, n), torch.zeros(n)
+    for i0 in range(0, m, rows):
+        Gk = G[i0:i0 + rows]
+        A = A + sum(s[t, i0:i0 + rows].mT @ Gk for t in (2, 1, 0))
+        gsq = gsq + (Gk * Gk).sum(0)
+    W = _passes(torch.zeros(m, r), G[None], ref.split3_ref(A).float().mT,
+                G_PASSES, k_tile=n_tile)
+    C = _passes(torch.zeros(r, r), s.mT, ref.split3_ref(W).float(),
+                ref.UPDATE_PASSES)
+    T = _passes(torch.zeros(m, r), s, ref.split3_ref(2.0 * C).float(),
+                ref.UPDATE_PASSES)
+    return A, gsq, T - 2.0 * W
+
+
+@pytest.fixture(scope="module")
+def front_r1024(factors_r1024):
+    """The orthonormal S (1200, 1024), a bf16-exact G (1200, 300) and A =
+    S^T G in fp32, with G, S and the exact T in fp64."""
+    S = factors_r1024[0]
+    rng = np.random.default_rng(6)
+    G = torch.tensor(rng.standard_normal((1200, 300))).bfloat16().float()
+    A = S.mT @ G
+    G64, S64, A64 = G.double(), S.double(), A.double()
+    T64 = -2.0 * G64 @ A64.mT + 2.0 * S64 @ (A64 @ A64.mT)
+    return G, S, A, T64
+
+
+@pytest.mark.parametrize("product", ["G A^T", "A A^T", "S (2C)"])
+def test_tangent_pass_sets_against_fp64_at_r_1024(front_r1024, product):
+    """G x A's 3 terms drops nothing (G is exact in one term); A A^T and
+    S (2C) over the 6 products of order >= 2^-16 stay within 2e-8 of the
+    largest entry."""
+    G, S, A, _ = front_r1024
+    a = ref.split3_ref(A).double()
+    if product == "G A^T":
+        got, want, bound = sum(G.double() @ a[j].mT for _, j in G_PASSES), \
+            G.double() @ A.double().mT, 1e-12
+    elif product == "A A^T":
+        got = sum(a[i] @ a[j].mT for i, j in ref.UPDATE_PASSES)
+        want, bound = A.double() @ A.double().mT, 2e-8
+    else:
+        C2 = 2.0 * (A @ A.mT)
+        s, c = ref.split3_ref(S).double(), ref.split3_ref(C2).double()
+        got = sum(s[i] @ c[j] for i, j in ref.UPDATE_PASSES)
+        want, bound = S.double() @ C2.double(), 2e-8
+    assert _rel(got, want) < bound
+
+
+def test_emulated_tangent_against_fp64_at_r_1024(front_r1024):
+    """The whole bf16 route in fp32 with its per-k-tile flushes: within 1e-5
+    of T's largest entry (budget 1e-4), no worse than twice the plain fp32
+    expression."""
+    G, S, A, T64 = front_r1024
+    got = _emulated_tangent(G, A, S)
+    assert got.dtype == torch.float32
+    assert _rel(got, T64) < 1e-5
+    assert _rel(got, T64) < 2 * _rel(ref.tangent_ref(G, A, S), T64)
+
+
+def test_emulated_front_against_fp64_at_r_1024(front_r1024):
+    """#6's bf16 route: A and the norms within 1e-6 of their largest entry
+    (budget 2e-5), T within 1e-5 (budget 1e-4)."""
+    G, S, A, T64 = front_r1024
+    A_got, gsq, T = _emulated_front(G, S)
+    assert _rel(A_got, S.double().mT @ G.double()) < 1e-6
+    assert _rel(gsq, (G.double() ** 2).sum(0)) < 1e-6
+    assert _rel(T, T64) < 1e-5
+
+
+def _front_case(m, n, r, seed):
+    rng = np.random.default_rng(seed)
+    G = rng.standard_normal((m, n)).astype(np.float32)
+    G = torch.tensor(G).bfloat16().float().numpy()        # bf16 G, exactly
+    S = np.linalg.qr(rng.standard_normal((m, r)))[0].astype(np.float32)
+    return G, S
+
+
+@pytest.mark.parametrize("m,n,r", [(256, 512, 96), (256, 256, 130)])
+def test_emulated_tangent_matches_jax(m, n, r):
+    """The emulated route against the JAX Pallas kernel in interpret mode on
+    the same numpy inputs: T within 1e-4 of its largest entry."""
+    G, S = _front_case(m, n, r, 7 + r)
+    A = S.T @ G
+    want = jax.device_get(jgrassmann.tangent(
+        jnp.asarray(G), jnp.asarray(A), jnp.asarray(S), interpret=True))
+    got = _emulated_tangent(torch.tensor(G), torch.tensor(A), torch.tensor(S))
+    assert _rel(got, want) < 1e-4
+
+
+@pytest.mark.parametrize("m,n,r", [(256, 512, 96), (300, 512, 70)])
+def test_emulated_front_matches_jax(m, n, r):
+    """#6's emulated route (2 or 3 ranks, a ragged last one) against the JAX
+    Pallas kernel in interpret mode: A and the norms within 2e-5 of their
+    largest entry, T within 1e-4."""
+    G, S = _front_case(m, n, r, 8 + m)
+    want = jax.device_get(jgrassmann.project_tangent_colnorms(
+        jnp.asarray(S), jnp.asarray(G), interpret=True))
+    got = _emulated_front(torch.tensor(G), torch.tensor(S))
+    for g, w, tol in zip(got, want, (2e-5, 2e-5, 1e-4)):
+        assert _rel(g, w) < tol
