@@ -92,15 +92,17 @@ non-zero:
 13. hold the tracking front end ``project_tangent_colnorms`` and the unfused
    schedule's ``backproject`` and ``recovery`` against their plain versions
    at llama-1b's three canonical shapes (2040, 2048), (2048, 5461) and
-   (2048, 32000), rank 512, 2 matrices, G fp32 and bf16 (``OPT_REL``), a
-   ragged case (the front end's route printed: bf16 G on wgmma, fp32 G on
-   the CUDA cores), and llama-7b's (4096, 11008, r 1024), where the front
+   (2048, 32000), rank 512, 2 matrices, G fp32 and bf16 (``FRONT_REL``),
+   a ragged case (the front end's and backproject's routes printed: the
+   front end with bf16 G on wgmma, fp32 G on the CUDA cores; backproject
+   on wgmma always), and llama-7b's (4096, 11008, r 1024), where the front
    end's dispatch takes the project_colnorms + tangent composite (m past
    the kernel's 2048);
 14. time the three at (2048, 5461, r 512), bf16 G, 2 matrices, beside their
    bounds (the front end's: A = S^T G and W = G A^T at 3 bf16 passes each,
-   its tail's S^T W and S (2C) at 6, its norms in fp32; the fp32 bound
-   beside it), plain versions and PyTorch expressions (TF32 off), and the
+   its tail's S^T W and S (2C) at 6, its norms in fp32; backproject's 6
+   bf16 passes; the fp32 bound beside each), plain versions and PyTorch
+   expressions (TF32 off), and the
    front end's single launch against the two-launch composite
    (project_colnorms + the tensor-core tangent) there, on G by element
    loads (w_gate) and by TMA (w_down's
@@ -136,8 +138,11 @@ non-zero:
    8192, Hq 32, Hkv 16, hd 128, window 4096, softcap 50) in bf16 and hold it
    against its plain version there and at stablelm-12b's heads (Hq 32, Hkv
    8, hd 160, S = T = 1024), llama-1b's (Hq = Hkv = 24, hd 85), non-causal, S
-   512 against T 2048, a ragged S, and one fp32 shape (``FLASH_TOL``); time
-   it at the two driven shapes beside its bound, its plain version and one
+   512 against T 2048, a ragged S, and one fp32 shape (``FLASH_TOL``),
+   the route of each call printed (bf16 on wgmma, fp32 on the CUDA cores);
+   time it at the two driven shapes beside its one-pass bound and the
+   route's own (Q K^T once, P V once per bf16 term of P), gemma2's also
+   without its softcap (the tanh's share), its plain version and one
    PyTorch call held against the plain version (``LIB_TOL``):
    ``scaled_dot_product_attention(is_causal=True)`` at llama-7b's and, at
    gemma2's, ``flex_attention`` compiled with a softcap ``score_mod`` and a
@@ -542,9 +547,11 @@ def _tc_work(name, m, n, r, b):
     against A's terms), S (2C) and C = A A^T 6 each, C's upper triangle
     only (r (r + 1) n: symmetric, mirrored); the front end: A = S^T G and
     W = G A^T 3 passes each, its tail's S^T W and S (2C) 6 each, its norms
-    and -2 W in fp32."""
+    and -2 W in fp32; backproject: 6 (S's and X's terms), its epilogue a
+    store."""
     mma = b * 2 * r * m * n
     return {"project": ([(PROJ_PASSES, mma)], 0),
+            "backproject": ([(6, mma)], 0),
             "project_tangent_colnorms": ([(3, mma), (3, mma),
                                           (6, b * 2 * m * r * r),
                                           (6, b * 2 * m * r * r)],
@@ -667,9 +674,9 @@ def _opt_error(got, want) -> tuple[float, float]:
 
 def _want_route(name, dtype, route):
     """bf16 G takes the tensor cores, fp32 G the CUDA cores; the fused
-    update takes the tensor cores for every dtype."""
-    want = ("wgmma" if dtype == torch.bfloat16 or name == "fused_update"
-            else "cuda-cores")
+    update and backproject take the tensor cores for every dtype."""
+    want = ("wgmma" if dtype == torch.bfloat16
+            or name in ("fused_update", "backproject") else "cuda-cores")
     if not route.startswith(want):
         raise AssertionError(f"{name} with {dtype} G took route {route}")
 
@@ -1333,6 +1340,7 @@ FRONT_SHAPES = {   # name -> (m, n, r, G a transposed view)
 }
 TIMED_1B = (2048, 5461)
 UNFUSED_REL = 1e-4   # the step's direction, CUDA vs CPU: Adam divides by sqrt(V)
+ROUTED_FRONT = ("project_tangent_colnorms", "backproject")  # report a route
 
 
 def _front_inputs(m, n, r, gdtype, seed, transposed=False):
@@ -1387,9 +1395,10 @@ def phase_check_front() -> dict:
                 parts = (zip(("A", "gsq", "T"), got, want)
                          if kname == "project_tangent_colnorms"
                          else [(kname, got, want)])
-                if kname == "project_tangent_colnorms":
-                    _want_route(kname, dtype, gk.project_tangent_colnorms.route)
-                    line.append(f"route {gk.project_tangent_colnorms.route}")
+                if kname in ROUTED_FRONT:
+                    route = getattr(gk, kname).route
+                    _want_route(kname, dtype, route)
+                    line.append(f"{kname} route {route}")
                 for part, g, w in parts:
                     abs_err, rel = _opt_error(g, w)
                     if rel > FRONT_REL[part]:
@@ -1482,7 +1491,7 @@ def phase_time_front() -> dict:
         how = f"{flops / 1e9:.1f} GFLOP fp32"
         if tc:
             res["bound_fp32_ms"] = max(t_bytes, t_fp32)
-            res["kernel_route"] = gk.project_tangent_colnorms.route
+            res["kernel_route"] = getattr(gk, name).route
             how = (" + ".join(f"{p} x {f / 1e9:.1f}" for p, f in tc[0])
                    + f" GFLOP in bf16 passes at the bf16 peak, "
                    f"{tc[1] / 1e9:.2f} fp32; fp32 CUDA-core bound "
@@ -1946,6 +1955,10 @@ def phase_flash() -> dict:
             else:
                 got = fk.flash_attention(q, k, v, **kw(case))
                 torch.cuda.synchronize()
+            route = fk.flash_attention.route
+            if route.startswith("wgmma") != (dtype == torch.bfloat16):
+                raise AssertionError(f"flash_attention {case} {dtype} took "
+                                     f"route {route}")
             abs_err, excess = _flash_err(got, ref.flash_attention_ref(
                 q, k, v, **kw(case)))
             if not excess <= 0:
@@ -1955,13 +1968,13 @@ def phase_flash() -> dict:
             if case == FLASH_TIMED[0]:
                 out["max_abs_err"] = abs_err
             print(f"[check] flash_attention {case} {FLASH_CASES[case][:6]} "
-                  f"{kw(case)} {dtype}: max abs err {abs_err:.2e} (within "
-                  f"tolerance)", flush=True)
+                  f"{kw(case)} {dtype}: route {route}, max abs err "
+                  f"{abs_err:.2e} (within tolerance)", flush=True)
             del q, k, v, got
     if out["launches"] != len(FLASH_TIMED):
         raise AssertionError(f"flash_attention launches {out['launches']}")
     for case in FLASH_TIMED:
-        B, S, T, Hq, Hkv, hd, causal, window, _ = FLASH_CASES[case]
+        B, S, T, Hq, Hkv, hd, causal, window, softcap = FLASH_CASES[case]
         q, k, v = _flash_inputs(case, torch.bfloat16, SEED + 70)
         # visible (query, key) pairs of this run's masks
         qp = torch.arange(S, device="cuda")
@@ -1972,6 +1985,9 @@ def phase_flash() -> dict:
         flops = 4 * hd * pairs            # q.k and p.v at the bf16 peak
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
         t_ops = flops / BF16_FLOPS * 1e3
+        # the bf16 route's own work: Q K^T once, P V once per term of P
+        design_ms = max(t_bytes, 2 * hd * pairs * (1 + ref.FLASH_P_TERMS)
+                        / BF16_FLOPS * 1e3)
         iters = 3 if case == FLASH_TIMED[1] else 5
         lib_name, library = _flash_library(case, q, k, v)
         t0 = time.perf_counter()
@@ -1990,15 +2006,25 @@ def phase_flash() -> dict:
                    q, k, v, **kw(case)), iters=iters, repeats=3),
                "library_ms": _time_ms(library, iters=4 * iters, repeats=3),
                "bound_ms": max(t_bytes, t_ops),
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "design_bound_ms": design_ms,
+               "kernel_route": fk.flash_attention.route}
+        if softcap:   # the same masks without the cap: the tanh's share
+            res["no_softcap_ms"] = _time_ms(lambda: fk.flash_attention(
+                q, k, v, causal=causal, window=window), iters=iters,
+                repeats=3)
         out[case] = res
         lib = (f"{lib_name} {res['library_ms']:.4f} ms (max abs err from the "
                f"plain version {lib_err:.2e}; first call {first_s:.1f} s)")
+        cap = (f"; without the softcap {res['no_softcap_ms']:.4f} ms"
+               if softcap else "")
         print(f"[time] flash_attention {case} bf16 {FLASH_CASES[case]}: "
-              f"kernel {res['ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
-              f"({res['bound_by']}: {nbytes / 1e6:.1f} MB, {pairs} visible "
-              f"pairs, {flops / 1e9:.1f} GFLOP at the bf16 peak), plain "
-              f"{res['plain_ms']:.4f} ms, {lib}", flush=True)
+              f"kernel {res['ms']:.4f} ms (route {res['kernel_route']}{cap}), "
+              f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}: "
+              f"{nbytes / 1e6:.1f} MB, {pairs} visible pairs, "
+              f"{flops / 1e9:.1f} GFLOP at the bf16 peak), the route's own "
+              f"bound {design_ms:.4f} ms (Q K^T once, P V {ref.FLASH_P_TERMS} "
+              f"times), plain {res['plain_ms']:.4f} ms, {lib}", flush=True)
         del q, k, v
     return out
 
@@ -2108,9 +2134,12 @@ def main() -> int:
         "launches": flash["launches"], "max_abs_err": flash["max_abs_err"],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "design_bound_ms": t["design_bound_ms"],
+        "kernel_route": t["kernel_route"],
         "gemma2_local": {k: flash[FLASH_TIMED[1]][k]
                          for k in ("ms", "plain_ms", "bound_ms",
-                                   "library_ms")}})
+                                   "design_bound_ms", "library_ms",
+                                   "no_softcap_ms")}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

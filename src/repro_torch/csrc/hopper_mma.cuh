@@ -3,15 +3,18 @@
 // Two parts:
 //
 // 1. The helpers: shared-memory addresses, mbarriers, TMA loads and
-//    tensor maps (128-byte swizzle), wgmma descriptors and the
-//    m64n128k16 bf16 wgmma, and the exact three-term bf16 split of an fp32
-//    matrix (x = hi + mid + lo, each term the round-to-nearest bf16 of what
-//    the terms before it left; three 8-bit significands hold fp32's 24).
-//    grassmann_project.cu, grassmann_tangent.cu, grassmann_tangent_front.cu,
-//    fused_update.cu and grad_tap.cu include them.
+//    tensor maps (3-D and 4-D, 128-byte swizzle), wgmma descriptors, the
+//    m64n128k16 bf16 wgmma, flash_attention.cu's m64n64k16 (both operands
+//    in shared memory) and m64nNk16 with A in registers, and the exact
+//    three-term bf16 split of an fp32 matrix (x = hi + mid + lo, each term
+//    the round-to-nearest bf16 of what the terms before it left; three
+//    8-bit significands hold fp32's 24).  grassmann_project.cu,
+//    grassmann_tangent.cu, grassmann_tangent_front.cu, grassmann_backproject.cu,
+//    fused_update.cu, grad_tap.cu and flash_attention.cu include them.
 //
 // 2. The split-product tile engine (`Engine`), the main loop of
-//    fused_update.cu, grad_tap.cu and grassmann_tangent.cu: one CTA owns a
+//    fused_update.cu, grad_tap.cu, grassmann_tangent.cu and
+//    grassmann_backproject.cu: one CTA owns a
 //    128 x 128 fp32 output tile C = sum over K of A (128 x K) B (K x 128),
 //    where A and B each come as 1 or 3 bf16 terms and a compile-time list
 //    of term pairs ("passes") says which products of terms enter the sum.
@@ -87,6 +90,15 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
 // wgmma shared-memory descriptor of a 128-byte-swizzled tile.
 __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
@@ -117,11 +129,68 @@ __device__ __forceinline__ void wgmma_128(float (&d)[64], uint64_t da, uint64_t 
         HOPPER_WG_F8(40), HOPPER_WG_F8(48), HOPPER_WG_F8(56)
       : "l"(da), "l"(db), "r"(accumulate), "n"(kTransA), "n"(kTransB));
 }
+
+// d (64 x 64, fp32) = A (64 x 16) * B (16 x 64) [+ d], both bf16 in shared
+// memory and K-major (flash_attention.cu's S = Q K^T).
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                             int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+      "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : HOPPER_WG_F8(0), HOPPER_WG_F8(8), HOPPER_WG_F8(16), HOPPER_WG_F8(24)
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d (64 x N, fp32; its first N / 2 registers) += A (64 x 16) * B (16 x N),
+// N = 16, 32, 48 or 64: A bf16 in registers (wgmma's A fragment: four
+// words of two bf16 each), B bf16 in shared memory, N-major (the transpose
+// bit) -- flash_attention.cu's O += P V with V's rows of hd contiguous.
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db,
+                                         int accumulate) {
+  static_assert(N == 16 || N == 32 || N == 48 || N == 64, "N of 16, 32, 48 or 64");
+  if constexpr (N == 16) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %13, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+        : HOPPER_WG_F8(0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  } else if constexpr (N == 32) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %21, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+        "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+        : HOPPER_WG_F8(0), HOPPER_WG_F8(8)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  } else if constexpr (N == 48) {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %29, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+        "%19, %20, %21, %22, %23}, {%24, %25, %26, %27}, %28, p, 1, 1, 1;\n}\n"
+        : HOPPER_WG_F8(0), HOPPER_WG_F8(8), HOPPER_WG_F8(16)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  } else {
+    asm volatile(
+        "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+        " wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, "
+        "%19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : HOPPER_WG_F8(0), HOPPER_WG_F8(8), HOPPER_WG_F8(16), HOPPER_WG_F8(24)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  }
+}
 #undef HOPPER_WG_F8
 
-__device__ __forceinline__ void fence_operands(float (&d)[64]) {
+template <int kN>
+__device__ __forceinline__ void fence_operands(float (&d)[kN]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < kN; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // x = hi + mid + lo: each term the round-to-nearest bf16 of what the terms
@@ -208,6 +277,22 @@ inline bool make_map(CUtensorMap* map, const void* ptr, uint64_t d0, uint64_t d1
   const cuuint32_t elem[3] = {1, 1, 1};
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr), dims, strides, box,
             elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// A 4-D bf16 map (d[0] contiguous; strides[i] the bytes between steps of
+// d[i + 1]) with a 128-byte swizzled box (64, box[1], box[2], box[3]);
+// elements past the dims read as zero.
+inline bool make_map_4d(CUtensorMap* map, const void* ptr, const uint64_t (&d)[4],
+                        const uint64_t (&strides)[3], const uint32_t (&box)[4]) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {d[0], d[1], d[2], d[3]};
+  const cuuint64_t st[3] = {strides[0], strides[1], strides[2]};
+  const cuuint32_t bx[4] = {box[0], box[1], box[2], box[3]};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, st, bx, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

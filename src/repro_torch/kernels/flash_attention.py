@@ -4,9 +4,18 @@ The kernel replaces the Pallas TPU kernel ``repro.kernels.flash_attention``
 and keeps its layout and semantics: q (B, S, Hq, hd), k and v (B, T, Hkv,
 hd) -> (B, S, Hq, hd) in q's dtype, scale 1/sqrt(hd), an optional logit
 softcap applied before the masks, causal and sliding-window masks with both
-positions counted from 0, P kept in fp32 for the P V product.  What it
-computes is ``repro_torch.kernels.ref.flash_attention_ref``; the note in the
-``.cu`` file says how the design differs from the TPU's and what bounds it.
+positions counted from 0, P kept to fp32 accuracy in the P V product.  What
+it computes is ``repro_torch.kernels.ref.flash_attention_ref``; the note in
+the ``.cu`` file says how the design differs from the TPU's and what bounds
+it.
+
+The route follows the dtype (``FLASH_ROUTES``; ``flash_attention.route``
+names the last call's): bf16 q/k/v run on the tensor cores (``wgmma``,
+Q K^T in one bf16 pass, P V over P split in registers into two bf16 terms,
+K and V through a ring fed by TMA, ``wgmma-tma``, or by element loads where
+a row of hd is not a whole number of 16-byte words, ``wgmma-loads``); fp32
+q/k/v run on the CUDA cores (``cuda-cores``).  There is no fallback: a
+build or launch failure raises.
 
 No model of the JAX package calls the TPU kernel (its decoders use the jnp
 ``blocked_attention``), so this entry point is the public function itself,
@@ -29,6 +38,8 @@ from repro_torch.kernels import build
 
 MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+# the routes flash_attention_launch reports
+FLASH_ROUTES = {0: "cuda-cores", 1: "wgmma-tma", 2: "wgmma-loads"}
 
 
 @functools.cache
@@ -36,7 +47,7 @@ def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attention")
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.flash_attention_launch.argtypes = [vp] * 4 + [i] * 9 + [
-        ctypes.c_float, ctypes.c_float, vp]
+        ctypes.c_float, ctypes.c_float, vp, vp]
     lib.flash_attention_launch.restype = ctypes.c_int
     lib.repro_cuda_error_string.argtypes = [i]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
@@ -80,27 +91,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     k and v (B, T, Hkv, hd), all contiguous, one dtype (fp32 or bf16) ->
     (B, S, Hq, hd) in q's dtype.  ``window`` 0 and ``softcap`` 0 are off.
     Raises ValueError on what the kernel does not take and RuntimeError
-    after a launch that reports an error."""
+    after a launch that reports an error; ``flash_attention.route`` names
+    the route taken (``FLASH_ROUTES``)."""
     window = int(window)
     _check(q, k, v, window)
     B, S, Hq, hd = q.shape
     T, Hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     lib = _lib()
+    route = ctypes.c_int(-1)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.flash_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _DTYPES[q.dtype], B, S, T, Hq, Hkv, hd, int(bool(causal)), window,
-            float(softcap), 1.0 / math.sqrt(hd), stream)
+            float(softcap), 1.0 / math.sqrt(hd), ctypes.byref(route), stream)
     if err:
         raise RuntimeError("flash_attention launch failed: "
                            f"{lib.repro_cuda_error_string(err).decode()}")
+    flash_attention.route = FLASH_ROUTES[route.value]
     flash_attention.launches += 1
     return out
 
 
 flash_attention.launches = 0      # kernel launches since the last reset
+flash_attention.route = None      # route of the last call
 
 
 def flash_traffic_bytes(B: int, S: int, T: int, Hq: int, Hkv: int,

@@ -17,15 +17,16 @@ file says how the design differs from the TPU's and what bounds it on
 the H100.  Every kernel but ``grad_tap`` (called per layer from the
 backward) takes a leading batch dim (one matrix per index, one launch
 for a whole layer stack) and accumulates in fp32: on CUDA cores,
-except five that run on the bf16 tensor cores (``wgmma``, the shared
+except six that run on the bf16 tensor cores (``wgmma``, the shared
 machinery in ``csrc/hopper_mma.cuh``) over fp32 factors split into three
 exact bf16 terms (``ref.split3_ref``): ``project`` and
 ``project_colnorms`` with bf16 G (S split), ``tangent`` with bf16 G (A,
 S and the Gram 2 A A^T split; 6 term products for the fp32 x fp32 ones),
 ``project_tangent_colnorms`` with bf16 G (S and A split; its tail's
 S^T W and S (2C) over 6 term products), ``fused_update`` always (S and
-the direction D split, 6 term products), and ``grad_tap`` with bf16 x and
-dy (S and P = x S split; dW exact in one pass).  Each reports the route
+the direction D split, 6 term products), ``backproject`` always (S and X
+split, 6 term products), and ``grad_tap`` with bf16 x and dy (S and P =
+x S split; dW exact in one pass).  Each reports the route
 of its last call in ``<wrapper>.route``.  There is no shape gate: ragged tiles are
 masked in the kernels (the TPU's 256-multiples were MXU/VMEM limits).  One kernel has a size
 limit of its own: ``project_tangent_colnorms`` takes m <= ``MAX_FRONT_M``
@@ -73,8 +74,8 @@ _SIGNATURES = {
                  [_vp] * 6 + [_i] * 7 + [_ll] * 6 + [_vp, _vp]),
     "grassmann_tangent_front": ("tangent_front_launch",
                                 [_vp] * 6 + [_i] * 5 + [_ll] * 3 + [_vp, _vp]),
-    "grassmann_backproject": ("grassmann_backproject_launch",
-                              [_vp] * 5 + [_i] * 6 + [_ll] * 3 + [_vp]),
+    "grassmann_backproject": ("grassmann_recovery_launch",
+                              [_vp] * 5 + [_i] * 5 + [_ll] * 3 + [_vp]),
 }
 # the tallest matrix project_tangent_colnorms takes in one launch: 16 CTAs
 # of a cluster x 128 rows each (tangent_front_max_m() of its library)
@@ -99,6 +100,12 @@ def _lib(name: str) -> ctypes.CDLL:
         lib.fused_update_split_direction_launch.argtypes = [_vp] * 5 + [
             _i] * 4 + [_vp]
         lib.fused_update_split_direction_launch.restype = _i
+    if name == "grassmann_backproject":
+        lib.backproject_scratch_bytes.argtypes = [_i] * 4
+        lib.backproject_scratch_bytes.restype = _ll
+        lib.backproject_wgmma_launch.argtypes = [_vp] * 4 + [_i] * 4 + [
+            _vp, _vp]
+        lib.backproject_wgmma_launch.restype = _i
     if name == "grassmann_project":
         lib.grassmann_project_r_pad.argtypes = [_i]
         lib.grassmann_project_r_pad.restype = _i
@@ -361,46 +368,58 @@ def project_tangent_colnorms(S: torch.Tensor, G: torch.Tensor
             T.reshape(lead + (m, r)))
 
 
-def _backproject(S, X, G, phi):
-    recovery = G is not None
+def _backproject_shapes(S, X):
     if S.dim() < 2 or X.dim() < 2:
         raise ValueError("S and X must be (..., m, r) and (..., r, n)")
     lead, (m, r) = tuple(S.shape[:-2]), tuple(S.shape[-2:])
     n = X.shape[-1]
     _shape("X", X, lead + (r, n))
-    _fp32_contiguous(S=S, X=X, phi=phi)
-    if recovery:
-        _shape("G", G, lead + (m, n))
-        _shape("phi", phi, lead + (n,))
-    dtype = _float_dtype("G", G) if recovery else 0
-    dev = _device(S=S, X=X, G=G, phi=phi)
-    batch = _stack3(S).shape[0]
-    G3 = _stack3(G) if recovery else None
-    out = torch.empty((batch, m, n), dtype=torch.float32, device=dev)
-    _launch("grassmann_backproject", S.data_ptr(), X.data_ptr(),
-            G3.data_ptr() if recovery else None,
-            phi.data_ptr() if recovery else None, out.data_ptr(), dtype,
-            int(recovery), batch, m, n, r,
-            *(G3.stride() if recovery else (0, 0, 0)), _stream(dev))
-    return out.reshape(lead + (m, n))
+    return lead, m, n, r
 
 
 def backproject(S: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     """Ghat = S X: S (..., m, r), X (..., r, n), both fp32 contiguous ->
-    (..., m, n) fp32."""
-    out = _backproject(S, X, None, None)
+    (..., m, n) fp32, on the tensor cores (S and X split in three bf16
+    terms, 6 term products; ``backproject.route`` is ``wgmma-tma``)."""
+    lead, m, n, r = _backproject_shapes(S, X)
+    _fp32_contiguous(S=S, X=X)
+    dev = _device(S=S, X=X)
+    batch = _stack3(S).shape[0]
+    out = torch.empty((batch, m, n), dtype=torch.float32, device=dev)
+    lib = _lib("grassmann_backproject")
+    scratch = torch.empty((lib.backproject_scratch_bytes(batch, m, n, r),),
+                          dtype=torch.uint8, device=dev)
+    route = ctypes.c_int(-1)
+    err = lib.backproject_wgmma_launch(
+        S.data_ptr(), X.data_ptr(), out.data_ptr(), scratch.data_ptr(), batch,
+        m, n, r, ctypes.byref(route), _stream(dev))
+    if err:
+        raise RuntimeError("backproject launch failed: "
+                           f"{lib.repro_cuda_error_string(err).decode()}")
+    backproject.route = BACKPROJECT_ROUTES[route.value]
     backproject.launches += 1
-    return out
+    return out.reshape(lead + (m, n))
 
 
 def recovery(S: torch.Tensor, G: torch.Tensor, Gt: torch.Tensor,
              phi: torch.Tensor) -> torch.Tensor:
     """Lam = (G - S Gt) * phi[..., None, :]: S (..., m, r), Gt (..., r, n)
     and phi (..., n) fp32 contiguous; G (..., m, n) fp32 or bf16, any
-    strides -> (..., m, n) fp32."""
-    out = _backproject(S, Gt, G, phi)
+    strides -> (..., m, n) fp32, on the CUDA cores."""
+    lead, m, n, r = _backproject_shapes(S, Gt)
+    _fp32_contiguous(S=S, Gt=Gt, phi=phi)
+    _shape("G", G, lead + (m, n))
+    _shape("phi", phi, lead + (n,))
+    dtype = _float_dtype("G", G)
+    dev = _device(S=S, Gt=Gt, G=G, phi=phi)
+    batch = _stack3(S).shape[0]
+    G3 = _stack3(G)
+    out = torch.empty((batch, m, n), dtype=torch.float32, device=dev)
+    _launch("grassmann_backproject", S.data_ptr(), Gt.data_ptr(),
+            G3.data_ptr(), phi.data_ptr(), out.data_ptr(), dtype, batch, m, n,
+            r, *G3.stride(), _stream(dev))
     recovery.launches += 1
-    return out
+    return out.reshape(lead + (m, n))
 
 
 def bias_corrections(step: int, beta1: float, beta2: float,
@@ -465,8 +484,9 @@ def _per_matrix_column(x, lead: tuple, dev) -> torch.Tensor:
                       device=dev).reshape(-1)
 
 
-# the routes fused_update_launch and grad_tap_launch report
-UPDATE_ROUTES = {1: "wgmma-tma"}
+# the routes fused_update_launch, grad_tap_launch and
+# backproject_wgmma_launch report
+UPDATE_ROUTES = BACKPROJECT_ROUTES = {1: "wgmma-tma"}
 TAP_ROUTES = {0: "cuda-cores", 1: "wgmma-tma", 2: "wgmma-loads"}
 
 
@@ -633,3 +653,4 @@ for _fn in (project, project_colnorms, tangent, tangent_gram,
 # route of the last call
 project.route = project_colnorms.route = fused_update.route = None
 tangent.route = project_tangent_colnorms.route = grad_tap.route = None
+backproject.route = None

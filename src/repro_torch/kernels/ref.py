@@ -287,3 +287,75 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         out[:, :, s0:s0 + chunk] = (
             (p @ vf) / p.sum(dim=-1, keepdim=True).clamp_min(1e-30))
     return out.transpose(1, 2).to(q.dtype)
+
+
+FLASH_P_TERMS = 2       # bf16 terms of P in the bf16 route's P V
+FLASH_BK = 64           # keys per tile of the bf16 route
+
+
+def flash_tanh_ref(x: torch.Tensor) -> torch.Tensor:
+    """tanh as the bf16 flash route forms it: (e^2x - 1) / (e^2x + 1) in
+    fp32, x clamped to [-10, 10] (tanh is 1 in fp32 beyond)."""
+    t = torch.exp2(x.float().clamp(-10.0, 10.0) * (2.0 / math.log(2.0)))
+    return (t - 1.0) / (t + 1.0)
+
+
+def flash_attention_split_ref(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, *, causal: bool = True,
+                              window: int = 0, softcap: float = 0.0,
+                              terms: int = FLASH_P_TERMS,
+                              rows=None) -> torch.Tensor:
+    """The bf16 route's arithmetic (``csrc/flash_attention.cu``), on the
+    CPU, for the accuracy argument: logits from q and k as given (the
+    kernel's bf16 products are exact in fp32), scaled into the log2 domain
+    (the softcap's tanh as the kernel forms it, ``flash_tanh_ref``),
+    masked to -1e30 (-inf past T); per
+    ``FLASH_BK``-key tile an online softmax (running max, ``exp2``
+    corrections, fp32 running sum) and O = O corr + sum of P's ``terms``
+    bf16 terms (each the round-to-nearest bf16 of what the terms before it
+    left, the smallest added first) times V, each product exact in fp32.
+    Tiles the kernel skips change nothing here (a fully masked tile adds
+    exactly 0 to a row that has seen a key, and a row that has not is
+    reset by its first visible key's correction), so every tile is visited.
+    ``rows`` (an index tensor) restricts the query rows computed; rows are
+    independent.  -> (B, S or len(rows), Hq, hd) fp32, before the output's
+    rounding to q's dtype."""
+    B, S, Hq, hd = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    log2e = 1.0 / math.log(2.0)
+    scale = 1.0 / math.sqrt(hd)
+    q_pos = torch.arange(S) if rows is None else torch.as_tensor(rows)
+    qf = q.float()[:, q_pos].transpose(1, 2)                     # (B, Hq, R, hd)
+    kf = k.float().repeat_interleave(G, dim=2).transpose(1, 2)   # (B, Hq, T, hd)
+    vf = v.float().repeat_interleave(G, dim=2).transpose(1, 2)
+    R = q_pos.numel()
+    m = torch.full((B, Hq, R, 1), FLASH_MASKED)
+    l = torch.zeros((B, Hq, R, 1))
+    o = torch.zeros((B, Hq, R, hd))
+    for k0 in range(0, T, FLASH_BK):
+        s = qf @ kf[:, :, k0:k0 + FLASH_BK].mT
+        if softcap:
+            s = flash_tanh_ref(s * (scale / softcap)) * (softcap * log2e)
+        else:
+            s = s * (scale * log2e)
+        k_pos = torch.arange(k0, min(k0 + FLASH_BK, T))[None]
+        mask = torch.ones(s.shape[-2:], dtype=torch.bool)
+        if causal:
+            mask &= k_pos <= q_pos[:, None]
+        if window:
+            mask &= k_pos > q_pos[:, None] - window
+        s = torch.where(mask, s, FLASH_MASKED)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        parts, rest = [], p
+        for _ in range(terms):
+            parts.append(rest.bfloat16().float())
+            rest = rest - parts[-1]
+        o = o * corr
+        for part in reversed(parts):
+            o = o + part @ vf[:, :, k0:k0 + FLASH_BK]
+        m = m_new
+    return (o / l.clamp_min(1e-30)).transpose(1, 2)

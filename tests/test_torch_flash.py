@@ -12,6 +12,11 @@ within one bf16 rounding of the output on top of that fp32 budget (both
 sides compute in fp32 from the same bf16 values, so their fp32 results
 differ by the fp32 budget and the final rounding may then fall apart;
 near-zero outputs, where the sum cancels, need the 1e-5).
+
+The bf16 route's arithmetic (``ref.flash_attention_split_ref``: 64-key
+tiles, log2-domain softmax, P V over P's two bf16 terms) is held against
+the same Pallas kernel at the same cases and tolerances, on inputs rounded
+to bf16 (the only inputs that route takes).
 """
 
 import jax.numpy as jnp
@@ -138,3 +143,55 @@ def test_cpu_dispatch_launches_nothing_and_the_kernel_refuses_the_cpu():
                                .contiguous())
     with pytest.raises(ValueError, match="head dim"):
         tflash.flash_attention(*(torch.zeros(1, 4, 1, 257),) * 3)
+
+
+def _split_both(q, k, v, dtype="float32", **kw):
+    """The bf16 route's emulated arithmetic and the Pallas kernel on q, k, v
+    rounded to bf16: (emulated fp32 output, the kernel's output in
+    ``dtype`` as fp32 numpy)."""
+    tq, tk, tv = (torch.tensor(a).bfloat16() for a in (q, k, v))
+    got = ref.flash_attention_split_ref(tq, tk, tv, **kw)
+    want = jflash.flash_attention(
+        *(jnp.asarray(t.float().numpy(), jnp.dtype(dtype))
+          for t in (tq, tk, tv)), bq=64, bk=64, interpret=True, **kw)
+    return got, np.asarray(want.astype(jnp.float32))
+
+
+@MASKS
+@pytest.mark.parametrize("B,S,Hq,Hkv,hd", [
+    (1, 128, 2, 2, 128), (2, 128, 4, 2, 128), (1, 128, 4, 1, 128)])
+def test_split_route_matches_the_pallas_kernel(B, S, Hq, Hkv, hd, causal,
+                                               window, softcap):
+    q, k, v = _qkv(B, S, S, Hq, Hkv, hd, seed=Hq * 10 + Hkv)
+    got, want = _split_both(q, k, v, causal=causal, window=window,
+                            softcap=softcap)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("S,T,causal,window", [
+    (64, 192, True, 0), (64, 192, False, 32), (192, 64, True, 0),
+    (192, 64, False, 32)])
+def test_split_route_s_not_t_matches_the_pallas_kernel(S, T, causal, window):
+    q, k, v = _qkv(1, S, T, 4, 2, 64, seed=S + T + window)
+    got, want = _split_both(q, k, v, causal=causal, window=window)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("hd", [85, 21])
+def test_split_route_odd_head_dim_matches_the_pallas_kernel(hd):
+    q, k, v = _qkv(1, 128, 128, 4, 2, hd, seed=hd)
+    got, want = _split_both(q, k, v, causal=True, window=64, softcap=30.0)
+    np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("causal,window,softcap", [(True, 0, 0.0),
+                                                   (True, 64, 50.0)])
+def test_split_route_bf16_within_one_rounding_of_the_pallas_kernel(
+        causal, window, softcap):
+    q, k, v = _qkv(1, 128, 128, 4, 2, 128, seed=3)
+    got, want = _split_both(q, k, v, "bfloat16", causal=causal,
+                            window=window, softcap=softcap)
+    got = got.bfloat16().float().numpy()
+    _, e = np.frexp(want)
+    ulp = np.where(want == 0, 0.0, np.ldexp(1.0, e - 8))  # bf16: 8 bits
+    assert (np.abs(got - want) <= ulp + 1e-5 + 1e-5 * np.abs(want)).all()
