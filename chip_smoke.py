@@ -93,15 +93,16 @@ non-zero:
    schedule's ``backproject`` and ``recovery`` against their plain versions
    at llama-1b's three canonical shapes (2040, 2048), (2048, 5461) and
    (2048, 32000), rank 512, 2 matrices, G fp32 and bf16 (``FRONT_REL``),
-   a ragged case (the front end's and backproject's routes printed: the
-   front end with bf16 G on wgmma, fp32 G on the CUDA cores; backproject
-   on wgmma always), and llama-7b's (4096, 11008, r 1024), where the front
+   a ragged case (the three routes printed: the front end with bf16 G on
+   wgmma, fp32 G on the CUDA cores; backproject and recovery on wgmma
+   always), and llama-7b's (4096, 11008, r 1024), where the front
    end's dispatch takes the project_colnorms + tangent composite (m past
    the kernel's 2048);
 14. time the three at (2048, 5461, r 512), bf16 G, 2 matrices, beside their
    bounds (the front end's: A = S^T G and W = G A^T at 3 bf16 passes each,
-   its tail's S^T W and S (2C) at 6, its norms in fp32; backproject's 6
-   bf16 passes; the fp32 bound beside each), plain versions and PyTorch
+   its tail's S^T W and S (2C) at 6, its norms in fp32; backproject's and
+   recovery's 6 bf16 passes, recovery's epilogue in fp32; the fp32 bound
+   beside each), plain versions and PyTorch
    expressions (TF32 off), and the
    front end's single launch against the two-launch composite
    (project_colnorms + the tensor-core tangent) there, on G by element
@@ -123,9 +124,13 @@ non-zero:
    at llama-7b's shapes (Adam (1024, 11008) and (1024, 32000), 2 matrices;
    the Gram kernel at (4096, 11008, r 1024) and the row shard (2048, 11008,
    r 1024), 2 matrices, G fp32 and bf16, and a ragged transposed case;
-   ``GRAM_REL``), drive ``ops.adam_lowrank`` once for its launch count, and
-   time both, 2 matrices (the Gram kernel at (4096, 11008, r 1024), bf16 G;
-   Adam at (1024, 11008)), beside their bounds and plain versions (the Gram
+   ``GRAM_REL``; its route printed: the Grams on wgmma always, bf16 G's
+   T^T G on wgmma, fp32 G's on the CUDA cores; a second launch gives the
+   same bits and T^T T, S^T S are exactly symmetric), drive
+   ``ops.adam_lowrank`` once for its launch count, and time both, 2
+   matrices (the Gram kernel at (4096, 11008, r 1024), bf16 G, beside its
+   bound at 3 + 6 + 6 bf16 passes and its first design's fp32 bound; Adam
+   at (1024, 11008)), beside their bounds and plain versions (the Gram
    kernel's plain version is the four torch.matmul expressions with TF32
    off; neither has a single PyTorch call for the library column);
 18. run ``track_subspace(schedule="gram", backend=ops)`` at (4096, 11008, r
@@ -548,10 +553,15 @@ def _tc_work(name, m, n, r, b):
     only (r (r + 1) n: symmetric, mirrored); the front end: A = S^T G and
     W = G A^T 3 passes each, its tail's S^T W and S (2C) 6 each, its norms
     and -2 W in fp32; backproject: 6 (S's and X's terms), its epilogue a
-    store."""
+    store; recovery: backproject's 6, its epilogue (g - s) phi in fp32;
+    tangent_gram: T^T G 3 passes (T's terms against bf16 G), S^T T and the
+    upper triangles of T^T T and S^T S (2 m r (r + 1) together) 6 each."""
     mma = b * 2 * r * m * n
     return {"project": ([(PROJ_PASSES, mma)], 0),
             "backproject": ([(6, mma)], 0),
+            "recovery": ([(6, mma)], b * 2 * m * n),
+            "tangent_gram": ([(3, mma), (6, b * 2 * m * r * r),
+                              (6, b * 2 * m * r * (r + 1))], 0),
             "project_tangent_colnorms": ([(3, mma), (3, mma),
                                           (6, b * 2 * m * r * r),
                                           (6, b * 2 * m * r * r)],
@@ -674,9 +684,12 @@ def _opt_error(got, want) -> tuple[float, float]:
 
 def _want_route(name, dtype, route):
     """bf16 G takes the tensor cores, fp32 G the CUDA cores; the fused
-    update and backproject take the tensor cores for every dtype."""
+    update, backproject and recovery take the tensor cores for every
+    dtype (tangent_gram's fp32 route ``cuda-cores-ttg`` names its T^T G
+    tiles; its Grams run on the tensor cores)."""
     want = ("wgmma" if dtype == torch.bfloat16
-            or name in ("fused_update", "backproject") else "cuda-cores")
+            or name in ("fused_update", "backproject", "recovery")
+            else "cuda-cores")
     if not route.startswith(want):
         raise AssertionError(f"{name} with {dtype} G took route {route}")
 
@@ -1340,7 +1353,8 @@ FRONT_SHAPES = {   # name -> (m, n, r, G a transposed view)
 }
 TIMED_1B = (2048, 5461)
 UNFUSED_REL = 1e-4   # the step's direction, CUDA vs CPU: Adam divides by sqrt(V)
-ROUTED_FRONT = ("project_tangent_colnorms", "backproject")  # report a route
+ROUTED_FRONT = ("project_tangent_colnorms", "backproject",  # report a route
+                "recovery")
 
 
 def _front_inputs(m, n, r, gdtype, seed, transposed=False):
@@ -1725,12 +1739,17 @@ def phase_check_gram_adam() -> dict:
             T = ref.tangent_ref(G, ref.project_ref(S, G), S)
             calls = _gram_calls(S, T, G)
             got = calls["kernel"]()
+            route = gk.tangent_gram.route
+            _want_route("tangent_gram", dtype, route)
             torch.cuda.synchronize()
             abs_err, rel = _gram_rel(got, calls["plain"](), T)
             again = calls["kernel"]()
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 raise AssertionError(f"tangent_gram at {name}: not "
                                      f"deterministic")
+            if not all(torch.equal(g, g.mT) for g in got[2:]):
+                raise AssertionError(f"tangent_gram at {name}: T^T T or "
+                                     f"S^T S not exactly symmetric")
             if rel > GRAM_REL:
                 raise AssertionError(f"tangent_gram at {name} {dtype}: error "
                                      f"{rel:.3e} > {GRAM_REL:g}")
@@ -1738,18 +1757,19 @@ def phase_check_gram_adam() -> dict:
                 out["tangent_gram"] = abs_err
             print(f"[check] tangent_gram {name} x2 {dtype}: max abs err "
                   f"{abs_err:.2e} (of largest entry, S^T T of max |T|: "
-                  f"{rel:.1e}); a second launch gives the same bits",
-                  flush=True)
+                  f"{rel:.1e}); route {route}; a second launch gives the "
+                  f"same bits; T^T T, S^T S exactly symmetric", flush=True)
             del x, S, G, T, calls, got, again
     return out
 
 
 def phase_time_gram_adam() -> dict:
     """tangent_gram at (4096, 11008, r 1024), bf16 G, and adam_lowrank at
-    (1024, 11008), 2 matrices each, beside their bounds and plain versions.
-    No single PyTorch call computes either (tangent_gram's plain version is
-    already its four torch.matmul expressions), so neither has a library
-    time."""
+    (1024, 11008), 2 matrices each, beside their bounds (tangent_gram's at
+    its bf16 passes, ``_tc_work``, the fp32 CUDA-core bound of its first
+    design beside it) and plain versions.  No single PyTorch call computes
+    either (tangent_gram's plain version is already its four torch.matmul
+    expressions), so neither has a library time."""
     from repro_torch.kernels import grassmann as gk
     from repro_torch.kernels import ref
 
@@ -1779,20 +1799,32 @@ def phase_time_gram_adam() -> dict:
     for name, (kern, plain) in timed.items():
         nbytes, flops = work[name]
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = flops / FP32_FLOPS * 1e3
+        t_ops = t_fp32 = flops / FP32_FLOPS * 1e3
+        tc = _tc_work(name, m, n, r, b)
+        if tc:  # the products on the bf16 tensor cores, the rest in fp32
+            t_ops = (sum(p * f for p, f in tc[0]) / BF16_FLOPS
+                     + tc[1] / FP32_FLOPS) * 1e3
         res = {"ms": _time_ms(kern, iters=10, repeats=3),
                "plain_ms": _time_ms(plain, iters=10, repeats=3),
                "library_ms": None,
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
         out[name] = res
+        how = f"{flops / 1e9:.1f} GFLOP fp32"
+        if tc:
+            res["bound_fp32_ms"] = max(t_bytes, t_fp32)
+            res["kernel_route"] = getattr(gk, name).route
+            how = (" + ".join(f"{p} x {f / 1e9:.1f}" for p, f in tc[0])
+                   + f" GFLOP in bf16 passes at the bf16 peak; fp32 "
+                   f"CUDA-core bound {res['bound_fp32_ms']:.4f} ms; route "
+                   f"{res['kernel_route']}")
         shape = (f"({m}, {n}, r {r}) x{b} bf16 G" if name == "tangent_gram"
                  else f"({r}, {n}) x{b}")
         print(f"[time] {name} {shape}: kernel "
               f"{res['ms']:.4f} ms, bound {res['bound_ms']:.4f} ms "
-              f"({res['bound_by']}: {nbytes / 1e6:.1f} MB, "
-              f"{flops / 1e9:.1f} GFLOP fp32), plain {res['plain_ms']:.4f} "
-              f"ms, no single PyTorch call", flush=True)
+              f"({res['bound_by']}: {nbytes / 1e6:.1f} MB, {how}), plain "
+              f"{res['plain_ms']:.4f} ms, no single PyTorch call",
+              flush=True)
     return out
 
 
@@ -2126,6 +2158,9 @@ def main() -> int:
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": t["library_ms"]})
+        for key in ("bound_fp32_ms", "kernel_route"):
+            if key in t:
+                kernels[-1][key] = t[key]
     t = flash[FLASH_TIMED[0]]
     kernels.append({
         "name": "flash_attention", "route": "cuda",

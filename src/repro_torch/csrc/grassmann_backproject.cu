@@ -11,93 +11,48 @@
 // covers a layer stack; any shape, ragged tiles masked.
 //
 // Bound on this card.  2 m n r operations against 4 m n bytes written
-// (and, for recovery, ~2-4 m n read): at llama-1b's (2048, 5461, r 512)
+// (and, for recovery, 2-4 m n read): at llama-1b's (2048, 5461, r 512)
 // ~11.5 GFLOP over ~60-80 MB per matrix, far above the card's flop/byte
 // balance: bound by operations.
 //
-// backproject: the bf16 tensor cores (route `wgmma-tma`).  Each TPU grid
-// cell forms one (bm, r) x (r, bn) product; nothing is summed across
-// cells.  Here S (K-major: rows of r) and X (N-major: rows of n) are fp32
-// factors, the orientation of fused_update.cu's S D, so the same
-// split-product engine (hopper_mma.cuh `Engine`) runs it: per chunk of the
-// stack (scratch <= 256 MiB) two memory-bound pre-passes split S into
-// (chunk, 3, m, r_pad) and X into (chunk, 3, r, n_pad) exact bf16 terms
+// Design: both on the bf16 tensor cores (route `wgmma-tma`, every G
+// dtype), one main loop with two epilogues.  Each TPU grid cell forms one
+// (bm, r) x (r, bn) product; nothing is summed across cells.  Here S
+// (K-major: rows of r) and X or Gt (N-major: rows of n) are fp32 factors,
+// the orientation of fused_update.cu's S D, so the same split-product
+// engine (hopper_mma.cuh `Engine`) runs it: per chunk of the stack
+// (scratch <= 256 MiB) two memory-bound pre-passes split S into (chunk, 3,
+// m, r_pad) and X into (chunk, 3, r, n_pad) exact bf16 terms
 // (`split_bf16_kernel`), then one persistent launch walks the chunk's 128 x
 // 128 output tiles (bands of 8 row tiles), its producer warpgroup feeding
 // both operands' three terms by TMA into a 2-stage ring while two consumer
 // warpgroups run the 6 term products of order >= 2^-16 of |S||X| (lo.hi,
 // hi.lo, mid.mid, mid.hi, hi.mid, hi.hi) per 64-deep k-tile into a fresh
-// accumulator, flushed into fp32 totals; the epilogue stores fp32.  Each
-// bf16 x bf16 product is exact in fp32 and the three dropped products are
-// each <= 2^-24 of |S||X|, so the result is as accurate as an fp32 GEMM
-// (tests/test_torch_split.py).  6 passes at 989 TFLOP/s bound it at 0.139
-// ms at llama-1b's shape x 2, against 0.342 ms for the fp32 CUDA cores.
+// accumulator, flushed into fp32 totals.  Each bf16 x bf16 product is exact
+// in fp32 and the three dropped products are each <= 2^-24 of |S||X|, so
+// the product is as accurate as an fp32 GEMM (tests/test_torch_split.py).
+// 6 passes at 989 TFLOP/s bound either at 0.139 ms at llama-1b's shape x 2,
+// against 0.342 ms for the fp32 CUDA cores.
 //
-// recovery: on CUDA cores, its first design.  One CTA per (128 m-rows x
-// 128 n-columns) output tile walks the whole of r (tile_gemm.cuh, plain
-// register-tiled SGEMM), staging S and Gt slices in shared memory; the
-// epilogue reads G at the tile's elements, widened to fp32, and writes
-// (g - s) * phi_j, in the TPU kernel's order of operations.  The (m, n)
-// residual never exists apart from the output.
+// The epilogues (template flag kRecovery): backproject stores the fp32
+// totals; recovery reads G at the tile's elements through its strides
+// (two adjacent columns in one 4- or 8-byte load where they are adjacent
+// in memory; a transposed canonical view, gsm = 1, takes two scalar
+// loads, neighbouring lanes on neighbouring rows, as in fused_update.cu),
+// widens it to fp32 and writes (g - total) * phi_j, in the TPU kernel's
+// order of operations.  G enters only there, so the product and its
+// route are the same for fp32 and bf16 G, and the (m, n) residual never
+// exists apart from the output.  The consumers run that epilogue with the
+// tensor cores idle (the 2-stage ring lets the producer run only two
+// k-tiles ahead), so each tile first asks L2 for its block of G, one
+// 128-byte line per consumer thread, while its products run; that made
+// the call measurably shorter on the H100, where reading the G values
+// into registers before the stores, or prefetching into L1, did not
+// (PERF.md).
 
 #include "hopper_mma.cuh"
-#include "tile_gemm.cuh"
 
 namespace {
-
-using namespace tile;
-
-template <typename TG>
-__global__ void __launch_bounds__(kThreads, 2)
-recovery_kernel(const float* __restrict__ S, const float* __restrict__ X,
-                   const TG* __restrict__ G, const float* __restrict__ phi,
-                   float* __restrict__ out, int m, int n, int r, long long gsb, long long gsm,
-                   long long gsn) {
-  __shared__ __align__(16) float as[kBK][kLd];
-  __shared__ __align__(16) float bs[kBK][kLd];
-  const int b = blockIdx.z;
-  const int i0 = blockIdx.y * kBM;
-  const int j0 = blockIdx.x * kBN;
-
-  float acc[kTM][kTN];
-#pragma unroll
-  for (int i = 0; i < kTM; ++i)
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) acc[i][j] = 0.f;
-  // left (k = c, row = i) is S[i, c]; right (k = c, row = j) is X[c, j]
-  gemm(StridedTile<float>{S + (size_t)b * m * r, 1, r, i0, m, r},
-       StridedTile<float>{X + (size_t)b * r * n, n, 1, j0, n, r}, r, as, bs, acc);
-
-  float* o = out + (size_t)b * m * n;
-  const int row = i0 + row_of_thread();
-  const int col = j0 + col_of_thread();
-#pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int gi = row + i;
-    if (gi >= m) break;
-#pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int gj = col + j;
-      if (gj >= n) break;
-      o[(size_t)gi * n + gj] =
-          (to_f32(G[b * gsb + gi * gsm + gj * gsn]) - acc[i][j]) * phi[(size_t)b * n + gj];
-    }
-  }
-}
-
-template <typename TG>
-cudaError_t launch_recovery(const float* S, const float* X, const void* G, const float* phi,
-                            float* out, int batch, int m, int n, int r, long long gsb,
-                            long long gsm, long long gsn, cudaStream_t stream) {
-  const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM, batch);
-  recovery_kernel<TG><<<grid, kThreads, 0, stream>>>(S, X, static_cast<const TG*>(G), phi,
-                                                        out, m, n, r, gsb, gsm, gsn);
-  return cudaGetLastError();
-}
-
-// ---------------------------------------------------------------------------
-// backproject on the split-product engine
-// ---------------------------------------------------------------------------
 
 using hopper::Engine;
 using hopper::Operand;
@@ -136,13 +91,24 @@ Layout layout(int batch, int m, int n, int r) {
   return l;
 }
 
+// recovery's epilogue operands: G (element (i, j) of matrix b at
+// G[b gsb + i gsm + j gsn], fp32 or bf16 by g_dtype) and phi (batch, n).
+struct Residual {
+  const void* G;
+  const float* phi;
+  long long gsb, gsm, gsn;
+  int g_dtype;
+};
+
 // Persistent: CTA blockIdx.x walks tiles blockIdx.x, + gridDim.x, ... of
 // the chunk's m_tiles x n_tiles x chunk tiles in bands of kBand m tiles.
-// Matrix z0 + z's terms are at planes 3 z of both maps.
+// Matrix z0 + z's terms are at planes 3 z of both maps.  kRecovery: out =
+// (G - S X) * phi, else out = S X.
+template <bool kRecovery>
 __global__ void __launch_bounds__(hopper::kEngThreads, 1)
 backproject_wgmma_kernel(const __grid_constant__ CUtensorMap s_map,
-                         const __grid_constant__ CUtensorMap x_map, float* __restrict__ out, int m,
-                         int n, int r, int z0, int chunk) {
+                         const __grid_constant__ CUtensorMap x_map, float* __restrict__ out,
+                         Residual res, int m, int n, int r, int z0, int chunk) {
   extern __shared__ unsigned char smem_raw[];
   const hopper::EngineSmem sm = hopper::engine_smem(smem_raw);
   const int tid = threadIdx.x;
@@ -172,47 +138,57 @@ backproject_wgmma_kernel(const __grid_constant__ CUtensorMap s_map,
                           tid - 128 * hopper::kEngConsumers, it);
       continue;
     }
+    const long long b = z0 + z;
+    if (kRecovery) {  // bring the tile's G into L2 while its products run
+      const int a = tid & 127, c = 64 * (tid >> 7);  // 64 elements: 128-byte lines
+      const bool along = res.gsn == 1;                // G's rows contiguous
+      const int gi = i0 + (along ? a : c), gj = j0 + (along ? c : a);
+      if (gi < m && gj < n) {
+        const char* p = static_cast<const char*>(res.G) +
+                        (b * res.gsb + gi * res.gsm + gj * res.gsn) * (res.g_dtype ? 2 : 4);
+        asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p));
+        if (!res.g_dtype) asm volatile("prefetch.global.L2 [%0];\n" ::"l"(p + 128));
+      }
+    }
     float total[64];
     BackEngine::consume(total, sm.base, sm.full, sm.empty, num_k, wgi, it);
 
-    float* o = out + (long long)(z0 + z) * m * n;
+    float* o = out + b * m * n;
     const int row0 = i0 + 64 * wgi;
 #pragma unroll
     for (int i = 0; i < 64; i += 2) {  // columns gj, gj + 1 of one row
       const int gi = row0 + hopper::frag_row(i, tid);
       const int gj = j0 + hopper::frag_col(i, tid);
       if (gi >= m || gj >= n) continue;
+      const bool two = gj + 1 < n;
+      float v0 = total[i], v1 = total[i + 1];
+      if (kRecovery) {
+        const long long at = b * res.gsb + gi * res.gsm + gj * res.gsn;
+        const float2 g = two ? hopper::load_pair(res.G, res.g_dtype, at, res.gsn)
+                             : make_float2(hopper::load_float(res.G, res.g_dtype, at), 0.f);
+        const float* ph = res.phi + b * n + gj;
+        v0 = (g.x - v0) * ph[0];
+        if (two) v1 = (g.y - v1) * ph[1];
+      }
       const long long at = (long long)gi * n + gj;
-      if (gj + 1 < n)
-        hopper::store_pair(o, 0, at, 1, total[i], total[i + 1]);
+      if (two)
+        hopper::store_pair(o, 0, at, 1, v0, v1);
       else
-        o[at] = total[i];
+        o[at] = v0;
     }
   }
 }
 
-}  // namespace
-
-extern "C" {
-
-// Bytes of scratch backproject_wgmma_launch needs at these sizes.
-long long backproject_scratch_bytes(int batch, int m, int n, int r) {
-  return layout(batch, m, n, r).bytes;
-}
-
-// out = S X: S (batch, m, r), X (batch, r, n) and out (batch, m, n), fp32
-// contiguous; scratch: backproject_scratch_bytes bytes.  Writes the route
-// taken to *route (1: wgmma, TMA producer).  Launches on `stream` and
-// returns the first launch error.
-int backproject_wgmma_launch(const float* S, const float* X, float* out, void* scratch, int batch,
-                             int m, int n, int r, int* route, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  *route = 1;
+// Splits, maps and launches per chunk of the stack: out = S X, or (G - S X)
+// phi with kRecovery.
+template <bool kRecovery>
+cudaError_t launch(const float* S, const float* X, float* out, void* scratch, const Residual& res,
+                   int batch, int m, int n, int r, cudaStream_t s) {
   if (batch == 0 || m == 0 || n == 0) return cudaSuccess;
   const Layout l = layout(batch, m, n, r);
   char* s_split = static_cast<char*>(scratch);
   char* x_split = s_split + align256(l.chunk * l.s_bytes);
-  auto kernel = backproject_wgmma_kernel;
+  auto kernel = backproject_wgmma_kernel<kRecovery>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)hopper::kEngSmem);
   if (err != cudaSuccess) return err;
@@ -235,32 +211,49 @@ int backproject_wgmma_launch(const float* S, const float* X, float* out, void* s
       return cudaErrorInvalidValue;
     const long long tiles = m_tiles * n_tiles * chunk;
     const int grid = (int)(tiles < hopper::num_sms() ? tiles : hopper::num_sms());
-    kernel<<<grid, hopper::kEngThreads, hopper::kEngSmem, s>>>(s_map, x_map, out, m, n, r, z0,
-                                                               chunk);
+    kernel<<<grid, hopper::kEngThreads, hopper::kEngSmem, s>>>(s_map, x_map, out, res, m, n, r,
+                                                               z0, chunk);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
   }
   return cudaSuccess;
 }
 
+}  // namespace
+
+extern "C" {
+
+// Bytes of scratch backproject_wgmma_launch and grassmann_recovery_launch
+// need at these sizes.
+long long backproject_scratch_bytes(int batch, int m, int n, int r) {
+  return layout(batch, m, n, r).bytes;
+}
+
+// out = S X: S (batch, m, r), X (batch, r, n) and out (batch, m, n), fp32
+// contiguous; scratch: backproject_scratch_bytes bytes.  Writes the route
+// taken to *route (1: wgmma, TMA producer).  Launches on `stream` and
+// returns the first launch error.
+int backproject_wgmma_launch(const float* S, const float* X, float* out, void* scratch, int batch,
+                             int m, int n, int r, int* route, void* stream) {
+  *route = 1;
+  return launch<false>(S, X, out, scratch, Residual{nullptr, nullptr, 0, 0, 0, 0}, batch, m, n,
+                       r, static_cast<cudaStream_t>(stream));
+}
+
 // recovery: out = (G - S Gt) * phi[None, :], S (batch, m, r), Gt (batch, r,
 // n) and phi (batch, n) fp32 contiguous, G (batch, m, n) with element
 // strides (gsb, gsm, gsn), dtype 0 = float32, 1 = bfloat16; out (batch, m,
-// n) fp32 contiguous.  Launches on `stream` and returns the launch's error.
+// n) fp32 contiguous; scratch: backproject_scratch_bytes bytes.  Writes the
+// route taken to *route (1: wgmma, TMA producer, for either dtype).
+// Launches on `stream` and returns the first launch error.
 int grassmann_recovery_launch(const float* S, const float* Gt, const void* G, const float* phi,
-                              float* out, int dtype, int batch, int m, int n, int r,
-                              long long gsb, long long gsm, long long gsn, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (batch == 0 || m == 0 || n == 0) return cudaSuccess;
-  if (batch > 65535 || m > 65535 * kBM) return cudaErrorInvalidValue;
-  switch (dtype) {
-    case 0:
-      return launch_recovery<float>(S, Gt, G, phi, out, batch, m, n, r, gsb, gsm, gsn, s);
-    case 1:
-      return launch_recovery<__nv_bfloat16>(S, Gt, G, phi, out, batch, m, n, r, gsb, gsm, gsn, s);
-    default:
-      return cudaErrorInvalidValue;
-  }
+                              float* out, void* scratch, int dtype, int batch, int m, int n,
+                              int r, long long gsb, long long gsm, long long gsn, int* route,
+                              void* stream) {
+  *route = 1;
+  if (dtype != 0 && dtype != 1) return cudaErrorInvalidValue;
+  return launch<true>(S, Gt, out, scratch, Residual{G, phi, gsb, gsm, gsn, dtype}, batch, m, n, r,
+                      static_cast<cudaStream_t>(stream));
 }
 
 const char* repro_cuda_error_string(int err) {

@@ -10,11 +10,13 @@
 //    the round-to-nearest bf16 of what the terms before it left; three
 //    8-bit significands hold fp32's 24).  grassmann_project.cu,
 //    grassmann_tangent.cu, grassmann_tangent_front.cu, grassmann_backproject.cu,
-//    fused_update.cu, grad_tap.cu and flash_attention.cu include them.
+//    grassmann_tangent_gram.cu, fused_update.cu, grad_tap.cu and
+//    flash_attention.cu include them.
 //
 // 2. The split-product tile engine (`Engine`), the main loop of
-//    fused_update.cu, grad_tap.cu, grassmann_tangent.cu and
-//    grassmann_backproject.cu: one CTA owns a
+//    fused_update.cu, grad_tap.cu, grassmann_tangent.cu,
+//    grassmann_tangent_front.cu's tail, grassmann_backproject.cu and
+//    grassmann_tangent_gram.cu: one CTA owns a
 //    128 x 128 fp32 output tile C = sum over K of A (128 x K) B (K x 128),
 //    where A and B each come as 1 or 3 bf16 terms and a compile-time list
 //    of term pairs ("passes") says which products of terms enter the sum.

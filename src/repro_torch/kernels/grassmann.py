@@ -16,20 +16,30 @@ They replace the Pallas TPU kernels of the same names in
 file says how the design differs from the TPU's and what bounds it on
 the H100.  Every kernel but ``grad_tap`` (called per layer from the
 backward) takes a leading batch dim (one matrix per index, one launch
-for a whole layer stack) and accumulates in fp32: on CUDA cores,
-except six that run on the bf16 tensor cores (``wgmma``, the shared
-machinery in ``csrc/hopper_mma.cuh``) over fp32 factors split into three
-exact bf16 terms (``ref.split3_ref``): ``project`` and
-``project_colnorms`` with bf16 G (S split), ``tangent`` with bf16 G (A,
-S and the Gram 2 A A^T split; 6 term products for the fp32 x fp32 ones),
-``project_tangent_colnorms`` with bf16 G (S and A split; its tail's
-S^T W and S (2C) over 6 term products), ``fused_update`` always (S and
-the direction D split, 6 term products), ``backproject`` always (S and X
-split, 6 term products), and ``grad_tap`` with bf16 x and dy (S and P =
-x S split; dW exact in one pass).  Each reports the route
-of its last call in ``<wrapper>.route``.  There is no shape gate: ragged tiles are
-masked in the kernels (the TPU's 256-multiples were MXU/VMEM limits).  One kernel has a size
-limit of its own: ``project_tangent_colnorms`` takes m <= ``MAX_FRONT_M``
+for a whole layer stack) and accumulates in fp32.  Nine run on the bf16
+tensor cores (``wgmma``, the shared machinery in
+``csrc/hopper_mma.cuh``) over fp32 factors split into three exact bf16
+terms (``ref.split3_ref``):
+
+* ``project`` and ``project_colnorms`` with bf16 G (S split);
+* ``tangent`` with bf16 G (A, S and the Gram 2 A A^T split; 6 term
+  products for the fp32 x fp32 ones);
+* ``project_tangent_colnorms`` with bf16 G (S and A split; its tail's
+  S^T W and S (2C) over 6 term products);
+* ``fused_update``, ``backproject`` and ``recovery`` for every dtype (S
+  and the direction D, or S and X / Gt, split; 6 term products);
+* ``tangent_gram``'s Grams for every dtype (S and T split, 6 term
+  products), and its T^T G with bf16 G (T split, 3 passes);
+* ``grad_tap`` with bf16 x and dy (S and P = x S split; dW exact in one
+  pass).
+
+fp32 G (or fp32 x and dy) keeps the CUDA cores where its product is not
+exact in one bf16 term; ``adam_lowrank_norms`` and ``adam_lowrank`` are
+elementwise, on the CUDA cores.  Each tensor-core wrapper reports the
+route of its last call in ``<wrapper>.route``.  There is no shape gate:
+ragged tiles are masked in the kernels (the TPU's 256-multiples were
+MXU/VMEM limits).  One kernel has a size limit of its own:
+``project_tangent_colnorms`` takes m <= ``MAX_FRONT_M``
 (a thread-block cluster of at most 16 CTAs holds the whole m extent, 128
 rows each; ``csrc/grassmann_tangent_front.cu``).
 
@@ -65,7 +75,7 @@ _SIGNATURES = {
     "grassmann_tangent": ("grassmann_tangent_launch",
                           [_vp] * 6 + [_i] * 5 + [_ll] * 3 + [_vp, _vp]),
     "grassmann_tangent_gram": ("grassmann_tangent_gram_launch",
-                               [_vp] * 7 + [_i] * 5 + [_ll] * 3 + [_vp]),
+                               [_vp] * 8 + [_i] * 5 + [_ll] * 3 + [_vp, _vp]),
     "adam_lowrank_norms": ("adam_lowrank_norms_launch",
                            [_vp] * 8 + [_i] * 3 + [_f] * 7 + [_vp]),
     "fused_update": ("fused_update_launch",
@@ -75,7 +85,7 @@ _SIGNATURES = {
     "grassmann_tangent_front": ("tangent_front_launch",
                                 [_vp] * 6 + [_i] * 5 + [_ll] * 3 + [_vp, _vp]),
     "grassmann_backproject": ("grassmann_recovery_launch",
-                              [_vp] * 5 + [_i] * 5 + [_ll] * 3 + [_vp]),
+                              [_vp] * 6 + [_i] * 5 + [_ll] * 3 + [_vp, _vp]),
 }
 # the tallest matrix project_tangent_colnorms takes in one launch: 16 CTAs
 # of a cluster x 128 rows each (tangent_front_max_m() of its library)
@@ -112,6 +122,9 @@ def _lib(name: str) -> ctypes.CDLL:
         lib.grassmann_split_bf16_launch.argtypes = [_vp, _vp] + [_i] * 3 + [
             _vp]
         lib.grassmann_split_bf16_launch.restype = _i
+    if name == "grassmann_tangent_gram":
+        lib.grassmann_tangent_gram_scratch_bytes.argtypes = [_i] * 3
+        lib.grassmann_tangent_gram_scratch_bytes.restype = _ll
     if name == "grassmann_tangent":
         lib.grassmann_tangent_scratch_bytes.argtypes = [_i] * 5
         lib.grassmann_tangent_scratch_bytes.restype = _ll
@@ -183,6 +196,10 @@ TANGENT_ROUTES = {0: "cuda-cores", 1: "wgmma-tma", 2: "wgmma-loads",
 # ... tangent_front_launch (bit 4: a transposed view)
 FRONT_ROUTES = {0: "cuda-cores", 1: "wgmma-tma", 2: "wgmma-loads",
                 5: "wgmma-tma-transposed", 6: "wgmma-loads-transposed"}
+# ... grassmann_tangent_gram_launch (bit 4: G staged K-major, a transposed
+# view; 0: fp32 G's T^T G on the CUDA cores, its Grams on the tensor cores)
+GRAM_ROUTES = {0: "cuda-cores-ttg", 1: "wgmma-tma", 2: "wgmma-loads",
+               5: "wgmma-tma-kmajor", 6: "wgmma-loads-kmajor"}
 
 
 def _project(S: torch.Tensor, G: torch.Tensor, norms: bool):
@@ -298,10 +315,17 @@ def tangent(G: torch.Tensor, A: torch.Tensor,
 def tangent_gram(S: torch.Tensor, T: torch.Tensor, G: torch.Tensor
                  ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                             torch.Tensor]:
-    """(T^T G, S^T T, T^T T, S^T S) from one launch: S, T (..., m, r) fp32
+    """(T^T G, S^T T, T^T T, S^T S) from one call: S, T (..., m, r) fp32
     contiguous; G (..., m, n) fp32 or bf16, any strides -> ((..., r, n),
-    (..., r, r) x 3) fp32.  Each CTA owns one output tile and sums over all
-    of m itself: deterministic, no shape gate."""
+    (..., r, r) x 3) fp32.  Each output tile is owned by one CTA, which
+    sums over all of m itself: deterministic, no shape gate, T^T T and S^T S
+    exactly symmetric.  On the tensor cores: S and T split in three bf16
+    terms (pre-passes into a wrapper-allocated scratch of 256 MiB at most,
+    or one matrix's split where that is more, a chunk of the stack at a
+    time), the Grams over 6 term products, bf16 G's T^T G over 3 (G one
+    exact term), all in one persistent launch per chunk.  fp32 G's T^T G
+    takes the CUDA cores.  ``tangent_gram.route`` names the last call's
+    route (``GRAM_ROUTES``)."""
     if G.dim() < 2:
         raise ValueError(f"G must be (..., m, n); got {tuple(G.shape)}")
     lead, (m, n) = tuple(G.shape[:-2]), tuple(G.shape[-2:])
@@ -316,9 +340,15 @@ def tangent_gram(S: torch.Tensor, T: torch.Tensor, G: torch.Tensor
     TtG = torch.empty((batch, r, n), dtype=torch.float32, device=dev)
     StT, TtT, StS = (torch.empty((batch, r, r), dtype=torch.float32,
                                  device=dev) for _ in range(3))
+    scratch = torch.empty(
+        (_lib("grassmann_tangent_gram").grassmann_tangent_gram_scratch_bytes(
+            batch, m, r),), dtype=torch.uint8, device=dev)
+    route = ctypes.c_int(-1)
     _launch("grassmann_tangent_gram", S.data_ptr(), T.data_ptr(),
             G3.data_ptr(), TtG.data_ptr(), StT.data_ptr(), TtT.data_ptr(),
-            StS.data_ptr(), dtype, batch, m, n, r, *G3.stride(), _stream(dev))
+            StS.data_ptr(), scratch.data_ptr(), dtype, batch, m, n, r,
+            *G3.stride(), ctypes.byref(route), _stream(dev))
+    tangent_gram.route = GRAM_ROUTES[route.value]
     tangent_gram.launches += 1
     return (TtG.reshape(lead + (r, n)), StT.reshape(lead + (r, r)),
             TtT.reshape(lead + (r, r)), StS.reshape(lead + (r, r)))
@@ -405,7 +435,10 @@ def recovery(S: torch.Tensor, G: torch.Tensor, Gt: torch.Tensor,
              phi: torch.Tensor) -> torch.Tensor:
     """Lam = (G - S Gt) * phi[..., None, :]: S (..., m, r), Gt (..., r, n)
     and phi (..., n) fp32 contiguous; G (..., m, n) fp32 or bf16, any
-    strides -> (..., m, n) fp32, on the CUDA cores."""
+    strides -> (..., m, n) fp32.  ``backproject``'s main loop (S and Gt
+    split in three bf16 terms, 6 term products on the tensor cores) with G
+    and phi read in its epilogue, so one route for every dtype;
+    ``recovery.route`` is ``wgmma-tma``."""
     lead, m, n, r = _backproject_shapes(S, Gt)
     _fp32_contiguous(S=S, Gt=Gt, phi=phi)
     _shape("G", G, lead + (m, n))
@@ -415,9 +448,15 @@ def recovery(S: torch.Tensor, G: torch.Tensor, Gt: torch.Tensor,
     batch = _stack3(S).shape[0]
     G3 = _stack3(G)
     out = torch.empty((batch, m, n), dtype=torch.float32, device=dev)
+    scratch = torch.empty(
+        (_lib("grassmann_backproject").backproject_scratch_bytes(
+            batch, m, n, r),), dtype=torch.uint8, device=dev)
+    route = ctypes.c_int(-1)
     _launch("grassmann_backproject", S.data_ptr(), Gt.data_ptr(),
-            G3.data_ptr(), phi.data_ptr(), out.data_ptr(), dtype, batch, m, n,
-            r, *G3.stride(), _stream(dev))
+            G3.data_ptr(), phi.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            dtype, batch, m, n, r, *G3.stride(), ctypes.byref(route),
+            _stream(dev))
+    recovery.route = RECOVERY_ROUTES[route.value]
     recovery.launches += 1
     return out.reshape(lead + (m, n))
 
@@ -484,9 +523,9 @@ def _per_matrix_column(x, lead: tuple, dev) -> torch.Tensor:
                       device=dev).reshape(-1)
 
 
-# the routes fused_update_launch, grad_tap_launch and
-# backproject_wgmma_launch report
-UPDATE_ROUTES = BACKPROJECT_ROUTES = {1: "wgmma-tma"}
+# the routes fused_update_launch, grad_tap_launch, backproject_wgmma_launch
+# and grassmann_recovery_launch report
+UPDATE_ROUTES = BACKPROJECT_ROUTES = RECOVERY_ROUTES = {1: "wgmma-tma"}
 TAP_ROUTES = {0: "cuda-cores", 1: "wgmma-tma", 2: "wgmma-loads"}
 
 
@@ -653,4 +692,4 @@ for _fn in (project, project_colnorms, tangent, tangent_gram,
 # route of the last call
 project.route = project_colnorms.route = fused_update.route = None
 tangent.route = project_tangent_colnorms.route = grad_tap.route = None
-backproject.route = None
+backproject.route = recovery.route = tangent_gram.route = None

@@ -34,10 +34,10 @@ from repro_torch.models.api import build_model
 PORT_KERNELS = ("project_kernel", "project_wgmma_kernel", "split_bf16_kernel",
                 "tangent_kernel", "tangent_wgmma_kernel", "gram_wgmma_kernel",
                 "front_kernel", "front_wgmma_kernel", "stw_wgmma_kernel",
-                "front_t_wgmma_kernel", "recovery_kernel",
-                "backproject_wgmma_kernel", "adam_norms_kernel", "fused_update_wgmma_kernel",
-                "split_direction_kernel", "xs_kernel", "tap_kernel",
-                "tap_p_dw_kernel", "tap_a_kernel")
+                "front_t_wgmma_kernel", "backproject_wgmma_kernel",
+                "ttg_kernel", "tangent_gram_wgmma_kernel", "adam_norms_kernel",
+                "fused_update_wgmma_kernel", "split_direction_kernel",
+                "xs_kernel", "tap_kernel", "tap_p_dw_kernel", "tap_a_kernel")
 
 
 def main(argv=None) -> list[dict]:

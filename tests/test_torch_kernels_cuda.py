@@ -539,7 +539,10 @@ def test_tangent_front_past_its_limit_takes_the_composite(cuda):
     (200, 333, 70, False), (130, 1000, 129, True)])
 def test_backproject_and_recovery_kernels_match_oracles(cuda, gdtype, m, n,
                                                         r, transposed):
-    """2e-5 of the largest entry (fp32 sums over r in another order)."""
+    """2e-5 of the largest entry (fp32 sums over r in another order).  Both
+    on the split-product engine for either G dtype (recovery reads G, a
+    transposed view too, only in its epilogue); a second call gives the
+    same bits."""
     S, G, rn = _opt_case(2, m, n, r, gdtype, cuda, seed=3,
                          transposed=transposed)
     X, phi = rn(2, r, n), rn(2, n).abs()
@@ -547,9 +550,11 @@ def test_backproject_and_recovery_kernels_match_oracles(cuda, gdtype, m, n,
     assert gk.backproject.route == "wgmma-tma"
     assert _rel_err(got, ref.backproject_ref(S, X)) < REL["project"]
     lam = gk.recovery(S, G, X, phi)
+    assert gk.recovery.route == "wgmma-tma"
     torch.cuda.synchronize()
     assert lam.dtype == torch.float32 and lam.is_contiguous()
     assert _rel_err(lam, ref.recovery_ref(G, S, X, phi)) < REL["project"]
+    assert torch.equal(lam, gk.recovery(S, G, X, phi))
 
 
 # the unfused step's direction and lam_prev against fp64 (see the test)
@@ -842,18 +847,27 @@ def _gram_errs(got, want, T):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("gdtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("m,n,r,transposed", [
-    (4096, 11008, 1024, False), (2048, 11008, 1024, True),
-    (200, 333, 70, False), (130, 1000, 129, True), (64, 96, 1, False)])
+@pytest.mark.parametrize("m,n,r,transposed,route", [
+    (4096, 11008, 1024, False, "wgmma-tma"),          # llama-7b
+    (2048, 11008, 1024, True, "wgmma-tma-kmajor"),    # a transposed view
+    (2048, 5461, 512, False, "wgmma-loads"),          # 10,922-byte rows
+    (1000, 776, 129, True, "wgmma-tma-kmajor"),       # ragged view
+    (200, 333, 70, False, "wgmma-loads"),
+    (130, 1000, 129, True, "wgmma-loads-kmajor"),     # columns off 16 bytes
+    (64, 96, 1, False, "wgmma-tma")])
 def test_tangent_gram_kernel_matches_oracle(cuda, gdtype, m, n, r,
-                                            transposed):
-    """2e-5 of the largest entry (fp32 sums over m in another order);
-    deterministic: a second launch gives the same bits; the symmetric Grams
-    are exactly symmetric."""
+                                            transposed, route):
+    """2e-5 of the largest entry (fp32 sums over m in another order), S^T T
+    against max |T|; deterministic: a second launch gives the same bits; the
+    symmetric Grams are exactly symmetric.  The Grams run on the engine
+    for either dtype; bf16 G's T^T G on wgmma by the route G's layout
+    allows, fp32 G's on the CUDA cores."""
     S, G, _ = _opt_case(2, m, n, r, gdtype, cuda, seed=5,
                         transposed=transposed)
     T = ref.tangent_ref(G, ref.project_ref(S, G), S)
     got = gk.tangent_gram(S, T, G)
+    assert gk.tangent_gram.route == (route if gdtype == torch.bfloat16
+                                     else "cuda-cores-ttg")
     torch.cuda.synchronize()
     assert [t.shape for t in got] == [(2, r, n)] + [(2, r, r)] * 3
     assert max(_gram_errs(got, ref.tangent_gram_ref(S, T, G), T)) < 2e-5
@@ -862,6 +876,25 @@ def test_tangent_gram_kernel_matches_oracle(cuda, gdtype, m, n, r,
     # T^T T and S^T S: the upper tiles, mirrored, so exactly symmetric
     for gram in got[2:]:
         assert torch.equal(gram, gram.mT)
+
+
+@pytest.mark.cuda
+def test_tangent_gram_stack_in_chunks(cuda):
+    """Six llama-7b-tall matrices: the split terms of S and T (~50 MB a
+    matrix) take two chunks of the 256 MiB scratch, each with its own tile
+    counter; every matrix gets its own statistics."""
+    m, n, r = 4096, 512, 1024
+    lib = gk._lib("grassmann_tangent_gram")
+    assert lib.grassmann_tangent_gram_scratch_bytes(6, m, r) \
+        <= 256 * 2 ** 20 + 256 < 6 * lib.grassmann_tangent_gram_scratch_bytes(1, m, r)
+    S, G, _ = _opt_case(6, m, n, r, torch.bfloat16, cuda, seed=8)
+    T = ref.tangent_ref(G, ref.project_ref(S, G), S)
+    got = gk.tangent_gram(S, T, G)
+    torch.cuda.synchronize()
+    want = ref.tangent_gram_ref(S, T, G)
+    for z in range(6):
+        errs = _gram_errs([g[z] for g in got], [w[z] for w in want], T[z])
+        assert max(errs) < 2e-5
 
 
 @pytest.mark.cuda

@@ -24,7 +24,15 @@ products per 64-deep k-tile into an fp32 total.  Here, without a card:
   ranks summed in order, G against A re-split; S^T W and S (2C) over 6
   term products), each against fp64 at r =
   1024 and against the JAX Pallas kernels in interpret mode (T within 1e-4
-  of its largest entry, A and the norms within 2e-5).
+  of its largest entry, A and the norms within 2e-5);
+* the unfused schedule's ``backproject`` (#2) and ``recovery`` (#4), one
+  main loop (S and X or Gt split, 6 term products) with two epilogues:
+  against fp64 at r = 512, G's residual and phi too (within 1e-6 of the
+  largest entry), and against the JAX Pallas kernels (within 1e-5);
+* ``tangent_gram`` (#8): T^T G over T's three terms against G's one (bf16
+  G) and the three Grams over 6 term products, against fp64 at r = 1024
+  (within 1e-6; S^T T, analytically zero, judged against max |T|) and
+  against the JAX Pallas kernel in interpret mode (within 2e-5).
 """
 
 import jax
@@ -352,27 +360,130 @@ def test_backproject_pass_set_against_fp64_at_r_512(backproject_r512,
         assert err > 1e-6
 
 
-def test_backproject_arithmetic_against_fp64_at_r_512(backproject_r512):
+def _recovery_case(S, seed, gt=None):
+    """A bf16-exact G (m, 300) and phi (300,) for S (m, r), and Gt: the
+    given one, or S^T G (the unfused step's, whose residual G - S Gt is
+    G's part off S's span)."""
+    rng = np.random.default_rng(seed)
+    G = torch.tensor(rng.standard_normal((S.shape[0], 300))).bfloat16().float()
+    phi = torch.tensor(np.abs(rng.standard_normal(300)), dtype=torch.float32)
+    return G, S.mT @ G if gt is None else gt, phi
+
+
+@pytest.mark.parametrize("epilogue", ["backproject", "recovery",
+                                      "recovery of S^T G"])
+def test_backproject_arithmetic_against_fp64_at_r_512(backproject_r512,
+                                                      epilogue):
     """The engine's fp32 sums per 64-deep k-tile of the 6 exact term
     products, flushed into an fp32 total: within 1e-6 of the largest entry
-    (budget 2e-5), no worse than twice a plain fp32 product."""
+    (budget 2e-5), no worse than twice a plain fp32 product.  recovery's
+    epilogue (g - total) * phi_j, fp32 as the kernel rounds it, holds the
+    same against (G - S Gt) * phi in fp64, for a general Gt and for the
+    unfused step's Gt = S^T G."""
     S, X, exact = backproject_r512
-    got = ref.split_matmul_ref(S, X)
+    if epilogue == "backproject":
+        got, plain = ref.split_matmul_ref(S, X), S @ X
+    else:
+        G, Gt, phi = _recovery_case(
+            S, 13, gt=X if epilogue == "recovery" else None)
+        got = (G - ref.split_matmul_ref(S, Gt)) * phi
+        plain = (G - S @ Gt) * phi
+        exact = (G.double() - S.double() @ Gt.double()) * phi.double()
     assert _rel(got, exact) < 1e-6
-    assert _rel(got, exact) < 2 * _rel(S @ X, exact)
+    assert _rel(got, exact) < 2 * _rel(plain, exact)
 
 
+@pytest.mark.parametrize("kernel", ["backproject", "recovery fp32",
+                                    "recovery bf16"])
 @pytest.mark.parametrize("m,n,r", [(256, 512, 96), (512, 256, 70)])
-def test_emulated_backproject_matches_jax(m, n, r):
+def test_emulated_backproject_matches_jax(m, n, r, kernel):
     """The emulated route against the JAX Pallas kernel in interpret mode on
-    the same numpy inputs: within 1e-5 of the largest entry."""
+    the same numpy inputs: within 1e-5 of the largest entry.  recovery: the
+    same main loop with (g - total) * phi_j after it, G in fp32 or bf16
+    (G enters only the epilogue, widened to fp32)."""
     rng = np.random.default_rng(10 + r)
     S = np.linalg.qr(rng.standard_normal((m, r)))[0].astype(np.float32)
     X = rng.standard_normal((r, n)).astype(np.float32)
-    want = jax.device_get(jgrassmann.backproject(
-        jnp.asarray(S), jnp.asarray(X), interpret=True))
-    got = ref.split_matmul_ref(torch.tensor(S), torch.tensor(X))
+    total = ref.split_matmul_ref(torch.tensor(S), torch.tensor(X))
+    if kernel == "backproject":
+        want = jax.device_get(jgrassmann.backproject(
+            jnp.asarray(S), jnp.asarray(X), interpret=True))
+        assert _rel(total, want) < 1e-5
+        return
+    G = rng.standard_normal((m, n)).astype(np.float32)
+    phi = np.abs(rng.standard_normal(n)).astype(np.float32)
+    jG = jnp.asarray(G, jnp.bfloat16 if kernel.endswith("bf16") else
+                     jnp.float32)
+    want = jax.device_get(jgrassmann.recovery(
+        jG, jnp.asarray(S), jnp.asarray(X), jnp.asarray(phi), interpret=True))
+    g = torch.tensor(np.asarray(jG.astype(jnp.float32)))
+    got = (g - total) * torch.tensor(phi)
     assert _rel(got, want) < 1e-5
+
+
+# ---------------------------------------------------------------------------
+# tangent_gram (#8) on the engine: T^T G over T's three terms, the Grams
+# over 6 term products
+# ---------------------------------------------------------------------------
+
+# T's lo, mid, hi against G's one exact bf16 term
+TTG_PASSES = ((2, 0), (1, 0), (0, 0))
+
+
+def _emulated_tangent_gram(S, T, G, bf16_g=True):
+    """tangent_gram's routes: T^T G over T's three terms against bf16 G's
+    one (fp32 G: the CUDA cores' plain fp32 product), the Grams S^T T, T^T
+    T, S^T S over 6 term products, per 64-deep k-tile of m a fresh fp32
+    sum flushed into an fp32 total."""
+    TtG = (ref.split_matmul_ref(T.mT, G, TTG_PASSES) if bf16_g
+           else T.mT @ G)
+    return (TtG, *(ref.split_matmul_ref(X.mT, Y)
+                   for X, Y in ((S, T), (T, T), (S, S))))
+
+
+def _gram_rel(got, want, T) -> list[float]:
+    """Each output's error over its largest entry; S^T T, analytically
+    zero, over max |T| (as tests/test_kernels.py judges the TPU kernel)."""
+    tmax = float(np.abs(np.asarray(T, np.float64)).max())
+    errs = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        g, w = np.asarray(g, np.float64), np.asarray(w, np.float64)
+        errs.append(float(np.abs(g - w).max())
+                    / (tmax if i == 1 else float(np.abs(w).max())))
+    return errs
+
+
+def test_tangent_gram_arithmetic_against_fp64_at_r_1024(front_r1024):
+    """T^T G (bf16 G exact in one term: only the fp32 sums round) and the
+    three Grams (6 term products) at r = 1024 over m = 1200: each within
+    1e-6 of its largest entry (budget 2e-5), S^T T of max |T|."""
+    G, S, _, T64 = front_r1024
+    T = T64.float()
+    got = _emulated_tangent_gram(S, T, G)
+    Sd, Td, Gd = S.double(), T.double(), G.double()
+    exact = (Td.mT @ Gd, Sd.mT @ Td, Td.mT @ Td, Sd.mT @ Sd)
+    errs = _gram_rel(got, exact, T)
+    assert max(errs) < 1e-6, errs
+
+
+@pytest.mark.parametrize("gdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("m,n,r", [(256, 512, 96), (512, 256, 70)])
+def test_emulated_tangent_gram_matches_jax(m, n, r, gdtype):
+    """The emulated routes against the JAX Pallas kernel in interpret mode
+    on the same numpy inputs (m = 512: two of its m blocks): every output
+    within 2e-5 of its largest entry, S^T T of max |T|."""
+    G, S = _front_case(m, n, r, 14 + m + r)
+    if gdtype == "float32":
+        G = np.random.default_rng(m).standard_normal((m, n)).astype(np.float32)
+    T = ref.tangent_ref(torch.tensor(G), torch.tensor(S.T @ G),
+                        torch.tensor(S))
+    want = jax.device_get(jgrassmann.tangent_gram(
+        jnp.asarray(S), jnp.asarray(T.numpy()), jnp.asarray(G),
+        interpret=True))
+    got = _emulated_tangent_gram(torch.tensor(S), T, torch.tensor(G),
+                                 bf16_g=gdtype == "bfloat16")
+    errs = _gram_rel(got, want, T)
+    assert max(errs) < 2e-5, errs
 
 
 # ---------------------------------------------------------------------------
