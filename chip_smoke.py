@@ -5,8 +5,8 @@
 
 Phases (run in this order, except that 13-15 and 17-19, the kernel checks
 of the llama-1b slice and of the last three kernels, run right after phase
-10, before the long training runs); any failure raises and the script exits
-non-zero:
+10, before the long training runs, and 20-21 right after phase 16); any
+failure raises and the script exits non-zero:
 
 1. print the card's name and power limit as nvidia-smi gives them;
 2. build every CUDA kernel of the ported paths from ``src/repro_torch/csrc``
@@ -152,7 +152,32 @@ non-zero:
    ``scaled_dot_product_attention(is_causal=True)`` at llama-7b's and, at
    gemma2's, ``flex_attention`` compiled with a softcap ``score_mod`` and a
    causal sliding-window block mask;
-20. print the kernels line, then ``{"ok": true, "device": {...}}`` last.
+20. serve phase 6's llama-7b load (the serve CLI's parameters from the
+   seed, its prompts) through the dense engine ``run_dense`` and through
+   ``run_paged``: every request 64 tokens, no kernel launch in the dense
+   engine, the same first token in both, their prefill logits (one 512-token
+   pass against four 128-token chunks) within ``DENSE_LOGIT_REL`` of the
+   largest with the same argmax; the length of the token prefix on which
+   the engines agree printed, not asserted; tok/s, TTFT p50, mean decode
+   step and peak memory beside phase 6's;
+21. time the fp32-G routes of project, project_colnorms and the front end
+   (the CUDA cores) at llama-1b's (2048, 5461, r 512) x 2 and on a
+   32-stack, beside their bounds; then, from copies of phase 16's final
+   params and state, 4 llama-1b steps (plain 0, 1, 3; tracking 2) each of:
+   (a) ``--accum 2 --grad-fused`` through ``run``: the JAX driver's
+   fallback line, no grad_tap launch, phase 16's exact launch counts and
+   the fp32 routes named; and on one batch accum 2 against accum 1 (loss
+   and gradient norm within ``ACCUM_LOSS_REL`` / ``ACCUM_GNORM_REL``);
+   (b) remat full, dots and none: exact launch counts, step 0's loss of
+   dots within ``REMAT_LOSS_REL`` of full's, step times and peaks
+   printed; (c) ``method="grass"`` with its own warm start: S one-hot in
+   every low-rank leaf after the warm start and after the tracking step,
+   3 launches per leaf on every step (project_colnorms,
+   adam_lowrank_norms, fused_update); (d) AdamW and BAdam: no launch,
+   peaks and ``state_bytes`` beside the low-rank run's;
+22. print the kernels line (project, project_colnorms and the front end
+   with their fp32 routes' times as ``fp32_ms``), then ``{"ok": true,
+   "device": {...}}`` last.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero and prints no result.
@@ -514,7 +539,10 @@ def phase_serve_7b() -> dict:
           f"waves, {out['kv']['prefill_chunks']} prefill chunks, peak "
           f"memory {peak / 2**30:.2f} GiB, kernel launches {launches}",
           flush=True)
-    return {"launches": launches, "decode_calls": out["decode_calls"]}
+    return {"launches": launches, "decode_calls": out["decode_calls"],
+            "tok_per_s": out["tok_per_s"], "ttft_p50_s": out["ttft_p50_s"],
+            "decode_wave_ms_mean": out["decode_wave_ms_mean"],
+            "peak_gib": peak / 2**30}
 
 
 # ---------------------------------------------------------------------------
@@ -1659,7 +1687,8 @@ def phase_train_1b() -> dict:
           f"{[round(t, 3) for t in plain_s]} s (step 0 cold), tracking step "
           f"{track_s:.3f} s; {tok_s:.1f} tok/s on warm plain steps; peak "
           f"memory {peak / 2**30:.2f} GiB; launches {launches}", flush=True)
-    return {"launches": launches}
+    return {"launches": launches, "state": out["state"],
+            "state_bytes": out["state_bytes"]}
 
 
 # ---------------------------------------------------------------------------
@@ -2061,6 +2090,401 @@ def phase_flash() -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The one-device leftovers: the dense serving engine (phase 20) and the
+# llama-1b training options (phase 21)
+# ---------------------------------------------------------------------------
+
+# dense vs paged prefill logits of llama-7b in bf16, max |dense - paged|
+# over max |paged|: the two programs may round their bf16 activations
+# after different GEMM shapes and attention blockings (one 512-token pass
+# against four 128-token chunks); a few bf16 ulps of the largest logit
+DENSE_LOGIT_REL = 1e-2
+# accum 2 against accum 1 on one llama-1b batch, bf16 gradients: the loss
+# (fp32 means of the same per-token losses, the forward at batch 2 against
+# 4) and the global gradient norm (an fp32 sum of two bf16 half-batch
+# gradients against one bf16 gradient), relative
+ACCUM_LOSS_REL = 1e-3
+ACCUM_GNORM_REL = 1e-2
+REMAT_LOSS_REL = 1e-6    # step 0's loss: the same forward under every remat
+
+
+def _prefix_len(a: list, b: list) -> int:
+    n = 0
+    for x, y in zip(a, b):
+        if x != y:
+            break
+        n += 1
+    return n
+
+
+def phase_serve_dense(paged_7b: dict) -> None:
+    """Phase 20: phase 6's llama-7b load through ``run_dense`` and
+    ``run_paged``, on one set of parameters (the serve CLI's, from the
+    seed) and the same prompts."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import (AdmissionQueue, Request, run_dense,
+                                          run_paged)
+    from repro_torch.models.api import build_model
+
+    requests, batch, P, gen, bs, chunk = 8, 8, 512, 64, 16, 128
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("llama-7b")
+    bundle = build_model(cfg)
+    params = bundle.init(torch.Generator(device="cuda").manual_seed(SEED))
+    prompts = SyntheticLMDataset(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=P, global_batch=requests,
+        seed=SEED)).global_batch_at(0)["tokens"].numpy()
+    W = -(-(P + gen) // bs)
+
+    def queue():
+        q = AdmissionQueue()
+        for i in range(requests):
+            q.submit(Request(rid=i, prompt=prompts[i], max_new=gen,
+                             t_submit=time.time()))
+        return q
+
+    runs, counts = {}, {}
+    for engine in ("dense", "paged"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        if engine == "dense":
+            runs[engine] = run_dense(cfg, bundle, params, queue(),
+                                     batch=batch, prompt_len=P, seed=SEED)
+        else:
+            runs[engine] = run_paged(cfg, bundle, params, queue(),
+                                     batch=batch, block_size=bs,
+                                     pool_blocks=1 + batch * W,
+                                     max_context=P + gen,
+                                     prefill_chunk=chunk, seed=SEED)
+            runs[engine]["peak_memory_bytes"] = \
+                torch.cuda.max_memory_allocated()
+        counts[engine] = ops.launch_counts()
+    dense, paged = runs["dense"], runs["paged"]
+    lens = sorted(len(t) for t in dense["outputs"].values())
+    if dense["requests"] != requests or lens != [gen] * requests:
+        raise AssertionError(f"dense llama-7b: {dense['requests']} requests "
+                             f"done, output lengths {lens}")
+    if any(counts["dense"].values()):
+        raise AssertionError(f"the dense engine launched {counts['dense']}")
+    if counts["paged"]["paged_attention"] \
+            != paged["decode_calls"] * cfg.n_layers:
+        raise AssertionError(f"paged llama-7b launches {counts['paged']}")
+    firsts = [(dense["outputs"][i][0], paged["outputs"][i][0])
+              for i in range(requests)]
+    if any(a != b for a, b in firsts):
+        raise AssertionError(f"dense and paged first tokens differ: "
+                             f"{firsts}")
+    prefix = [_prefix_len(dense["outputs"][i], paged["outputs"][i])
+              for i in range(requests)]
+
+    # the prefill logits of both programs, as each engine forms them
+    with torch.no_grad():
+        toks = torch.as_tensor(prompts, dtype=torch.int64, device="cuda")
+        want, _ = bundle.prefill(params, {"tokens": toks}, P + gen + 8)
+        pool = bundle.init_paged_cache(1 + W, bs, "cuda")
+        table = torch.arange(1, 1 + W, dtype=torch.int32, device="cuda")
+        got = []
+        for i in range(requests):
+            for c0 in range(0, P, chunk):
+                logits = bundle.paged_prefill_chunk(
+                    params, pool, toks[i:i + 1, c0:c0 + chunk], table, c0)
+            got.append(logits[0, P - 1 - c0])
+        got = torch.stack(got).float()
+        want = want.float()
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+        argmax_equal = torch.equal(got.argmax(-1), want.argmax(-1))
+    del pool, params, toks
+    if not rel <= DENSE_LOGIT_REL or not argmax_equal:
+        raise AssertionError(f"dense vs paged prefill logits: {rel:.3e} of "
+                             f"the largest (budget {DENSE_LOGIT_REL:g}), "
+                             f"argmax equal {argmax_equal}")
+    gib = 2**30
+    print(f"[serve] llama-7b bf16 dense engine: {dense['requests']} requests, "
+          f"{dense['tokens']} tokens in {dense['wall_s']:.3f}s: "
+          f"{dense['tok_per_s']:.1f} tok/s, TTFT p50 "
+          f"{dense['ttft_p50_s'] * 1e3:.1f} ms, mean decode step "
+          f"{dense['decode_step_ms_mean']:.3f} ms over "
+          f"{dense['decode_calls']} steps, peak memory "
+          f"{dense['peak_memory_bytes'] / gib:.2f} GiB, kernel launches "
+          f"{sum(counts['dense'].values())}", flush=True)
+    print(f"[serve] llama-7b bf16 paged engine, same params and prompts: "
+          f"{paged['tok_per_s']:.1f} tok/s, TTFT p50 "
+          f"{paged['ttft_p50_s'] * 1e3:.1f} ms, mean decode wave "
+          f"{paged['decode_wave_ms_mean']:.3f} ms, peak memory "
+          f"{paged['peak_memory_bytes'] / gib:.2f} GiB; phase 6: "
+          f"{paged_7b['tok_per_s']:.1f} tok/s, TTFT p50 "
+          f"{paged_7b['ttft_p50_s'] * 1e3:.1f} ms, wave "
+          f"{paged_7b['decode_wave_ms_mean']:.3f} ms, peak "
+          f"{paged_7b['peak_gib']:.2f} GiB", flush=True)
+    print(f"[serve] dense vs paged: first tokens equal in all {requests} "
+          f"requests; prefill logits max |dense - paged| {rel:.3e} of the "
+          f"largest (budget {DENSE_LOGIT_REL:g}), argmax equal; greedy "
+          f"tokens agree on prefixes of {prefix} of {gen}", flush=True)
+
+
+def phase_time_fp32_routes() -> dict:
+    """Phase 21 (timing): the fp32-G routes of project, project_colnorms
+    and the front end, which ``--accum`` puts on the llama-1b step, at
+    (2048, 5461, r 512) x 2 and on a 32-stack (one llama-1b leaf), beside
+    their bounds (bytes at the memory rate, the products at the fp32 peak
+    of the CUDA cores, which these routes use)."""
+    from repro_torch.kernels import grassmann as gk
+
+    m, n = TIMED_1B
+    r = RANK_1B
+    out = {name: {"ms": {}, "bound_ms": {}}
+           for name in ("project", "project_colnorms",
+                        "project_tangent_colnorms")}
+    x = _front_inputs(m, n, r, torch.float32, SEED)
+    for b in (2, 32):
+        S, G = ((x["S"], x["G"]) if b == 2 else
+                (x["S"].repeat(16, 1, 1), x["G"].repeat(16, 1, 1)))
+        calls = {"project": lambda: gk.project(S, G),
+                 "project_colnorms": lambda: gk.project_colnorms(S, G),
+                 "project_tangent_colnorms":
+                     lambda: gk.project_tangent_colnorms(S, G)}
+        # inputs once, outputs once, fp32; operations per the whole stack
+        work = {"project": (b * 4 * (m * r + m * n + r * n),
+                            b * 2 * m * n * r),
+                "project_colnorms": (b * 4 * (m * r + m * n + r * n + n),
+                                     b * (2 * m * n * r + 2 * m * n)),
+                "project_tangent_colnorms": (
+                    b * 4 * (2 * m * r + m * n + r * n + n),
+                    b * (4 * m * n * r + 4 * m * r * r + 2 * m * n
+                         + 2 * m * r))}
+        line = []
+        for name, fn in calls.items():
+            ms = _time_ms(fn, iters=10 if b == 2 else 2, repeats=3)
+            route = getattr(gk, name).route
+            if route != "cuda-cores":
+                raise AssertionError(f"{name} with fp32 G took {route}")
+            nbytes, flops = work[name]
+            bound = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS) * 1e3
+            out[name]["ms"][f"x{b}"] = ms
+            out[name]["bound_ms"][f"x{b}"] = bound
+            line.append(f"{name} {ms:.4f} ms (bound {bound:.4f}, "
+                        f"{flops / ms / 1e9:.1f} TFLOP/s)")
+        print(f"[time] fp32 G at ({m}, {n}, r {r}) x{b}, route cuda-cores: "
+              + ", ".join(line), flush=True)
+        del S, G, calls
+    del x
+    return out
+
+
+def _one_hot_bases(state) -> int:
+    """Checks every low-rank leaf's S is a one-hot row selection (each
+    column one 1, each row at most one); returns how many leaves."""
+    from repro_torch.core.lowrank_adam import MatrixOptState
+    from repro_torch.core.subtrack import tree_leaves
+
+    n = 0
+    for st in tree_leaves(state.inner):
+        if not isinstance(st, MatrixOptState):
+            continue
+        S = st.S
+        ok = (((S == 0) | (S == 1)).all() and (S.sum(-2) == 1).all()
+              and (S.sum(-1) <= 1).all())
+        if not ok:
+            raise AssertionError(f"grass basis {tuple(S.shape)} is not "
+                                 "one-hot")
+        n += 1
+    return n
+
+
+def phase_train_1b_options(trained_1b: dict) -> None:
+    """Phase 21: the llama-1b training options the earlier phases do not
+    run, each for 4 steps (plain 0, 1, 3; tracking 2) from a copy of phase
+    16's final params and state, on its stream's next batches: (a)
+    ``--accum 2 --grad-fused`` (the fallback to the plain backward, fp32
+    G's routes) and accum 2 against accum 1 on one batch; (b) remat
+    full, dots and none; (c) the grass basis with its own warm start;
+    (d) the dense baselines AdamW and BAdam."""
+    import contextlib
+    import io
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.api import get_optimizer
+    from repro_torch.core.subtrack import OptState, tree_map
+    from repro_torch.data.pipeline import (DataConfig, SyntheticLMDataset,
+                                           fetch_batch)
+    from repro_torch.kernels import grassmann as gk
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import (TrainState, accumulated_grads,
+                                          global_norm, make_warm_start)
+    from repro_torch.launch.train import run
+    from repro_torch.models.api import build_model
+    from repro_torch.optim.schedules import cosine_with_warmup
+
+    steps, k, done, batch, seq = 4, 2, 4, 4, 512
+    cfg = get_config("llama-1b")
+    bundle = build_model(cfg)
+    start = trained_1b.pop("state")
+    data = SyntheticLMDataset(DataConfig(vocab_size=cfg.vocab_size,
+                                         seq_len=seq, global_batch=batch,
+                                         seed=SEED))
+    sched = cosine_with_warmup(1e-3, done + steps, 2)
+    subtrack = get_optimizer("subtrack", rank=RANK_1B, update_interval=k,
+                             eta=10.0, use_kernels=True)
+
+    def batch_at(s):
+        b, ok = fetch_batch(cfg, data, done + s)
+        if not ok:
+            raise AssertionError(f"llama-1b: batch {done + s} rejected")
+        return b
+
+    def params_copy():
+        return tree_map(torch.clone, start.params)
+
+    def opt_copy():
+        return OptState(step=start.opt.step, n_updates=start.opt.n_updates,
+                        inner=tree_map(lambda st: type(st)(
+                            *(t.clone() for t in st)), start.opt.inner))
+
+    def go(label, optimizer, opt_state=None, **kw) -> dict:
+        """4 steps of ``run`` from a fresh copy; frees them after."""
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()     # phase 16's state
+        ops.reset_launch_counts()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            out = run(cfg, params_copy(), batch_at, optimizer=optimizer,
+                      steps=steps, lr_at=lambda s: sched(done + s),
+                      log_every=steps, opt_state=opt_state, **kw)
+        print(buf.getvalue(), end="", flush=True)
+        hist = out["history"]
+        res = {"launches": ops.launch_counts(), "log": buf.getvalue(),
+               "losses": [h["loss"] for h in hist],
+               "plain_s": [h["dt"] for h in hist
+                           if not h["subspace_update"]],
+               "tracking_s": [h["dt"] for h in hist
+                              if h["subspace_update"]],
+               "peak_gib": (torch.cuda.max_memory_allocated() - held)
+               / 2**30, "state": out["state"]}
+        if not all(x is not None and math.isfinite(x)
+                   for x in res["losses"]):
+            raise AssertionError(f"llama-1b {label}: losses "
+                                 f"{res['losses']}")
+        print(f"[train] llama-1b {label}: losses {res['losses']}; plain "
+              f"steps {[round(t, 3) for t in res['plain_s']]} s, tracking "
+              f"{[round(t, 3) for t in res['tracking_s']]} s; peak memory "
+              f"{res['peak_gib']:.2f} GiB above the {held / 2**30:.2f} GiB "
+              f"the phase holds; launches {res['launches']}", flush=True)
+        return res
+
+    results = {}
+    want = _launches_want(steps, 1, single_front=True)
+
+    # (a) --accum 2 --grad-fused: the plain backward, fp32 G
+    res = go("accum 2 --grad-fused", subtrack, opt_copy(), grad_fused=True,
+             accum=2)
+    if "falling back to the plain backward" not in res["log"]:
+        raise AssertionError("accum 2 --grad-fused: no fallback line")
+    if res["launches"] != want:
+        raise AssertionError(f"accum 2 launches {res['launches']}, want "
+                             f"{want}")
+    routes = {name: getattr(gk, name).route for name in (
+        "project_colnorms", "project", "project_tangent_colnorms",
+        "fused_update")}
+    if routes != {"project_colnorms": "cuda-cores", "project": "cuda-cores",
+                  "project_tangent_colnorms": "cuda-cores",
+                  "fused_update": "wgmma-tma"}:
+        raise AssertionError(f"accum 2 routes {routes}")
+    print(f"[train] llama-1b accum 2: grad_tap launches 0, routes {routes}",
+          flush=True)
+    res.pop("state")
+    results["accum"] = res
+    # accum 2 against accum 1 on one batch and one set of params
+    params = params_copy()
+    b = {key: v.cuda() for key, v in batch_at(0).items()}
+    sums = {}
+    for accum in (1, 2):
+        loss, _, grads = accumulated_grads(bundle, params, b, "full", accum)
+        sums[accum] = (float(loss), float(global_norm(grads)))
+        del grads
+    del params
+    loss_rel = abs(sums[2][0] - sums[1][0]) / abs(sums[1][0])
+    gnorm_rel = abs(sums[2][1] - sums[1][1]) / sums[1][1]
+    if not (loss_rel <= ACCUM_LOSS_REL and gnorm_rel <= ACCUM_GNORM_REL):
+        raise AssertionError(f"accum 2 vs 1: loss {sums[2][0]} vs "
+                             f"{sums[1][0]}, norm {sums[2][1]} vs "
+                             f"{sums[1][1]}")
+    print(f"[train] llama-1b one batch, accum 2 vs 1: loss {sums[2][0]:.6f} "
+          f"vs {sums[1][0]:.6f} ({loss_rel:.2e}, budget {ACCUM_LOSS_REL:g}),"
+          f" gradient norm {sums[2][1]:.6f} vs {sums[1][1]:.6f} "
+          f"({gnorm_rel:.2e}, budget {ACCUM_GNORM_REL:g})", flush=True)
+
+    # (b) remat full, dots, none from the same start
+    for remat in ("full", "dots", "none"):
+        res = go(f"remat {remat}", subtrack, opt_copy(), remat=remat)
+        if res["launches"] != want:
+            raise AssertionError(f"remat {remat} launches "
+                                 f"{res['launches']}, want {want}")
+        res.pop("state")
+        results[f"remat_{remat}"] = res
+    full0, dots0 = (results[f"remat_{r}"]["losses"][0]
+                    for r in ("full", "dots"))
+    if not abs(dots0 - full0) <= REMAT_LOSS_REL * abs(full0):
+        raise AssertionError(f"step 0 loss: dots {dots0}, full {full0}")
+
+    # (c) grass: its own warm start, then 4 steps
+    grass = get_optimizer("subtrack", method="grass", rank=RANK_1B,
+                          update_interval=k, eta=10.0, use_kernels=True)
+    params = params_copy()
+    ops.reset_launch_counts()
+    warm, _ = make_warm_start(bundle, grass)(
+        TrainState(params=params, opt=grass.init(params)),
+        {key: v.cuda() for key, v in batch_at(0).items()})
+    del params
+    n_leaves = _one_hot_bases(warm.opt)
+    if any(ops.launch_counts().values()):
+        raise AssertionError(f"grass warm start launched "
+                             f"{ops.launch_counts()}")
+    res = go("grass", grass, warm.opt)
+    del warm
+    _one_hot_bases(res.pop("state").opt)
+    want_grass = dict(want, project_tangent_colnorms=0, project=0,
+                      project_colnorms=N_LOWRANK_LEAVES * steps)
+    if res["launches"] != want_grass:
+        raise AssertionError(f"grass launches {res['launches']}, want "
+                             f"{want_grass}")
+    print(f"[train] llama-1b grass: S one-hot in all {n_leaves} low-rank "
+          f"leaves after the warm start and after the tracking step",
+          flush=True)
+    results["grass"] = res
+
+    # (d) the dense baselines
+    params = params_copy()
+    state_bytes = {"subtrack": subtrack.state_bytes(params)}
+    for name in ("adamw", "badam"):
+        opt = get_optimizer(name)
+        state_bytes[name] = opt.state_bytes(params)
+        res = go(name, opt)
+        if any(res["launches"].values()):
+            raise AssertionError(f"{name} launched {res['launches']}")
+        res.pop("state")
+        results[name] = res
+    del params
+    peaks = {"subtrack": results["remat_full"]["peak_gib"],
+             "adamw": results["adamw"]["peak_gib"],
+             "badam": results["badam"]["peak_gib"]}
+    print("[train] llama-1b optimizer state (state_bytes) and peak memory "
+          "above what the phase holds: "
+          + ", ".join(f"{name} {state_bytes[name] / 2**30:.2f} GiB state, "
+                      f"peak {peaks[name]:.2f} GiB" for name in peaks),
+          flush=True)
+    del start
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -2092,6 +2516,9 @@ def main() -> int:
     trained = phase_train_7b()
     fused = phase_train_7b_grad_fused(trained)
     trained_1b = phase_train_1b()
+    phase_serve_dense(served)
+    fp32_routes = phase_time_fp32_routes()
+    phase_train_1b_options(trained_1b)
     kernels = [{
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_attention.cu",
@@ -2175,6 +2602,10 @@ def main() -> int:
                          for k in ("ms", "plain_ms", "bound_ms",
                                    "design_bound_ms", "library_ms",
                                    "no_softcap_ms")}})
+    for entry in kernels:
+        if entry["name"] in fp32_routes:   # the routes --accum puts on a path
+            entry["fp32_ms"] = fp32_routes[entry["name"]]["ms"]
+            entry["fp32_bound_ms"] = fp32_routes[entry["name"]]["bound_ms"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

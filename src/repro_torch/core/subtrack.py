@@ -16,8 +16,10 @@ launch per leaf with ``use_kernels``).  Same-shape leaves are not
 concatenated into a bucket as the JAX package does on one device: the
 concatenation would copy every gradient, parameter and state of the bucket
 (tens of GB at llama-7b), and per-matrix results are the same either way.
-There are no mesh regimes and no health report here yet;
-``method="grass"`` raises "not yet ported".
+There are no mesh regimes and no health report here yet; ``method="grass"``
+runs its one-device form (a one-hot row-selection basis, projected by
+``project_colnorms`` like any other; the mesh's ``sel_gather`` round comes
+with the multi-GPU slice).
 
 Flag matrix (as the JAX package):
     SubTrack++           method=grassmann, projection_aware=True,  recovery=True
@@ -162,8 +164,7 @@ def _refresh_subspace(cfg: LowRankConfig, G, st: MatrixOptState, step: int,
                       torch.zeros(lead + (rank,), device=st.S.device)), \
             None, None
     if cfg.method == "grass":
-        raise NotImplementedError("method 'grass' is not yet ported to "
-                                  "repro_torch")
+        return _grass_basis(G, rank), None, None, None
     raise ValueError(f"unknown subspace method {cfg.method!r}")
 
 
@@ -202,11 +203,22 @@ def _per_matrix(fn, G):
     return torch.stack(outs).reshape(lead + outs[0].shape)
 
 
+def _grass_basis(G, rank: int) -> torch.Tensor:
+    """Grass (arXiv:2406.17660): S (..., m, r) fp32 selects the ``rank``
+    rows of G with the most energy sum_j G_ij^2 (in fp32), one one-hot
+    column per row, in descending order of energy."""
+    energy = _per_matrix(lambda g: (g.float() ** 2).sum(dim=-1), G)
+    idx = torch.topk(energy, rank, dim=-1).indices
+    return torch.nn.functional.one_hot(idx, G.shape[-2]).float().mT \
+        .contiguous()
+
+
 def _warm_matrix_state(cfg: LowRankConfig, G, st: MatrixOptState):
-    if cfg.method == "grass":
-        raise NotImplementedError("method 'grass' is not yet ported to "
-                                  "repro_torch")
     rank = st.S.shape[-1]
+    if cfg.method == "grass":
+        # one-hot from step 0: the grass programs assume S is always a row
+        # selection, which an SVD warm start would break
+        return st._replace(S=_grass_basis(G, rank))
     S = _per_matrix(lambda g: sub.init_subspace(g.float(), rank, cfg.init),
                     G)
     return st._replace(S=S.contiguous())

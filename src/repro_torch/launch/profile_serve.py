@@ -51,13 +51,13 @@ def main(argv=None) -> dict:
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
     paged = sum(t for n, t in by_name.items() if "paged_attention" in n) / 1e6
     out = {
-        "device": torch.cuda.get_device_name(0),
+        "device": torch.cuda.get_device_name(0), "engine": summary["engine"],
         "wall_s": wall, "device_busy_s": busy,
         "busy_share": busy / wall, "idle_share": 1 - busy / wall,
         "paged_attention_s": paged, "paged_attention_share_of_busy":
             paged / busy,
         "decode_calls": summary["decode_calls"],
-        "prefill_chunks": summary["kv"]["prefill_chunks"],
+        "prefill_chunks": summary.get("kv", {}).get("prefill_chunks"),
         "tokens": summary["tokens"],
         "top_kernels_s": [[name[:120], t / 1e6] for name, t in top],
     }

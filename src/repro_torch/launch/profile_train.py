@@ -51,8 +51,8 @@ def main(argv=None) -> list[dict]:
     params = bundle.init(torch.Generator(device=device).manual_seed(args.seed))
     state = run(cfg, params, batch_at, optimizer=optimizer, steps=0,
                 lr_at=lambda s: args.lr, remat=args.remat)["state"]
-    step = make_train_step(bundle, optimizer, remat=args.remat,
-                           grad_fused=args.grad_fused)
+    step = make_train_step(bundle, optimizer, accum=args.accum,
+                           remat=args.remat, grad_fused=args.grad_fused)
     batch = {k: v.to(device) for k, v in batch_at(1).items()}
     out = []
     for profiled in (False, True):
@@ -79,7 +79,9 @@ def main(argv=None) -> list[dict]:
                        if any(k in n for k in PORT_KERNELS)) / 1e6
             top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
             res = {"device": torch.cuda.get_device_name(0), "arch": cfg.name,
-                   "rank": rank, "tokens": args.batch * args.seq,
+                   "optimizer": args.optimizer, "rank": rank,
+                   "accum": args.accum, "remat": args.remat,
+                   "tokens": args.batch * args.seq,
                    "step": "tracking" if tracking else "plain",
                    "wall_s": wall, "device_busy_s": busy,
                    "busy_share": busy / wall, "idle_share": 1 - busy / wall,

@@ -1,21 +1,30 @@
-"""Serving driver: paged continuous batching on CUDA.
+"""Serving driver: paged continuous batching (default) or dense waves,
+on CUDA.
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch llama-7b --batch 8 --requests 8 --prompt-len 512 --gen 64 \\
-        --prefill-chunk 128 --block-size 16
+        --prefill-chunk 128 --block-size 16 [--engine dense]
 
-Counterpart of ``repro.launch.serve`` with its default engine, the paged
-one (:class:`repro_torch.serve.engine.PagedEngine`): a global pool of
-fixed-size KV blocks, per-request block tables, chunked prefill
-interleaved with decode waves, decode batches assembled per wave from the
-live sequences.  KV exhaustion degrades through the admission queue (shed
-/ deferred-then-expired) instead of crashing.  Weights are random, drawn
-from ``--seed``.
+Counterpart of ``repro.launch.serve``, with its two engines:
 
-The driver runs on CUDA unless ``--device cpu`` asks for the CPU; with no
-card and no such request it raises.  The static-batch engine
-(``--engine dense``) and multi-device meshes (``--mesh``) are not ported
-yet and raise.
+``--engine paged`` (default where the config supports it) runs
+:class:`repro_torch.serve.engine.PagedEngine`: a global pool of fixed-size
+KV blocks, per-request block tables, chunked prefill interleaved with
+decode waves, decode batches assembled per wave from the live sequences.
+KV exhaustion degrades through the admission queue (shed /
+deferred-then-expired) instead of crashing.
+
+``--engine dense`` is the static-batch baseline (:func:`run_dense`): one
+prefill per wave of up to ``--batch`` requests into per-slot dense
+caches, then decode until the wave's longest request is done; slots
+without a live request emit nothing.  Where the paged engine cannot take
+the config, the driver says so and falls back to the dense one, as the
+JAX driver does.
+
+Weights are random, drawn from ``--seed``.  The driver runs on CUDA
+unless ``--device cpu`` asks for the CPU; with no card and no such
+request it raises.  Multi-device meshes (``--mesh``) are not ported yet
+and raise.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset
 from repro_torch.models.api import build_model
 from repro_torch.models.transformer import paged_supported
 from repro_torch.serve.engine import PagedEngine
+from repro_torch.serve.sampling import sample_tokens
 
 
 @dataclass
@@ -126,6 +136,74 @@ def resolve_device(name: str) -> torch.device:
     return dev
 
 
+def run_dense(cfg, bundle, params, queue: AdmissionQueue, *,
+              batch: int, prompt_len: int, temperature: float = 0.0,
+              seed: int = 0) -> dict:
+    """Wave-at-a-time serving against dense per-slot KV caches, on the
+    device ``params`` live on.
+
+    A wave's requests share one prefill (prompts must share
+    ``prompt_len``; free slots are zero rows); the wave then decodes until
+    its longest request is done, not to a fixed step count, and slots
+    whose request is done (or that were padding) emit nothing.  Each
+    decode step ends in one device sync, the sampled tokens' read.
+    """
+    device = params["embed"].device
+    max_new_cap = max((r.max_new for r in queue.pending), default=1)
+    max_len = prompt_len + max_new_cap + 8
+    done: list[Request] = []
+    B = batch
+    t0 = time.time()
+    n_decode_calls = 0
+    n_samples = 0
+    decode_s = 0.0
+
+    def sample(logits) -> list[int]:
+        nonlocal n_samples
+        toks = sample_tokens(logits, temperature, seed, n_samples)
+        n_samples += 1
+        return toks.tolist()
+
+    while len(queue):
+        wave = queue.take_wave(B)
+        if not wave:
+            break
+        toks = np.zeros((B, prompt_len), np.int64)
+        for i, r in enumerate(wave):
+            toks[i] = r.prompt
+        logits, cache = bundle.prefill(
+            params, {"tokens": torch.as_tensor(toks).to(device)}, max_len)
+        tok = sample(logits)
+        now = time.time()
+        for i, r in enumerate(wave):
+            r.t_first = now
+            r.out_tokens.append(tok[i])
+        while any(len(r.out_tokens) < r.max_new for r in wave):
+            t_step = time.perf_counter()
+            logits, cache = bundle.decode_step(
+                params, cache, torch.as_tensor(tok).to(device))
+            tok = sample(logits)
+            decode_s += time.perf_counter() - t_step
+            n_decode_calls += 1
+            for i, r in enumerate(wave):
+                if len(r.out_tokens) < r.max_new:
+                    r.out_tokens.append(tok[i])
+        del cache
+        now = time.time()
+        for r in wave:
+            r.t_done = now
+            r.status = "done"
+            done.append(r)
+
+    wall = time.time() - t0
+    out = _summary("dense", done, queue, wall, n_decode_calls, temperature)
+    out["decode_step_ms_mean"] = (1e3 * decode_s / n_decode_calls
+                                  if n_decode_calls else 0.0)
+    out["peak_memory_bytes"] = (torch.cuda.max_memory_allocated(device)
+                                if device.type == "cuda" else None)
+    return out
+
+
 def run_paged(cfg, bundle, params, queue: AdmissionQueue, *,
               batch: int, block_size: int, pool_blocks: int,
               max_context: int, prefill_chunk: int,
@@ -204,18 +282,18 @@ def prepare(argv=None) -> Callable[[], dict]:
                          "whole prompt at once)")
     args = ap.parse_args(argv)
 
-    if args.engine != "paged":
-        raise NotImplementedError("--engine dense is not yet ported to "
-                                  "repro_torch")
     if args.mesh != "smoke":
         raise NotImplementedError("--mesh is not yet ported to repro_torch "
                                   "(one device only)")
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
-    ok, why = paged_supported(cfg)
-    if not ok:
-        raise NotImplementedError(f"paged engine unavailable for "
-                                  f"{args.arch}: {why}")
+    engine = args.engine
+    if engine == "paged":
+        ok, why = paged_supported(cfg)
+        if not ok:
+            print(f"[serve] paged engine unavailable for {args.arch}: "
+                  f"{why} — falling back to dense", flush=True)
+            engine = "dense"
     bundle = build_model(cfg)
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = bundle.init(gen)
@@ -233,6 +311,10 @@ def prepare(argv=None) -> Callable[[], dict]:
         for i in range(args.requests):
             queue.submit(Request(rid=i, prompt=prompts[i],
                                  max_new=args.gen, t_submit=time.time()))
+        if engine == "dense":
+            return run_dense(cfg, bundle, params, queue, batch=args.batch,
+                             prompt_len=args.prompt_len,
+                             temperature=args.temperature, seed=args.seed)
         return run_paged(cfg, bundle, params, queue, batch=args.batch,
                          block_size=args.block_size,
                          pool_blocks=pool_blocks, max_context=max_context,

@@ -7,10 +7,12 @@ by the loop.  Where the JAX step returns new arrays, the port updates in
 place to stay inside one card's memory at llama-7b: the clip scales the
 gradients in place, and the optimizer adds each leaf's update into its
 parameter as soon as it is computed (``update(..., apply=True)``), so no
-tree of updates is ever held.  With ``grad_fused`` the plain steps take
-the grad-fused backward: the taggable matmuls emit each low-rank leaf's
-[A; colnorms] tap, which feeds the clip and the optimizer.  Not ported
-yet: gradient accumulation, fault injection and the quarantine gate
+tree of updates is ever held.  With ``accum`` > 1 the batch is split
+into microbatches whose gradients add into one fp32 accumulator, which
+the clip and the optimizer then take as G.  With ``grad_fused`` the plain
+steps take the grad-fused backward: the taggable matmuls emit each
+low-rank leaf's [A; colnorms] tap, which feeds the clip and the
+optimizer.  Not ported yet: fault injection and the quarantine gate
 (``guarded_apply``) of the health runtime.
 """
 
@@ -77,6 +79,36 @@ def value_and_grad(bundle: ModelBundle, params, batch, remat: str):
             p.requires_grad_(False)
     metrics = {k: v.detach() for k, v in metrics.items()}
     return loss.detach(), metrics, _unflatten(params, list(grads))
+
+
+def accumulated_grads(bundle: ModelBundle, params, batch, remat: str,
+                      accum: int):
+    """(loss, metrics, grads) over ``accum`` microbatches, the batch's
+    leading axis split evenly (it must divide).  Each microbatch's
+    gradient is added into an fp32 accumulator as ``acc += g.float() /
+    accum``, the JAX package's order of rounding, and freed before the
+    next backward; the loss is ``sum(loss_i / accum)``, the metrics the
+    last microbatch's.  ``accum == 1`` is :func:`value_and_grad`."""
+    if accum == 1:
+        return value_and_grad(bundle, params, batch, remat)
+    rows = {v.shape[0] for v in batch.values()}
+    if len(rows) != 1 or next(iter(rows)) % accum:
+        raise ValueError(f"batch of {sorted(rows)} rows does not split into "
+                         f"{accum} microbatches")
+    micro = {k: v.chunk(accum, dim=0) for k, v in batch.items()}
+    acc: list = [None] * len(tree_leaves(params))
+    loss = 0.0
+    for i in range(accum):
+        loss_i, metrics, g = value_and_grad(
+            bundle, params, {k: v[i] for k, v in micro.items()}, remat)
+        g = tree_leaves(g)
+        for j in range(len(g)):
+            x = g[j].float() / accum
+            g[j] = None                           # this microbatch's, freed
+            acc[j] = x if acc[j] is None else acc[j].add_(x)
+        del g, x
+        loss = loss + loss_i / accum
+    return loss, metrics, _unflatten(params, acc)
 
 
 # ---------------------------------------------------------------------------
@@ -154,30 +186,36 @@ def tapped_grads(bundle: ModelBundle, state: TrainState, batch,
 
 
 def make_train_step(bundle: ModelBundle, optimizer: GradientTransform, *,
-                    clip_norm: float = 1.0, remat: str = "full",
-                    grad_fused: bool = False):
+                    clip_norm: float = 1.0, accum: int = 1,
+                    remat: str = "full", grad_fused: bool = False):
     """train_step(state, batch, lr, *, do_subspace_update=False) ->
     (state, metrics).  The parameters of ``state`` are updated in place;
     the returned state carries them and the new optimizer state.
 
+    ``accum`` > 1 splits the batch into that many microbatches
+    (:func:`accumulated_grads`); the optimizer then gets fp32 G.
+
     ``grad_fused`` runs the k-1-of-k plain steps through the grad-fused
     backward (:func:`tapped_grads`): the taps serve the global-norm clip
     and the optimizer's plain step in place of a projection pass over G.
-    Tracking steps take the plain backward.  A bundle without
+    Tracking steps take the plain backward, and so does every step under
+    ``accum`` > 1 (the taps are not additive across microbatches: sum_i
+    ||G_i||^2 != ||sum_i G_i||^2), as in the JAX package.  A bundle without
     ``loss_taps`` raises rather than fall back."""
     if grad_fused and bundle.loss_taps is None:
         raise NotImplementedError(f"{bundle.cfg.name} exposes no taggable "
                                   "matmuls for the grad-fused backward")
+    use_taps = grad_fused and accum == 1
 
     def train_step(state: TrainState, batch, lr: float, *,
                    do_subspace_update: bool = False):
         taps = None
-        if grad_fused and not do_subspace_update:
+        if use_taps and not do_subspace_update:
             loss, metrics, grads, taps = tapped_grads(bundle, state, batch,
                                                       remat)
         else:
-            loss, metrics, grads = value_and_grad(bundle, state.params,
-                                                  batch, remat)
+            loss, metrics, grads = accumulated_grads(
+                bundle, state.params, batch, remat, accum)
         grads, gnorm = clip_by_global_norm(grads, clip_norm, taps=taps)
         if taps is not None:
             # the clip scaled G by s: A scales by s, the squared column

@@ -17,11 +17,17 @@ optimizer's plain step consume in place of a projection pass.  Weights are
 random, drawn from ``--seed``; batches come from the synthetic Zipf +
 Markov stream and are validated on the host before any embedding lookup.
 
+``--accum N`` splits each batch into N microbatches whose gradients add
+into an fp32 accumulator (the grad-fused backward then falls back to the
+plain one, as in the JAX driver); ``--remat dots`` keeps each layer's
+projection outputs and recomputes the rest.  The dense baselines
+``--optimizer adamw`` and ``badam`` have no subspace: no warm start, no
+tracking step, no kernel.
+
 The driver runs on CUDA unless ``--device cpu`` asks for the CPU; with no
 card and no such request it raises.  Not ported yet, and raising:
-``--mesh`` other than the one-device default, ``--checkpoint-dir``,
-``--inject``, ``--accum`` above 1 and ``--remat dots`` (with the health
-sentinel, checkpoints and gradient accumulation of later slices).
+``--mesh`` other than the one-device default, ``--checkpoint-dir`` and
+``--inject`` (with the health sentinel and checkpoints of later slices).
 """
 
 from __future__ import annotations
@@ -36,7 +42,7 @@ import torch
 
 from repro_torch.configs.registry import PAPER_RANKS, get_config
 from repro_torch.core.api import get_optimizer
-from repro_torch.core.subtrack import tree_leaves
+from repro_torch.core.subtrack import LowRankConfig, tree_leaves
 from repro_torch.data.pipeline import (DataConfig, SyntheticLMDataset,
                                        batch_for_model, fetch_batch,
                                        validate_batch)
@@ -84,9 +90,7 @@ def _parse_args(argv) -> argparse.Namespace:
 def _reject_unported(args: argparse.Namespace) -> None:
     unported = {"--mesh": args.mesh != "smoke",
                 "--checkpoint-dir": bool(args.checkpoint_dir),
-                "--inject": bool(args.inject),
-                "--accum": args.accum != 1,
-                "--remat dots": args.remat == "dots"}
+                "--inject": bool(args.inject)}
     for flag, given in unported.items():
         if given:
             raise NotImplementedError(f"{flag} is not yet ported to "
@@ -100,27 +104,40 @@ def _sync(device: torch.device) -> None:
 
 def run(cfg, params, batch_at: Callable[[int], dict | None], *, optimizer,
         steps: int, lr_at: Callable[[int], float], remat: str = "full",
-        log_every: int = 10, opt_state=None,
-        grad_fused: bool = False) -> dict:
+        log_every: int = 10, opt_state=None, grad_fused: bool = False,
+        accum: int = 1) -> dict:
     """Warm start from batch 0, then ``steps`` train steps on the device
     the params live on (updated in place).  ``batch_at(step)`` returns a
     validated batch dict of token tensors (moved to the device here), or
     None for a batch to step over.  ``opt_state``, when given, replaces
     the warm start (a test hands over the JAX package's warm-started
     state, whose SVD signs the port's need not share).  ``grad_fused``
-    runs the plain steps through the grad-fused backward.  Returns the loss
-    history, per-step wall times (each ends in a device sync), the
-    warm-start time and the final train state."""
+    runs the plain steps through the grad-fused backward, unless ``accum``
+    > 1 splits each batch into microbatches (the driver then says so and
+    takes the plain backward, as the JAX driver does).  A dense baseline
+    (``adamw``, ``badam``) has no warm start and no tracking step.
+    Returns the loss history, per-step wall times (each ends in a device
+    sync), the warm-start time and the final train state."""
     device = tree_leaves(params)[0].device
     bundle = build_model(cfg)
-    train_step = make_train_step(bundle, optimizer, remat=remat,
+    baseline = not isinstance(optimizer.config, LowRankConfig)
+    if baseline:
+        grad_fused = False  # dense baselines have no projection to tap
+    if grad_fused and accum > 1:
+        print("[train] --grad-fused requested but gradient accumulation is "
+              "on (taps are not additive across microbatches) — falling "
+              "back to the plain backward", flush=True)
+        grad_fused = False
+    train_step = make_train_step(bundle, optimizer, accum=accum, remat=remat,
                                  grad_fused=grad_fused)
-    k = optimizer.config.update_interval
+    k = getattr(optimizer.config, "update_interval", 0)
 
     def on_device(batch):
         return {key: v.to(device) for key, v in batch.items()}
 
     warm_loss = warm_s = None
+    if opt_state is None and baseline:
+        opt_state = optimizer.init(params)     # no subspace to warm-start
     if opt_state is not None:
         state = TrainState(params=params, opt=opt_state)
         opt_state = None    # hold the starting moments no longer than step 0
@@ -170,14 +187,19 @@ def prepare(args: argparse.Namespace):
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
     rank = args.rank or PAPER_RANKS.get(args.arch, default_rank(cfg.d_model))
-    optimizer = get_optimizer(args.optimizer, rank=rank,
-                              update_interval=args.update_interval,
-                              eta=args.eta, weight_decay=args.weight_decay,
-                              use_kernels=args.use_kernels)
-    if args.use_kernels:
+    baseline = args.optimizer in ("adamw", "badam")
+    if not baseline:
+        opt_kw = dict(rank=rank, update_interval=args.update_interval,
+                      eta=args.eta, weight_decay=args.weight_decay,
+                      use_kernels=args.use_kernels)
+    else:
+        opt_kw = ({"weight_decay": args.weight_decay}
+                  if args.weight_decay else {})
+    optimizer = get_optimizer(args.optimizer, **opt_kw)
+    if args.use_kernels and not baseline:
         print("[train] optimizer hot path: fused kernels (project_colnorms "
               "-> adam_lowrank_norms -> fused_update)", flush=True)
-    if args.grad_fused:
+    if args.grad_fused and not baseline and args.accum == 1:
         print("[train] grad-fused backward: taggable leaves emit "
               "[A; colnorms] from the weight-gradient epilogue; plain "
               "optimizer steps skip their projection read of G", flush=True)
@@ -209,13 +231,14 @@ def train(argv=None) -> dict:
     out = run(cfg, params, batch_at, optimizer=optimizer, steps=args.steps,
               lr_at=cosine_with_warmup(args.lr, args.steps, args.warmup),
               remat=args.remat, log_every=args.log_every,
-              grad_fused=args.grad_fused)
+              grad_fused=args.grad_fused, accum=args.accum)
     launches = ops.launch_counts()
     history = out["history"]
     taken = [h for h in history if h["loss"] is not None]
     summary = {
         "arch": cfg.name, "optimizer": args.optimizer, "rank": rank,
-        "grad_fused": args.grad_fused,
+        "grad_fused": args.grad_fused, "accum": args.accum,
+        "remat": args.remat,
         "steps": args.steps, "device": str(device),
         "tokens_per_step": args.batch * args.seq,
         "final_loss": taken[-1]["loss"] if taken else None,

@@ -1,7 +1,9 @@
-"""Model factory: the decoder bundle (training loss and paged serving).
+"""Model factory: the decoder bundle (training loss, dense and paged
+serving).
 
 Counterpart of ``repro.models.api``.  So far only the decoder family's
-``init``, ``loss``, ``loss_taps`` and its three paged fields are ported;
+``init``, ``loss``, ``loss_taps``, its dense serving fields (``prefill``,
+``decode_step``, ``init_cache``) and its three paged fields are ported;
 other families raise.
 """
 
@@ -25,6 +27,10 @@ class ModelBundle:
     # (params, batch, taps, remat=) -> (loss, metrics), ``taps`` the
     # grad-fused (S, seed) tree of transformer.decoder_forward
     loss_taps: Callable[..., Any] | None = None
+    # Dense serving path (per-slot KV cache, written in place)
+    prefill: Callable[..., Any] | None = None      # (params, batch, max_len) -> (logits, cache)
+    decode_step: Callable[..., Any] | None = None  # (params, cache, token) -> (logits, cache)
+    init_cache: Callable[..., Any] | None = None   # (batch, max_len, device) -> cache
     # Paged serving path (block-table KV; repro_torch.serve).  None for
     # configs the paged cache does not cover (transformer.paged_supported).
     init_paged_cache: Callable[..., Any] | None = None   # (num_blocks, block_size, device) -> PagedKV
@@ -66,8 +72,24 @@ def _decoder_bundle(cfg: ModelConfig) -> ModelBundle:
     def loss_taps(params, batch, taps, remat="full"):
         return transformer.decoder_loss(params, batch, cfg, remat, taps)
 
+    def prefill(params, batch, max_len):
+        extras = sorted(k for k in batch if k != "tokens")
+        if extras:
+            raise NotImplementedError(f"prefill inputs {extras} are not yet "
+                                      "ported to repro_torch")
+        return transformer.decoder_prefill(params, batch["tokens"], cfg,
+                                           max_len)
+
+    def decode_step(params, cache, token):
+        return transformer.decoder_decode_step(params, cache, token, cfg)
+
+    def init_cache(batch, max_len, device=None):
+        return transformer.init_decoder_cache(cfg, batch, max_len,
+                                              device=device)
+
     return ModelBundle(cfg=cfg, init=init, loss=loss, loss_taps=loss_taps,
-                       **paged)
+                       prefill=prefill, decode_step=decode_step,
+                       init_cache=init_cache, **paged)
 
 
 def build_model(cfg: ModelConfig) -> ModelBundle:

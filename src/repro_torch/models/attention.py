@@ -1,10 +1,12 @@
-"""Attention for the serving slice: blocked online-softmax prefill
-attention and the paged KV pool.
+"""Attention for serving and training: blocked online-softmax attention,
+single-token decode against a dense (possibly ring-buffered) KV cache, and
+the paged KV pool.
 
-Counterpart of ``repro.models.attention``.  ``blocked_attention`` is plain
-PyTorch (it is not a Pallas kernel in the JAX package either): the same
-online softmax over KV blocks with fp32 statistics, written with plain
-tensor ops rather than a library attention call.
+Counterpart of ``repro.models.attention``.  ``blocked_attention`` and
+``decode_attention`` are plain PyTorch (neither is a Pallas kernel in the
+JAX package either): the same fp32 logits and softmax statistics, written
+with plain tensor ops rather than a library attention call.  The dense
+cache is written in place (the JAX helpers return new arrays).
 """
 
 from __future__ import annotations
@@ -62,6 +64,102 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         m = m_new
     out = o / l.clamp_min(1e-30)[..., None]                        # (B,Hkv,G,S,vd)
     return out.permute(0, 3, 1, 2, 4).reshape(B, S, Hq, vd).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Decode (one new token against a dense cache)
+# ---------------------------------------------------------------------------
+
+
+def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                     v_cache: torch.Tensor, pos: int, *,
+                     cache_positions: torch.Tensor | None = None,
+                     window: int | None = None,
+                     softcap: float = 0.0) -> torch.Tensor:
+    """Single-step attention; returns (B, Hq, vd).
+
+    q: (B, Hq, hd), the new token's queries; k_cache: (B, T, Hkv, hd);
+    v_cache: (B, T, Hkv, vd); ``pos``: the new token's absolute position.
+    With ``cache_positions`` (T,) the cache is a ring buffer whose slot i
+    holds absolute position cache_positions[i] (-1 = empty); otherwise
+    slot i holds position i and is valid for i <= pos.  Logits and the
+    softmax are fp32; the weights are rounded to v's dtype before the PV
+    product, as in the JAX package.
+    """
+    B, T, Hkv, hd = k_cache.shape
+    Hq = q.shape[1]
+    G = Hq // Hkv
+    vd = v_cache.shape[-1]
+    scale = 1.0 / math.sqrt(hd)
+
+    qg = q.reshape(B, Hkv, G, hd).float()
+    logits = torch.einsum("bkgh,btkh->bkgt", qg, k_cache.float()) * scale
+    if softcap:
+        logits = softcap * torch.tanh(logits / softcap)
+    kp = (cache_positions if cache_positions is not None
+          else torch.arange(T, device=q.device))
+    valid = (kp >= 0) & (kp <= pos)
+    if window is not None:
+        valid &= kp > (pos - window)
+    logits = torch.where(valid, logits, NEG_INF)
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bkgt,btkd->bkgd", w.to(v_cache.dtype).float(),
+                       v_cache.float())
+    return out.reshape(B, Hq, vd).to(q.dtype)
+
+
+def pad_to(arr: torch.Tensor, T: int) -> torch.Tensor:
+    """Pad the sequence axis (axis 1) of (B, S, ...) with zeros out to
+    length T."""
+    S = arr.shape[1]
+    if S == T:
+        return arr
+    pad = arr.new_zeros((arr.shape[0], T - S) + tuple(arr.shape[2:]))
+    return torch.cat([arr, pad], dim=1)
+
+
+@dataclass
+class KVCache:
+    """Per-layer-stacked dense KV cache for GQA decoders.
+
+    k, v: (L, B, T, Hkv, hd).  ``positions`` (L, T) int32 tags each slot's
+    absolute position (-1 = empty; ring buffers for sliding-window layers
+    reuse slots).  RoPE is applied at write time, so ring order is
+    harmless.
+    """
+
+    k: torch.Tensor
+    v: torch.Tensor
+    positions: torch.Tensor
+
+
+def init_kv_cache(n_layers: int, batch: int, max_len: int, n_kv: int,
+                  hd: int, dtype=torch.bfloat16, device=None) -> KVCache:
+    shape = (n_layers, batch, max_len, n_kv, hd)
+    return KVCache(
+        k=torch.zeros(shape, dtype=dtype, device=device),
+        v=torch.zeros(shape, dtype=dtype, device=device),
+        positions=torch.full((n_layers, max_len), -1, dtype=torch.int32,
+                             device=device))
+
+
+def cache_write(k_layer: torch.Tensor, v_layer: torch.Tensor,
+                pos_layer: torch.Tensor, k_new: torch.Tensor,
+                v_new: torch.Tensor, pos: int, ring: bool
+                ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Write one token's K/V into a layer cache at ``pos`` (ring: pos % T),
+    in place; returns the three (same) tensors.
+
+    k_layer: (B, T, Hkv, hd); k_new: (B, 1, Hkv, hd); pos: host int.  A
+    position past a non-ring cache lands in its last slot, as XLA's
+    clamped ``dynamic_update_slice`` puts it there.
+    """
+    T = k_layer.shape[1]
+    slot = pos % T if ring else min(pos, T - 1)
+    k_layer[:, slot] = k_new[:, 0].to(k_layer.dtype)
+    v_layer[:, slot] = v_new[:, 0].to(v_layer.dtype)
+    pos_layer[slot] = pos
+    return k_layer, v_layer, pos_layer
 
 
 # ---------------------------------------------------------------------------

@@ -1,20 +1,23 @@
-"""Decoder-only transformer: the training forward and the paged serving
-path.
+"""Decoder-only transformer: the training forward, the dense serving
+path and the paged serving path.
 
 Counterpart of ``repro.models.transformer`` for the plain GQA decoder with
 dense MLPs: init, the training forward and loss (``decoder_forward``,
-``decoder_loss``), and the two paged programs (one prefill chunk of one
-prompt; one decode wave over a batch) and their blocks.  The
-parameter schema is the JAX package's: nested dicts with the layer stack
-on a leading axis, weights ``(in, out)``.  The layer loop is a Python loop
-over that axis where the JAX code scans.
+``decoder_loss``), the dense serving programs (``decoder_prefill`` into a
+per-slot cache, ``decoder_decode_step``), and the two paged programs (one
+prefill chunk of one prompt; one decode wave over a batch) and their
+blocks.  The parameter schema is the JAX package's: nested dicts with the
+layer stack on a leading axis, weights ``(in, out)``.  The layer loop is a
+Python loop over that axis where the JAX code scans.
 
-The pool is updated in place (the JAX programs return a new pool).  Torch
-indexing does not clamp as XLA's does, so every index that could leave
-its table is routed explicitly.
+Both caches are updated in place (the JAX programs return new ones).
+Torch indexing does not clamp as XLA's does, so every index that could
+leave its table is routed explicitly.
 """
 
 from __future__ import annotations
+
+from dataclasses import dataclass
 
 import torch
 import torch.nn.functional as F
@@ -168,6 +171,19 @@ def _unstack_taps(layer_taps: dict, n_layers: int) -> list[dict]:
     return out
 
 
+# ``remat="dots"``: the counterpart of JAX's
+# ``dots_with_no_batch_dims_saveable``.  The projections x @ W are 2-D
+# products (``matmul`` folds the batch into rows), so their outputs are
+# saved; the attention's batched products (``bmm``) and all elementwise
+# work are recomputed in the backward.
+DOTS_SAVED_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_context():
+    return torch.utils.checkpoint.create_selective_checkpoint_contexts(
+        list(DOTS_SAVED_OPS))
+
+
 def decoder_forward(params, tokens: torch.Tensor, cfg: ModelConfig,
                     remat: str = "full", taps=None
                     ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -175,7 +191,9 @@ def decoder_forward(params, tokens: torch.Tensor, cfg: ModelConfig,
 
     ``remat="full"`` recomputes each layer in the backward
     (``torch.utils.checkpoint``, non-reentrant), as the JAX package's
-    ``jax.checkpoint`` around the scanned block; ``"none"`` keeps every
+    ``jax.checkpoint`` around the scanned block; ``"dots"`` keeps the
+    outputs of the layer's projections and recomputes the rest (a
+    selective checkpoint, :data:`DOTS_SAVED_OPS`); ``"none"`` keeps every
     activation.  Only the plain GQA decoder with dense MLPs is ported.
 
     ``taps`` (optional) mirrors the taggable part of ``params``:
@@ -188,9 +206,9 @@ def decoder_forward(params, tokens: torch.Tensor, cfg: ModelConfig,
     if not ok:
         raise NotImplementedError(f"training {cfg.name} is not yet ported "
                                   f"to repro_torch: {why}")
-    if remat not in ("full", "none"):
+    if remat not in ("full", "dots", "none"):
         raise NotImplementedError(f"remat={remat!r} is not yet ported to "
-                                  "repro_torch (full, none)")
+                                  "repro_torch (full, dots, none)")
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)[None, :]
 
@@ -208,6 +226,10 @@ def decoder_forward(params, tokens: torch.Tensor, cfg: ModelConfig,
         if remat == "full":
             x = torch.utils.checkpoint.checkpoint(block, x, p, lt,
                                                   use_reentrant=False)
+        elif remat == "dots":
+            x = torch.utils.checkpoint.checkpoint(block, x, p, lt,
+                                                  use_reentrant=False,
+                                                  context_fn=_dots_context)
         else:
             x = block(x, p, lt)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -225,6 +247,124 @@ def decoder_loss(params, batch: dict, cfg: ModelConfig,
     labels, mask = shift_labels(tokens)
     loss = cross_entropy(logits, labels, mask, cfg.vocab_size)
     return loss + aux, {"ce_loss": loss, "aux_loss": aux}
+
+
+# ---------------------------------------------------------------------------
+# Dense serving: prefill into a per-slot cache + single-token decode
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class DecoderCache:
+    """The dense serving cache.  ``kv`` is written in place by every
+    program; ``length``, the number of valid positions, is a host int, so
+    a decode step never reads it back from the device."""
+
+    kv: attn.KVCache
+    length: int
+
+
+def _cache_len(cfg: ModelConfig, max_len: int) -> int:
+    """Ring-buffer length: pure sliding-window configs cap the cache at
+    the window."""
+    if cfg.sliding_window and not cfg.local_global_period:
+        return min(max_len, cfg.sliding_window)
+    return max_len
+
+
+def _require_dense_ported(cfg: ModelConfig) -> None:
+    ok, why = paged_supported(cfg)
+    if not ok:
+        raise NotImplementedError(f"dense serving of {cfg.name} is not yet "
+                                  f"ported to repro_torch: {why}")
+
+
+def init_decoder_cache(cfg: ModelConfig, batch: int, max_len: int,
+                       dtype=torch.bfloat16, device=None) -> DecoderCache:
+    """An empty cache of ``_cache_len`` slots (bf16 by default, as the JAX
+    package's)."""
+    _require_dense_ported(cfg)
+    kv = attn.init_kv_cache(cfg.n_layers, batch, _cache_len(cfg, max_len),
+                            cfg.n_kv_heads, cfg.hd, dtype, device)
+    return DecoderCache(kv=kv, length=0)
+
+
+def _prefill_positions(S: int, T: int, device=None) -> torch.Tensor:
+    """Position tags (T,) int32 after prefilling S tokens into a length-T
+    (ring) cache."""
+    slots = torch.arange(T, dtype=torch.int32, device=device)
+    if S <= T:
+        return torch.where(slots < S, slots, -1)
+    # ring: slot i holds the latest position congruent to i (mod T)
+    last_full = (S - 1) // T * T
+    return torch.where(slots <= (S - 1) % T, last_full + slots,
+                       last_full - T + slots)
+
+
+def _fit_cache(arr: torch.Tensor, T: int, S: int) -> torch.Tensor:
+    """Fit fresh per-layer K/V (B, S, ...) into a length-T cache buffer."""
+    if S <= T:
+        return attn.pad_to(arr, T)
+    # S > T (ring): keep the last T entries, rolled so slot = pos % T
+    return torch.roll(arr[:, S - T:], shifts=S % T, dims=1)
+
+
+def decoder_prefill(params, tokens: torch.Tensor, cfg: ModelConfig,
+                    max_len: int) -> tuple[torch.Tensor, DecoderCache]:
+    """Prefill S tokens of a batch -> (last-position logits (B, Vp), the
+    populated cache).  The cache holds K/V in the activation dtype, as
+    the JAX program's does."""
+    _require_dense_ported(cfg)
+    B, S = tokens.shape
+    T = _cache_len(cfg, max_len)
+    dev = tokens.device
+    positions = torch.arange(S, device=dev)[None, :]
+    x = params["embed"][tokens]
+    kv = attn.init_kv_cache(cfg.n_layers, B, T, cfg.n_kv_heads, cfg.hd,
+                            x.dtype, dev)
+    for i in range(cfg.n_layers):
+        p = layer_params(params, i)
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        q, k, v = _qkv(h, p["attn"], cfg, positions)
+        kv.k[i] = _fit_cache(k, T, S)
+        kv.v[i] = _fit_cache(v, T, S)
+        out = attn.blocked_attention(q, k, v, kv_block=cfg.kv_block)
+        x = x + out.reshape(B, S, cfg.n_heads * cfg.hd) @ p["attn"]["wo"]
+        x = x + mlp_block(rms_norm(x, p["ln2"], cfg.norm_eps), p["mlp"])
+    # slot i holds absolute position i (the ring matters only once S > T)
+    kv.positions.copy_(_prefill_positions(S, T, dev).expand(cfg.n_layers,
+                                                            T))
+    x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
+    return _logits(params, x)[:, 0], DecoderCache(kv=kv, length=S)
+
+
+def decoder_decode_step(params, cache: DecoderCache, token: torch.Tensor,
+                        cfg: ModelConfig
+                        ) -> tuple[torch.Tensor, DecoderCache]:
+    """One decode step: token (B,) at position ``cache.length``.  Writes the
+    token's K/V into the cache in place and returns (logits (B, Vp), the
+    cache one position longer).  Sliding-window and softcap configs (a
+    ring cache, per-layer windows) raise until the port's decoder builds
+    them; ``attn.decode_attention`` and ``attn.cache_write`` already take
+    ring tags, a window and a softcap."""
+    _require_dense_ported(cfg)
+    B = token.shape[0]
+    pos = cache.length
+    kv = cache.kv
+    positions = torch.full((B, 1), pos, device=token.device)
+    x = params["embed"][token][:, None, :]                         # (B, 1, d)
+    for i in range(cfg.n_layers):
+        p = layer_params(params, i)
+        h = rms_norm(x, p["ln1"], cfg.norm_eps)
+        q, k, v = _qkv(h, p["attn"], cfg, positions)
+        attn.cache_write(kv.k[i], kv.v[i], kv.positions[i], k, v, pos,
+                         ring=False)
+        out = attn.decode_attention(q[:, 0], kv.k[i], kv.v[i], pos,
+                                    cache_positions=kv.positions[i])
+        x = x + out.reshape(B, 1, cfg.n_heads * cfg.hd) @ p["attn"]["wo"]
+        x = x + mlp_block(rms_norm(x, p["ln2"], cfg.norm_eps), p["mlp"])
+    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    return _logits(params, x)[:, 0], DecoderCache(kv=kv, length=pos + 1)
 
 
 # ---------------------------------------------------------------------------

@@ -6,9 +6,11 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.subtrack import tree_leaves
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import train as ttrain
 
@@ -47,13 +49,27 @@ def test_serve_raises_without_cuda_unless_cpu_is_asked_for(monkeypatch):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--engine", "dense"], "--engine dense"),
     (["--mesh", "prod"], "--mesh"),
     (["--arch", "zamba2-7b"], "not yet ported"),
 ])
 def test_serve_parts_not_ported_yet_raise(argv, match):
     with pytest.raises(NotImplementedError, match=match):
         tserve.serve(argv + ["--smoke", "--device", "cpu"])
+
+
+def test_serve_falls_back_to_dense_as_the_jax_driver_does(monkeypatch,
+                                                          capsys):
+    """A config the paged engine refuses goes to the dense engine with the
+    JAX driver's line; the port's decoder cannot build a sliding-window
+    config yet, so the dense engine then says so."""
+    get = tserve.get_config
+    monkeypatch.setattr(tserve, "get_config", lambda *a, **kw: get(
+        *a, **kw).with_(sliding_window=4))
+    with pytest.raises(NotImplementedError,
+                       match="dense serving .* not yet ported"):
+        tserve.serve(["--smoke", "--device", "cpu", "--requests", "1",
+                      "--gen", "1"])
+    assert "falling back to dense" in capsys.readouterr().out
 
 
 def test_train_raises_without_cuda_unless_cpu_is_asked_for(monkeypatch):
@@ -79,14 +95,48 @@ def test_train_grad_fused_is_ported_and_stays_on_the_asked_device(
     assert all(v == 0 for v in out["launch_counts"].values())
 
 
+_SMALL_SERVE = ["--smoke", "--requests", "3", "--batch", "2",
+                "--prompt-len", "9", "--gen", "3"]
+# the default rank (128) makes every smoke leaf dense: no SVD warm start,
+# which dominates these runs' CPU time; tests/test_torch_train.py runs
+# --accum and remat dots over low-rank leaves against the JAX package
+_SMALL_TRAIN = ["--smoke", "--steps", "1", "--batch", "2", "--seq", "8"]
+
+
+@pytest.mark.parametrize("entry,argv", [
+    ("serve", ["--engine", "dense"]),
+    ("train", ["--accum", "2"]),
+    ("train", ["--remat", "dots"]),
+    ("train", ["--optimizer", "adamw"]),
+    ("train", ["--optimizer", "badam"]),
+])
+def test_ported_flags_run_on_the_asked_device(monkeypatch, entry, argv):
+    """Flags ported since the first slices (each raised "not yet ported"
+    before its slice) run at smoke size on the CPU when it is asked for,
+    and, like every path, need a card otherwise."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    run = tserve.serve if entry == "serve" else ttrain.train
+    argv = (_SMALL_SERVE if entry == "serve" else _SMALL_TRAIN) + argv
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        run(argv)
+    out = run(argv + ["--device", "cpu"])
+    if entry == "serve":
+        assert out["engine"] == "dense" and out["tokens"] == 9
+        assert out["peak_memory_bytes"] is None
+        return
+    assert out["device"] == "cpu" and all(np.isfinite(out["losses"]))
+    assert all(v == 0 for v in out["launch_counts"].values())
+    # a dense baseline has no subspace to warm-start
+    assert (out["warm_start_s"] is None) == ("--optimizer" in argv)
+    tensors = tree_leaves(out["state"].params) + [
+        t for st in tree_leaves(out["state"].opt.inner) for t in st]
+    assert all(t.device.type == "cpu" for t in tensors)
+
+
 @pytest.mark.parametrize("argv,match", [
     (["--mesh", "host"], "--mesh"),
     (["--checkpoint-dir", "ckpt"], "--checkpoint-dir"),
     (["--inject", "nan-grad@3"], "--inject"),
-    (["--accum", "2"], "--accum"),
-    (["--remat", "dots"], "--remat dots"),
-    (["--optimizer", "adamw"], "adamw"),
-    (["--optimizer", "badam"], "badam"),
     (["--arch", "gemma2-27b"], "not yet ported"),
 ])
 def test_train_parts_not_ported_yet_raise(argv, match):

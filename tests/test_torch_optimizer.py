@@ -285,8 +285,49 @@ def test_method_zoo_steps_keep_bases_orthonormal(name, kw):
         assert (S.mT @ S - torch.eye(RANK)).abs().max() < 1e-4, k
 
 
-def test_grass_method_is_not_ported_yet():
-    opt = get_optimizer("subtrack", rank=RANK, method="grass")
-    params = _tmap(torch.tensor, _tree(np.random.default_rng(5)))
-    with pytest.raises(NotImplementedError, match="grass"):
-        opt.warm_start(opt.init(params), _tmap(torch.tensor, _grads(0)))
+@pytest.mark.parametrize("kernels", [True, False])
+def test_grass_method_matches_jax(kernels):
+    """method="grass" on one device: the warm start's one-hot basis (the
+    top-r rows of G by energy) equals the JAX package's exactly; then a
+    plain step (1e-5) and a tracking step (1e-3: the refresh picks a new
+    row set, and the moments rotate by the dense Q = S_new^T S) match it,
+    and every basis stays a one-hot row selection."""
+    kw = dict(rank=RANK, update_interval=2, eta=ETA, method="grass",
+              use_kernels=kernels)
+    jopt = jax_get_optimizer("subtrack", **kw)
+    topt = get_optimizer("subtrack", **kw)
+    params0 = _tmap(lambda a: 0.1 * a, _tree(np.random.default_rng(7)))
+    jparams = _tmap(jnp.asarray, params0)
+    tparams = _tmap(torch.tensor, params0)
+    jstate = jopt.warm_start(jopt.init(jparams), _tmap(jnp.asarray,
+                                                       _grads(0)))
+    tstate = topt.warm_start(topt.init(tparams), _tmap(torch.tensor,
+                                                       _grads(0)))
+    for k in ("stack", "tr"):
+        np.testing.assert_array_equal(_np(tstate.inner[k].S),
+                                      np.asarray(jstate.inner[k].S))
+    jupdate = jax.jit(jopt.update, static_argnames=("do_subspace_update",))
+    for s, do in ((1, False), (2, True)):
+        g = _grads(s)
+        S_before = tstate.inner["stack"].S
+        ju, jstate = jupdate(_tmap(jnp.asarray, g), jstate, jparams, 0.03,
+                             do_subspace_update=do)
+        tu, tstate = topt.update(_tmap(torch.tensor, g), tstate, tparams,
+                                 0.03, do_subspace_update=do)
+        budget = 1e-3 if do else 1e-5
+        for k in ju:
+            assert _rel(tu[k], ju[k]) < budget, (s, k)
+        for k in ("stack", "tr"):
+            S = tstate.inner[k].S
+            np.testing.assert_array_equal(_np(S), np.asarray(
+                jstate.inner[k].S))
+            assert set(torch.unique(S).tolist()) == {0.0, 1.0}
+            assert torch.equal(S.sum(-2), torch.ones(S.shape[:-2] + (RANK,)))
+            assert (S.sum(-1) <= 1).all()
+            for f in ("M", "V"):
+                assert _rel(getattr(tstate.inner[k], f),
+                            getattr(jstate.inner[k], f)) < budget, (s, k, f)
+        assert torch.equal(tstate.inner["stack"].S, S_before) == (not do)
+        jparams = jax.tree.map(lambda p, u: p + u, jparams, ju)
+        tparams = {k: tparams[k] + tu[k] for k in tparams}
+    assert tstate.n_updates == int(jstate.n_updates) == 1

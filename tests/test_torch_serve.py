@@ -1,11 +1,13 @@
 """The port's serving stack against the JAX package, end to end on the CPU.
 
-Greedy tokens of the port's ``run_paged`` must be identical to the JAX
-package's paged engine (``run_paged``) and its static-batch engine
-(``run_dense``), on the case of ``tests/test_serve.py`` (P = 9, GEN = 5,
-block size 4, whole-prompt and 4-token chunked prefill) for the fp32 smoke
-llama and its GQA variant (n_kv_heads 2, QKV bias, 25% partial rotary).
-Both packages start from the JAX init's parameters.
+Greedy tokens of the port's ``run_paged`` and ``run_dense`` must be
+identical to the JAX package's paged engine (``run_paged``) and its
+static-batch engine (``run_dense``), on the case of ``tests/test_serve.py``
+(P = 9, GEN = 5, block size 4, whole-prompt and 4-token chunked prefill)
+for the fp32 smoke llama and its GQA variant (n_kv_heads 2, QKV bias, 25%
+partial rotary); with heterogeneous ``max_new`` the dense engines also
+agree on their decode-step counts.  Both packages start from the JAX
+init's parameters.
 
 The host-side policy the port copies (block allocator, admission queue)
 is held to the JAX package's by driving both with one scripted sequence
@@ -46,30 +48,43 @@ def _perturb_zero_inits(tree, rng):
 
 
 def _queue(mod, prompts, max_new):
+    """``max_new``: one count for every request, or one per request."""
+    if isinstance(max_new, int):
+        max_new = [max_new] * len(prompts)
     q = mod.AdmissionQueue()
-    for i, p in enumerate(prompts):
-        q.submit(mod.Request(rid=i, prompt=p, max_new=max_new), now=1.0)
+    for i, (p, g) in enumerate(zip(prompts, max_new)):
+        q.submit(mod.Request(rid=i, prompt=p, max_new=g), now=1.0)
     return q
+
+
+def _jax_params(jcfg, variant):
+    """The JAX init's params as numpy (the GQA variant's zero-initialised
+    biases and norms perturbed, so they matter)."""
+    params_np = jax.tree.map(np.asarray, jax_build_model(jcfg).init(
+        jax.random.PRNGKey(0)))
+    if variant == "gqa":
+        params_np = _perturb_zero_inits(params_np, np.random.default_rng(1))
+    return params_np
+
+
+def _configs(variant):
+    extra = (dict(n_kv_heads=2, qkv_bias=True, rope_pct=0.25)
+             if variant == "gqa" else {})
+    return (jax_get_config("llama-100m", smoke=True).with_(
+                dtype="float32", **extra),
+            get_config("llama-100m", smoke=True).with_(
+                dtype="float32", **extra))
 
 
 @pytest.mark.parametrize("variant", ["llama", "gqa"])
 def test_greedy_tokens_match_both_jax_engines(variant):
-    extra = (dict(n_kv_heads=2, qkv_bias=True, rope_pct=0.25)
-             if variant == "gqa" else {})
-    jcfg = jax_get_config("llama-100m", smoke=True).with_(
-        dtype="float32", **extra)
-    tcfg = get_config("llama-100m", smoke=True).with_(
-        dtype="float32", **extra)
+    jcfg, tcfg = _configs(variant)
     prompts = np.random.default_rng(0).integers(
         0, tcfg.vocab_size, size=(3, P)).astype(np.int32)
     pool_blocks = 1 + 2 * -(-(P + GEN) // BS)
     with mesh_context(smoke_context()):
         jbundle = jax_build_model(jcfg)
-        params_np = jax.tree.map(np.asarray,
-                                 jbundle.init(jax.random.PRNGKey(0)))
-        if variant == "gqa":
-            params_np = _perturb_zero_inits(params_np,
-                                            np.random.default_rng(1))
+        params_np = _jax_params(jcfg, variant)
         jparams = jax.tree.map(jax.numpy.asarray, params_np)
         want = {"dense": jserve.run_dense(
             jcfg, jbundle, jparams, _queue(jserve, prompts, GEN), batch=2,
@@ -91,8 +106,37 @@ def test_greedy_tokens_match_both_jax_engines(variant):
         assert all(len(t) == GEN for t in got["outputs"].values())
         assert got["kv"]["prefill_chunks"] == 3 * (3 if chunk else 1)
         assert got["decode_calls"] > 0
+    dense = tserve.run_dense(tcfg, bundle, tparams,
+                             _queue(tserve, prompts, GEN), batch=2,
+                             prompt_len=P)
+    assert dense["outputs"] == want["dense"]
+    assert dense["engine"] == "dense" and dense["tokens"] == 3 * GEN
+    assert dense["decode_step_ms_mean"] > 0 and dense["ttft_p50_s"] >= 0
     counts = ops.launch_counts()                 # CPU: the oracle
     assert counts["paged_attention"] == 0 and not any(counts.values())
+
+
+def test_dense_engine_with_heterogeneous_max_new_matches_jax():
+    """A wave ends when its longest request is done and a finished slot
+    emits nothing: outputs and decode-step counts equal the JAX dense
+    engine's (max_new 2, 5, 3 over two waves of batch 2: 4 + 2 steps)."""
+    jcfg, tcfg = _configs("llama")
+    prompts = np.random.default_rng(2).integers(
+        0, tcfg.vocab_size, size=(3, P)).astype(np.int32)
+    max_new = [2, 5, 3]
+    with mesh_context(smoke_context()):
+        params_np = _jax_params(jcfg, "llama")
+        want = jserve.run_dense(
+            jcfg, jax_build_model(jcfg),
+            jax.tree.map(jax.numpy.asarray, params_np),
+            _queue(jserve, prompts, max_new), batch=2, prompt_len=P)
+    got = tserve.run_dense(tcfg, build_model(tcfg),
+                           params_from_jax(params_np, tcfg, "cpu"),
+                           _queue(tserve, prompts, max_new), batch=2,
+                           prompt_len=P)
+    assert got["outputs"] == want["outputs"]
+    assert [len(got["outputs"][i]) for i in range(3)] == max_new
+    assert got["decode_calls"] == want["decode_calls"] == 4 + 2
 
 
 def test_pool_exhaustion_sheds_and_defers():

@@ -1,9 +1,14 @@
 """The port's training slice against the JAX package, on the CPU.
 
 * ``decoder_loss`` and its gradients, from the JAX init copied over
-  (``params_from_jax``), on the fp32 smoke llama: loss at 1e-5
-  relative, each gradient leaf at 1e-5 of its largest entry (fp32;
-  only summation order differs).
+  (``params_from_jax``), on the fp32 smoke llama, under each remat policy
+  (the JAX package's ``dots`` is a selective checkpoint here): loss at
+  1e-5 relative, each gradient leaf at 1e-5 of its largest entry (fp32;
+  only summation order differs).  What each policy recomputes is counted
+  in ``aten.mm`` calls, with and without the grad-fused taps.
+* Gradient accumulation: one ``--accum 2`` step against the JAX
+  package's ``make_train_step(accum=2)``; with ``--grad-fused`` it takes
+  the plain backward, as the JAX driver does.
 * The slice as a whole: ``--arch llama-100m --smoke --rank 32
   --update-interval 4 --steps 12 --use-kernels`` at eta 2e-5 (fp32, batch
   4 x 64 tokens for time's sake).  Both packages start from the same
@@ -23,6 +28,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro.configs.registry import get_config as jax_get_config
 from repro.core.api import get_optimizer as jax_get_optimizer
@@ -42,12 +48,20 @@ from repro_torch.core.subtrack import tree_leaves
 from repro_torch.interop import opt_state_from_jax, params_from_jax
 from repro_torch.kernels import ops
 from repro_torch.launch import train as ttrain
-from repro_torch.launch.steps import TrainState, make_warm_start
-from repro_torch.launch.steps import value_and_grad
+from repro_torch.launch.steps import (TAP_PATHS, TrainState, _site_get,
+                                      _site_set, make_train_step,
+                                      make_warm_start, value_and_grad)
 from repro_torch.models.api import build_model
+from repro_torch.models.common import tap_seed
+from repro_torch.models.transformer import DOTS_SAVED_OPS
 from repro_torch.optim.schedules import cosine_with_warmup
 
 STEPS, BATCH, SEQ, RANK, K, ETA = 12, 4, 64, 32, 4, 2e-5
+SLICE_KW = dict(rank=RANK, update_interval=K, eta=ETA, use_kernels=True)
+# llama-1b's quirks small (tests/test_torch_llama1b.py): hd 21, q width 63
+LLAMA_1B_SMALL = dict(n_layers=2, d_model=64, n_heads=3, n_kv_heads=3,
+                      d_ff=171, vocab_size=512, vocab_round=64,
+                      dtype="float32", q_block=32, kv_block=32)
 
 
 @pytest.fixture(scope="module")
@@ -65,21 +79,44 @@ def setup():
         yield jcfg, jbundle, params_np, tcfg, batches
 
 
+@pytest.fixture(scope="module")
+def jax_warm(setup):
+    """The JAX package's warm start of the slice's optimizer from batch 0:
+    (its optimizer state as numpy, the warm-start loss)."""
+    _, jbundle, params_np, _, batches = setup
+    with mesh_context(smoke_context()):
+        jopt = jax_get_optimizer("subtrack", **SLICE_KW)
+        jparams = jax.tree.map(jnp.asarray, params_np)
+        jstate, jwarm = jax.jit(jax_make_warm_start(jbundle, jopt))(
+            JTrainState(params=jparams, opt=jopt.init(jparams)),
+            {"tokens": jnp.asarray(batches[0])})
+    return jax.tree.map(np.asarray, jstate.opt), float(jwarm)
+
+
 def _tokens(a):
     return {"tokens": torch.tensor(a, dtype=torch.int64)}
 
 
-@pytest.mark.parametrize("remat", ["full", "none"])
-def test_decoder_loss_and_grads_match_jax(setup, remat):
-    jcfg, jbundle, params_np, tcfg, batches = setup
+@pytest.fixture(scope="module")
+def jax_loss_grads(setup):
+    """The JAX package's loss and gradients on batch 1, as numpy (its
+    default remat; no remat policy changes a value)."""
+    _, jbundle, params_np, _, batches = setup
     with mesh_context(smoke_context()):
         (jloss, _), jgrads = jax.value_and_grad(
             lambda p: jbundle.loss(p, {"tokens": jnp.asarray(batches[1])}),
             has_aux=True)(jax.tree.map(jnp.asarray, params_np))
+    return float(jloss), jax.tree.map(np.asarray, jgrads)
+
+
+@pytest.mark.parametrize("remat", ["full", "dots", "none"])
+def test_decoder_loss_and_grads_match_jax(setup, jax_loss_grads, remat):
+    _, _, params_np, tcfg, batches = setup
+    jloss, jgrads = jax_loss_grads
     tparams = params_from_jax(params_np, tcfg)
     loss, metrics, grads = value_and_grad(build_model(tcfg), tparams,
                                           _tokens(batches[1]), remat)
-    assert float(loss) == pytest.approx(float(jloss), rel=1e-5)
+    assert float(loss) == pytest.approx(jloss, rel=1e-5)
     assert float(metrics["aux_loss"]) == 0.0
     assert not any(t.requires_grad for t in tree_leaves(tparams))
 
@@ -97,17 +134,166 @@ def test_decoder_loss_and_grads_match_jax(setup, remat):
     check(grads, jgrads)
 
 
-def test_twelve_step_slice_matches_jax(setup):
+class _CountMM(TorchDispatchMode):
+    """Counts the 2-D products (``aten.mm``, ``aten.addmm``) dispatched
+    while it is active: a product that a selective checkpoint hands back
+    from its cache never reaches it."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in DOTS_SAVED_OPS:
+            self.n += 1
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("tapped", [False, True])
+@pytest.mark.parametrize("arch", ["smoke llama", "llama-1b quirks"])
+def test_remat_dots_recomputes_no_projection(setup, arch, tapped):
+    """2-D products dispatched during the backward, per remat policy.
+    ``full`` recomputes each layer's projections up to the last one the
+    backward needs: wq wk wv wo w_gate w_up (the non-reentrant checkpoint
+    stops before w_down's product, whose output no backward reads), and
+    with taps w_down's too (``tapped_matmul`` packs its saved input only
+    once its forward, the product, has run).  ``dots`` recomputes none of
+    them: it equals ``none``.  The same
+    with the grad-fused taps (``tapped_matmul``), whose taps and gradients
+    stay the same bits under every policy.  The llama-1b quirks (d 64,
+    q width 63, d_ff 171) store its leaves off every tile."""
+    _, _, params_np, tcfg, batches = setup
+    if arch == "llama-1b quirks":
+        tcfg = get_config("llama-100m", smoke=True).with_(**LLAMA_1B_SMALL)
+        params = build_model(tcfg).init(torch.Generator().manual_seed(0))
+    else:
+        params = params_from_jax(params_np, tcfg)
+    bundle = build_model(tcfg)
+    batch = _tokens(batches[1][:, :32])
+    opt = get_optimizer("subtrack", rank=16)
+    state = TrainState(params=params, opt=opt.init(params))
+    leaves = tree_leaves(params)
+    counts, outs = {}, {}
+    for remat in ("full", "dots", "none"):
+        for p in leaves:
+            p.requires_grad_(True)
+        try:
+            if tapped:
+                sites = [(path, _site_get(state.opt.inner, path))
+                         for path in TAP_PATHS]
+                seeds = [tap_seed(st.S.shape[-1], st.M.shape[-1],
+                                  st.S.shape[:-2]).requires_grad_()
+                         for _, st in sites]
+                taps: dict = {}
+                for (path, st), seed in zip(sites, seeds):
+                    _site_set(taps, path, (st.S, seed))
+                loss, _ = bundle.loss_taps(params, batch, taps, remat=remat)
+            else:
+                seeds = []
+                loss, _ = bundle.loss(params, batch, remat=remat)
+            with _CountMM() as mm:
+                outs[remat] = torch.autograd.grad(loss, leaves + seeds)
+        finally:
+            for p in leaves:
+                p.requires_grad_(False)
+        counts[remat] = mm.n
+    assert counts["full"] - counts["none"] == \
+        (7 if tapped else 6) * tcfg.n_layers, counts
+    assert counts["dots"] == counts["none"], counts
+    for remat in ("full", "dots"):
+        for a, b in zip(outs[remat], outs["none"]):
+            assert torch.equal(a, b), remat
+
+
+def test_accum_step_matches_jax(setup, jax_warm):
+    """One plain step with the batch split in 2 microbatches, from the
+    JAX warm-started state: the loss and the clipped norm at 1e-5
+    relative; the parameters, and the new first moments (linear in the
+    accumulated G), at 1e-5 of the largest entry."""
     jcfg, jbundle, params_np, tcfg, batches = setup
-    kw = dict(rank=RANK, update_interval=K, eta=ETA, use_kernels=True)
+    jwarm_opt, _ = jax_warm
+    lr = 1e-3                          # the train CLI's default --lr
+    with mesh_context(smoke_context()):
+        jopt = jax_get_optimizer("subtrack", **SLICE_KW)
+        jstate = JTrainState(params=jax.tree.map(jnp.asarray, params_np),
+                             opt=jax.tree.map(jnp.asarray, jwarm_opt))
+        step = jax.jit(jax_make_train_step(jbundle, jopt, accum=2),
+                       static_argnames=("do_subspace_update",))
+        jstate, jm = step(jstate, {"tokens": jnp.asarray(batches[1])},
+                          jnp.float32(lr), do_subspace_update=False)
+        jnew = jax.tree.map(np.asarray, jstate.params)
+        jM = {k: np.asarray(st.M) for k, st in
+              jstate.opt.inner["layers"]["mlp"].items()}
+
+    topt = get_optimizer("subtrack", **SLICE_KW)
+    tparams = params_from_jax(params_np, tcfg)
+    train_step = make_train_step(build_model(tcfg), topt, accum=2)
+    state, m = train_step(TrainState(params=tparams,
+                                     opt=opt_state_from_jax(jwarm_opt)),
+                          _tokens(batches[1]), lr)
+    assert float(m["loss"]) == pytest.approx(float(jm["loss"]), rel=1e-5)
+    assert float(m["grad_norm"]) == pytest.approx(float(jm["grad_norm"]),
+                                                  rel=1e-5)
+
+    def check(t, j, path=""):
+        if isinstance(t, dict):
+            for k in t:
+                check(t[k], j[k], f"{path}/{k}")
+            return
+        np.testing.assert_allclose(t.numpy(), j, rtol=0, err_msg=path,
+                                   atol=1e-5 * np.abs(j).max())
+
+    check(state.params, jnew)
+    check({k: st.M for k, st in state.opt.inner["layers"]["mlp"].items()},
+          jM)
+    with pytest.raises(ValueError, match="microbatches"):
+        make_train_step(build_model(tcfg), topt, accum=3)(
+            state, _tokens(batches[1]), lr)
+
+
+def test_accum_with_grad_fused_takes_the_plain_backward(setup, jax_warm,
+                                                        capsys,
+                                                        monkeypatch):
+    """``run(grad_fused=True, accum=2)`` says it falls back (the JAX
+    driver's line), calls grad_tap never, and equals ``accum=2`` without
+    it bit for bit; ``accum=1`` does take the taps."""
+    _, _, params_np, tcfg, batches = setup
+    calls = []
+    grad_tap = ops.grad_tap
+
+    def counted(*a, **kw):
+        calls.append(1)
+        return grad_tap(*a, **kw)
+
+    monkeypatch.setattr(ops, "grad_tap", counted)
+    opt = get_optimizer("subtrack", **SLICE_KW)
+
+    def go(grad_fused, accum):
+        calls.clear()
+        out = ttrain.run(tcfg, params_from_jax(params_np, tcfg),
+                         lambda s: _tokens(batches[1][:, :16]),
+                         optimizer=opt, steps=1, lr_at=lambda s: 1e-3,
+                         opt_state=opt_state_from_jax(jax_warm[0]),
+                         grad_fused=grad_fused, accum=accum)
+        return [h["loss"] for h in out["history"]], len(calls)
+
+    capsys.readouterr()
+    fused, n_fused = go(True, 2)
+    assert "falling back to the plain backward" in capsys.readouterr().out
+    plain, n_plain = go(False, 2)
+    assert fused == plain and n_fused == n_plain == 0
+    assert go(True, 1)[1] > 0
+
+
+def test_twelve_step_slice_matches_jax(setup, jax_warm):
+    jcfg, jbundle, params_np, tcfg, batches = setup
+    jwarm_opt, jwarm = jax_warm
+    kw = SLICE_KW
     sched = jax_cosine(1e-3, STEPS, 100)
     with mesh_context(smoke_context()):
         jopt = jax_get_optimizer("subtrack", **kw)
-        jparams = jax.tree.map(jnp.asarray, params_np)
-        jstate = JTrainState(params=jparams, opt=jopt.init(jparams))
-        jstate, jwarm = jax.jit(jax_make_warm_start(jbundle, jopt))(
-            jstate, {"tokens": jnp.asarray(batches[0])})
-        jwarm_opt = jax.tree.map(np.asarray, jstate.opt)
+        jstate = JTrainState(params=jax.tree.map(jnp.asarray, params_np),
+                             opt=jax.tree.map(jnp.asarray, jwarm_opt))
         step = jax.jit(jax_make_train_step(jbundle, jopt),
                        static_argnames=("do_subspace_update",))
         jlosses = []
