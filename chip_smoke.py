@@ -5,7 +5,7 @@
 
 Phases (run in this order, except that 13-15 and 17-19, the kernel checks
 of the llama-1b slice and of the last three kernels, run right after phase
-10, before the long training runs, and 20-21 right after phase 16); any
+10, before the long training runs, and 20-22 right after phase 16); any
 failure raises and the script exits non-zero:
 
 1. print the card's name and power limit as nvidia-smi gives them;
@@ -175,7 +175,23 @@ failure raises and the script exits non-zero:
    3 launches per leaf on every step (project_colnorms,
    adam_lowrank_norms, fused_update); (d) AdamW and BAdam: no launch,
    peaks and ``state_bytes`` beside the low-rank run's;
-22. print the kernels line (project, project_colnorms and the front end
+22. the runtime around llama-1b's step, from phase 16's final state (after
+   its step 3), in a temporary directory whose free disk is printed first
+   and which is deleted at the end (each checkpoint ~7.9 GB): (a) save it
+   as a known-good checkpoint (snapshot, write and restore seconds and
+   bytes printed) and restore it bit for bit; (b) one plain and one
+   tracking step with ``nan-grad``: quarantined, every param and state
+   tensor ``torch.equal``, launch counts those of a healthy step; (c) a
+   tracking step with sigma-blowup: theta clamped to ``THETA_MAX``, not
+   quarantined (the eta-10 step's health printed beside it); (a, d, f) one
+   CLI run (``--steps 14``) resuming from the checkpoint with no warm
+   start, ``--inject ckpt-io-error@4,loss-spike@9``: exactly one rollback,
+   to step 3, a finite final loss, the final save landing after two failed
+   attempts, exact launch counts for the steps run; (e) a run failed at
+   step 6 (a checkpoint at 5) and restarted: steps 6-9 within
+   ``RESTART_RTOL`` of (d)'s uninterrupted losses; the phase's time
+   printed;
+23. print the kernels line (project, project_colnorms and the front end
    with their fp32 routes' times as ``fp32_ms``), then ``{"ok": true,
    "device": {...}}`` last.
 
@@ -2324,7 +2340,7 @@ def phase_train_1b_options(trained_1b: dict) -> None:
     steps, k, done, batch, seq = 4, 2, 4, 4, 512
     cfg = get_config("llama-1b")
     bundle = build_model(cfg)
-    start = trained_1b.pop("state")
+    start = trained_1b["state"]                  # phase 22 starts from it too
     data = SyntheticLMDataset(DataConfig(vocab_size=cfg.vocab_size,
                                          seq_len=seq, global_batch=batch,
                                          seed=SEED))
@@ -2485,6 +2501,251 @@ def phase_train_1b_options(trained_1b: dict) -> None:
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# The runtime around the training step (phase 22)
+# ---------------------------------------------------------------------------
+
+RESTART_RTOL = 1e-4   # the restarted run's losses against the uninterrupted
+
+
+def _clone_state(state):
+    """A device copy of a TrainState (params and every state tensor)."""
+    from repro_torch.core.subtrack import OptState, tree_map
+    from repro_torch.launch.steps import TrainState
+
+    return TrainState(
+        params=tree_map(torch.clone, state.params),
+        opt=OptState(step=state.opt.step, n_updates=state.opt.n_updates,
+                     inner=tree_map(lambda st: type(st)(
+                         *(t.clone() for t in st)), state.opt.inner)))
+
+
+def _state_tensors(state) -> list:
+    from repro_torch.core.subtrack import tree_leaves
+
+    return tree_leaves(state.params) + [
+        t for st in tree_leaves(state.opt.inner) for t in st]
+
+
+def _same_state(a, b) -> bool:
+    return ((a.opt.step, a.opt.n_updates) == (b.opt.step, b.opt.n_updates)
+            and all(torch.equal(x, y) for x, y in zip(_state_tensors(a),
+                                                       _state_tensors(b))))
+
+
+def _linked_copy(src: Path, dst: Path) -> None:
+    """A checkpoint directory whose files are hard links of ``src``'s:
+    each run resumes from the same step without another 7.9 GB write."""
+    import shutil
+
+    shutil.copytree(src, dst, copy_function=os.link)
+
+
+def _train_logged(argv):
+    """``train(argv)``'s summary and printed log (echoed)."""
+    import contextlib
+    import io
+
+    from repro_torch.launch.train import train
+
+    buf = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(buf):
+            out = train(argv)
+    finally:
+        print(buf.getvalue(), end="", flush=True)
+    return out, buf.getvalue()
+
+
+def phase_runtime_1b(trained_1b: dict) -> None:
+    """Phase 22: the runtime around llama-1b's training step, from phase
+    16's final state (after its step 3): (a) a known-good checkpoint of
+    it, restored bit for bit, and a CLI run resuming from it with no warm
+    start; (b) nan-grad quarantines one plain and one tracking step bit
+    for bit with exact launch counts; (c) sigma-blowup clamps theta
+    without a quarantine; (d) loss-spike gives exactly one rollback to the
+    known-good step and a finite final loss; (e) a run failed at a step
+    and restarted matches the uninterrupted losses; (f) ckpt-io-error is
+    absorbed by the retry.  (a), (d) and (f) are one CLI run."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.checkpoint.transpose import state_program_records
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import health
+    from repro_torch.core.api import get_optimizer
+    from repro_torch.data.pipeline import (DataConfig, SyntheticLMDataset,
+                                           fetch_batch)
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import (checkpoint_descriptors,
+                                          make_train_step)
+    from repro_torch.launch.train import BLOWUP_ETA_SCALE
+    from repro_torch.models.api import build_model
+
+    t_phase = time.perf_counter()
+    done, k, batch, seq = 4, 2, 4, 512
+    cfg = get_config("llama-1b")
+    state = trained_1b.pop("state")
+    opt = get_optimizer("subtrack", rank=RANK_1B, update_interval=k,
+                        eta=10.0, use_kernels=True)
+    # each llama-1b checkpoint is ~7.9 GB: a fresh directory in the
+    # checkout's git-ignored build directory, on the checkout's disk
+    (ROOT / "build").mkdir(exist_ok=True)
+    root = Path(tempfile.mkdtemp(prefix="ckpt_", dir=ROOT / "build"))
+    try:
+        usage = shutil.disk_usage(root)
+        card = phase_device()
+        print(f"[runtime] {card}; checkpoints under {root}: "
+              f"{usage.free / 2**30:.1f} GiB free of "
+              f"{usage.total / 2**30:.1f} GiB", flush=True)
+        # (a) a known-good checkpoint of phase 16's final state
+        mgr = CheckpointManager(root / "base")
+        extra = state_program_records(
+            state, checkpoint_descriptors(state.params, opt))
+        mgr.save(done - 1, state, blocking=True, extra_meta=extra,
+                 known_good=True)
+        saved = dict(mgr.last_save)
+        if usage.free < 4 * saved["bytes"]:
+            raise AssertionError(f"{usage.free} B free: phase 22 keeps up to"
+                                 f" 4 checkpoints of {saved['bytes']} B")
+        t0 = time.perf_counter()
+        back, at = mgr.restore(state)
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        if at != done - 1 or not _same_state(back, state):
+            raise AssertionError("restored checkpoint differs from the saved "
+                                 "state")
+        del back
+        print(f"[runtime] llama-1b checkpoint of step {done - 1}: "
+              f"{saved['bytes'] / 1e9:.3f} GB; snapshot to host "
+              f"{saved['snapshot_s']:.2f} s, write {saved['write_s']:.2f} s"
+              f", restore onto the card {restore_s:.2f} s, bit for bit",
+              flush=True)
+
+        # (b), (c): single steps on copies of the state
+        step = make_train_step(build_model(cfg), opt)
+        data = SyntheticLMDataset(DataConfig(vocab_size=cfg.vocab_size,
+                                             seq_len=seq, global_batch=batch,
+                                             seed=SEED))
+        b, ok = fetch_batch(cfg, data, done)
+        if not ok:
+            raise AssertionError(f"llama-1b: batch {done} rejected")
+        b = {key: v.cuda() for key, v in b.items()}
+        for tracking in (False, True):
+            copy = _clone_state(state)
+            ops.reset_launch_counts()
+            after, m = step(copy, b, 1e-3, do_subspace_update=tracking,
+                            inject=health.INJECT_NAN_GRAD)
+            torch.cuda.synchronize()
+            launches = ops.launch_counts()
+            want = _launches_want(1, int(tracking), single_front=True)
+            kind = "tracking" if tracking else "plain"
+            if not (float(m["quarantined"]) == 1.0
+                    and math.isfinite(float(m["loss"]))
+                    and _same_state(after, state)):
+                raise AssertionError(f"nan-grad {kind} step not quarantined "
+                                     f"bit for bit: {m}")
+            if launches != want:
+                raise AssertionError(f"nan-grad {kind} step launches "
+                                     f"{launches}, want {want}")
+            print(f"[runtime] nan-grad {kind} step: quarantined, every param "
+                  f"and state tensor equal, step {after.opt.step}, launches "
+                  f"as a healthy step's", flush=True)
+            del copy, after
+        diags = {}
+        for scale in (1.0, BLOWUP_ETA_SCALE):
+            copy = _clone_state(state)
+            _, m = step(copy, b, 1e-3, do_subspace_update=True,
+                        eta_scale=scale)
+            diags[scale] = {key: float(m[key]) for key in (
+                "loss", "sigma", "theta", "theta_clamped", "geo_degenerate",
+                "quarantined", "update_norm")}
+            del copy
+        blow = diags[BLOWUP_ETA_SCALE]
+        if not (blow["theta_clamped"] == 1.0 and blow["quarantined"] == 0.0
+                and math.isfinite(blow["loss"])
+                and abs(blow["theta"] - health.THETA_MAX) <= 1e-6):
+            raise AssertionError(f"sigma-blowup: {blow}")
+        print(f"[runtime] tracking step health at eta 10: {diags[1.0]}; with "
+              f"sigma-blowup (eta x {BLOWUP_ETA_SCALE:g}): {blow}",
+              flush=True)
+        del state, step
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        base = ["--arch", "llama-1b", "--optimizer", "subtrack",
+                "--use-kernels", "--steps", "14", "--update-interval",
+                str(k), "--warmup", "2", "--batch", str(batch), "--seq",
+                str(seq), "--eta", "10", "--remat", "full", "--seed",
+                str(SEED), "--log-every", "1"]
+        stepdir = f"step_{done - 1:010d}"
+        # (a) resume, (d) loss-spike, (f) ckpt-io-error: one CLI run
+        _linked_copy(root / "base" / stepdir, root / "spike" / stepdir)
+        ops.reset_launch_counts()
+        spike, log = _train_logged(base + [
+            "--checkpoint-dir", str(root / "spike"), "--checkpoint-every",
+            "50", "--inject", "ckpt-io-error@4,loss-spike@9"])
+        hist = spike["history"]
+        n_track = sum(1 for h in hist if h["subspace_update"])
+        want = _launches_want(len(hist), n_track, single_front=True)
+        actions = [e["action"] for e in spike["sentinel_events"]]
+        if not (spike["start_step"] == done and spike["warm_start_s"] is None
+                and "no warm start" in log):
+            raise AssertionError(f"resume: start {spike['start_step']}, warm "
+                                 f"start {spike['warm_start_s']}")
+        if not (spike["rollbacks"] == 1 and actions[-1] == "rollback"
+                and actions.count("rollback") == 1
+                and "rolled back to known-good checkpoint step "
+                f"{done - 1}" in log
+                and math.isfinite(spike["final_loss"])):
+            raise AssertionError(f"loss-spike: rollbacks {spike['rollbacks']}"
+                                 f", events {spike['sentinel_events']}, final"
+                                 f" loss {spike['final_loss']}")
+        if not ("attempt 2 failed" in log and (
+                root / "spike" / "step_0000000013" / "KNOWN_GOOD").exists()):
+            raise AssertionError("ckpt-io-error: the retried save did not "
+                                 "land")
+        if spike["launch_counts"] != want:
+            raise AssertionError(f"loss-spike run launches "
+                                 f"{spike['launch_counts']}, want {want}")
+        print(f"[runtime] resumed at step {done} with no warm start; "
+              f"loss-spike@9 -> {actions}, one rollback to step {done - 1}, "
+              f"{len(hist)} steps run ({n_track} tracking), final loss "
+              f"{spike['final_loss']:.4f}; ckpt-io-error absorbed by the "
+              "retry", flush=True)
+        shutil.rmtree(root / "spike")
+
+        # (e) fail at step 6 (a checkpoint at 5), restart, match (d)'s
+        # uninterrupted steps 6..9
+        _linked_copy(root / "base" / stepdir, root / "restart" / stepdir)
+        ck = ["--checkpoint-dir", str(root / "restart"),
+              "--checkpoint-every", "5"]
+        try:
+            _train_logged(base + ck + ["--fail-at-step", "6"])
+        except RuntimeError as e:
+            if "failure-injection" not in str(e):
+                raise
+        else:
+            raise AssertionError("--fail-at-step 6 did not fail")
+        resumed, _ = _train_logged(base + ck)
+        first = {}
+        for h in hist:
+            first.setdefault(h["step"], h["loss"])
+        got = {h["step"]: h["loss"] for h in resumed["history"]}
+        rel = max(abs(got[s] - first[s]) / abs(first[s]) for s in range(6, 10))
+        if not (resumed["start_step"] == 6 and rel <= RESTART_RTOL):
+            raise AssertionError(f"restart: start {resumed['start_step']}, "
+                                 f"losses {got} vs {first} ({rel:.2e})")
+        print(f"[runtime] failed at step 6, restarted from the step-5 "
+              f"checkpoint: losses of steps 6-9 within {rel:.2e} of the "
+              f"uninterrupted run's (budget {RESTART_RTOL:g})", flush=True)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"[runtime] phase 22: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -2519,6 +2780,7 @@ def main() -> int:
     phase_serve_dense(served)
     fp32_routes = phase_time_fp32_routes()
     phase_train_1b_options(trained_1b)
+    phase_runtime_1b(trained_1b)
     kernels = [{
         "name": "paged_attention", "route": "cuda",
         "source": "src/repro_torch/csrc/paged_attention.cu",

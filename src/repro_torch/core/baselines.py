@@ -2,9 +2,11 @@
 
 Counterpart of ``repro.core.baselines``.  Both share the
 :class:`repro_torch.core.subtrack.GradientTransform` protocol, including
-``update(..., apply=True, taps=None)``, so the training loop treats every
-optimizer alike; ``warm_start`` is a no-op for both, and neither launches
-a kernel (dense Adam is plain array code in the JAX package too).
+``update(..., taps=, with_health=, eta_scale=)``,
+so the training loop treats every optimizer alike; ``warm_start`` is a
+no-op for both, their health diagnostic is always zero (no subspace), and
+neither launches a kernel (dense Adam is plain array code in the JAX
+package too).
 """
 
 from __future__ import annotations
@@ -14,9 +16,11 @@ from typing import Callable
 
 import torch
 
+from repro_torch.core import health as health_lib
 from repro_torch.core.lowrank_adam import (AdamHP, dense_adam_step,
                                            init_dense_state)
-from repro_torch.core.subtrack import GradientTransform, OptState, tree_map
+from repro_torch.core.subtrack import (GradientTransform, OptState,
+                                       tree_leaves, tree_map)
 
 
 @dataclass(frozen=True)
@@ -63,13 +67,15 @@ def _dense_transform(cfg, is_active: Callable[[int, int], bool],
         return state
 
     def update(grads, state: OptState, params, lr: float,
-               do_subspace_update: bool = False, *, apply: bool = False,
-               taps=None):
-        """(updates, new_state); updates are added to the params.  With
-        ``apply=True`` each active leaf's update is added into its
-        parameter in place at once, its gradient released, and
-        ``updates`` is None.  ``taps`` is accepted for the protocol and
-        ignored: a dense leaf has nothing to tap."""
+               do_subspace_update: bool = False, *, taps=None,
+               with_health: bool = False, eta_scale: float = 1.0):
+        """(updates, new_state[, diag]); updates are added to the params,
+        and an inactive leaf's is None (no update, where the JAX package
+        adds zeros).  ``grads`` is consumed: each leaf's entry is set to
+        None once its update exists.  ``state`` is never written.
+        ``taps`` and ``eta_scale`` are accepted for the protocol and
+        ignored (a dense leaf has nothing to tap and no subspace);
+        ``with_health`` adds the all-zero diagnostic."""
         step = state.step
         lr32 = torch.tensor(lr, dtype=torch.float32)
         index = {path: i for i, (path, _) in
@@ -77,14 +83,11 @@ def _dense_transform(cfg, is_active: Callable[[int, int], bool],
 
         def leaf(path, g, st, p):
             if not is_active(index[path], step):
-                return (None if apply else torch.zeros_like(p)), st
+                return None, st
             delta, new_st = dense_adam_step(g, st, step, hp)
             upd = (-lr32 * delta).to(p.dtype)
             if cfg.weight_decay:
                 upd = upd - (lr32 * cfg.weight_decay * p.float()).to(p.dtype)
-            if apply:
-                p.add_(upd)
-                upd = None
             return upd, new_st
 
         def walk(prefix, grads, inner, params):
@@ -96,14 +99,16 @@ def _dense_transform(cfg, is_active: Callable[[int, int], bool],
                     continue
                 updates[k], states[k] = leaf(prefix + (k,), grads[k],
                                              inner[k], p)
-                if apply:
-                    grads[k] = None                 # release it now
+                grads[k] = None                     # release it now
             return updates, states
 
         updates, inner = walk((), grads, state.inner, params)
-        return (None if apply else updates,
-                OptState(step=step + 1, n_updates=state.n_updates,
-                         inner=inner))
+        new_state = OptState(step=step + 1, n_updates=state.n_updates,
+                             inner=inner)
+        if not with_health:
+            return updates, new_state
+        return updates, new_state, health_lib.zero_diag(
+            tree_leaves(params)[0].device)
 
     def state_bytes(params) -> int:
         return 2 * 4 * stored([n for _, n in _jax_leaf_sizes(params)])

@@ -24,11 +24,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.core.health import THETA_MAX
+
 _TINY = 1e-30
-# The geodesic angle is injective only on (-pi/2, pi/2); clamp slightly
-# inside it (copied from repro/core/health.py:46 — the rest of the health
-# module comes with the runtime slice).
-THETA_MAX = (math.pi / 2.0) * (1.0 - 1e-3)
 
 
 class Rank1Triple(NamedTuple):

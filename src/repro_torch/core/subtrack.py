@@ -8,7 +8,8 @@ JAX package's:
 * ``warm_start(state, grads)`` — installs S_0 from the first gradient
   (Alg. 1 line 1);
 * ``update(grads, state, params, lr, do_subspace_update)`` — returns
-  ``(updates, new_state)``; updates are added to the params.
+  ``(updates, new_state)``, and the step's health diagnostic with
+  ``with_health=True``; updates are added to the params.
   ``do_subspace_update`` is a Python bool picked per step by the loop.
 
 Each low-rank leaf runs as ONE batched call over its stack dims (one kernel
@@ -16,7 +17,7 @@ launch per leaf with ``use_kernels``).  Same-shape leaves are not
 concatenated into a bucket as the JAX package does on one device: the
 concatenation would copy every gradient, parameter and state of the bucket
 (tens of GB at llama-7b), and per-matrix results are the same either way.
-There are no mesh regimes and no health report here yet; ``method="grass"``
+There are no mesh regimes here yet; ``method="grass"``
 runs its one-device form (a one-hot row-selection basis, projected by
 ``project_colnorms`` like any other; the mesh's ``sel_gather`` round comes
 with the multi-GPU slice).
@@ -37,6 +38,7 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+from repro_torch.core import health as health_lib
 from repro_torch.core import plan as plan_lib
 from repro_torch.core import subspace as sub
 from repro_torch.core.lowrank_adam import (AdamHP, MatrixOptState,
@@ -130,12 +132,15 @@ def _plain_matrix_step(cfg: LowRankConfig, hp: AdamHP, G, st, step: int,
 
 
 def _refresh_subspace(cfg: LowRankConfig, G, st: MatrixOptState, step: int,
-                      n_updates: int, backend=None):
+                      n_updates: int, backend=None, eta_scale: float = 1.0):
     """The new basis per the configured method: (S_new, rank1_info, gsq,
-    diag), rank1_info = (cos_theta, v) where the rank-1 rotation applies."""
+    diag), rank1_info = (cos_theta, v) where the rank-1 rotation applies,
+    diag the tracker's (..., 4) health vector (None for methods with no
+    geodesic).  ``eta_scale`` multiplies the geodesic step size (1.0 but
+    for the sigma-blowup fault injection)."""
     rank = st.S.shape[-1]
     if cfg.method == "grassmann":
-        res = sub.track_subspace(st.S, G, eta=cfg.eta,
+        res = sub.track_subspace(st.S, G, eta=cfg.eta * eta_scale,
                                  fused_tangent=cfg.fused_tangent,
                                  exact_top1=cfg.exact_top1,
                                  power_iters=cfg.power_iters,
@@ -169,16 +174,17 @@ def _refresh_subspace(cfg: LowRankConfig, G, st: MatrixOptState, step: int,
 
 
 def _tracking_matrix_step(cfg: LowRankConfig, hp: AdamHP, G, st, step: int,
-                          n_updates: int, lr: float, param, out_dtype):
+                          n_updates: int, lr: float, param, out_dtype,
+                          eta_scale: float = 1.0):
     """The 1-of-k subspace-update step: refresh -> rank-1 (M, V) rotation
     -> the plain steps' epilogue on the new basis (the front end's column
     norms feed the Eq. 12 clip).  Without kernels: the paper-literal
-    unfused schedule."""
+    unfused schedule.  Returns (delta, state, diag or None)."""
     backend = _get_backend(cfg)
     # the kernels cast per tile: no (m, n) fp32 copy on the kernel path
     Gc = G if backend is not None else G.float()
-    S_new, rank1_info, gsq, _ = _refresh_subspace(cfg, Gc, st, step,
-                                                  n_updates, backend)
+    S_new, rank1_info, gsq, diag = _refresh_subspace(
+        cfg, Gc, st, step, n_updates, backend, eta_scale)
     rotated = None
     if cfg.projection_aware:
         if rank1_info is not None and (cfg.rank1_rotation
@@ -192,7 +198,7 @@ def _tracking_matrix_step(cfg: LowRankConfig, hp: AdamHP, G, st, step: int,
                             recovery=cfg.recovery, backend=backend, lr=lr,
                             weight_decay=cfg.weight_decay, param=param,
                             out_dtype=out_dtype, precomputed_gsq=gsq)
-    return out.delta, out.state
+    return out.delta, out.state, diag
 
 
 def _per_matrix(fn, G):
@@ -259,16 +265,22 @@ def lowrank_optimizer(cfg: LowRankConfig) -> GradientTransform:
                                              state.inner))
 
     def update(grads, state: OptState, params, lr: float,
-               do_subspace_update: bool = False, *, apply: bool = False,
-               taps=None):
-        """(updates, new_state); updates are added to the params.  With
-        ``apply=True`` each leaf's update is added into its parameter in
-        place as soon as it is computed and ``updates`` is None: the
-        trainer never holds a whole tree of updates (13.5 GB at
-        llama-7b).  ``apply=True`` also consumes ``grads`` and ``taps``:
-        each leaf's entry is set to None once its update is applied, so
-        the gradients (13.5 GB) and taps (6.6 GB) are freed leaf by leaf
-        while the new moments are made.
+               do_subspace_update: bool = False, *, taps=None,
+               with_health: bool = False, eta_scale: float = 1.0):
+        """(updates, new_state); updates are added to the params (in the
+        parameter's dtype and layout).  ``grads`` and ``taps`` are
+        consumed: each leaf's entry is set to None as soon as its update
+        exists, so at llama-7b the updates take the bytes the gradients
+        (13.5 GB) give back and the taps (6.6 GB) go leaf by leaf, and the
+        caller holds the updates for its quarantine gate with no tree of
+        gradients beside them.  ``state`` is never written, so the old
+        state stays whole for a quarantined step.
+
+        ``with_health=True`` returns (updates, new_state, diag): ``diag``
+        the element-wise max of the (4,) health diagnostic over every
+        low-rank leaf and its stack (zero on plain steps).
+        ``eta_scale`` multiplies ``cfg.eta`` in the tracker (the
+        sigma-blowup fault injection).
 
         ``taps`` (optional) mirrors ``grads`` with None or, at a tapped
         leaf, the grad-fused (..., r+1, n) [A; colnorms] panel of the
@@ -278,6 +290,7 @@ def lowrank_optimizer(cfg: LowRankConfig) -> GradientTransform:
         plans = plan_lib.make_plans(grads, cfg.rank)
         step, n_upd = state.step, state.n_updates
         lr32 = torch.tensor(lr, dtype=torch.float32)
+        diags = []
 
         def leaf_update(plan, g, st, p, tap):
             if plan.mode == "dense":
@@ -291,8 +304,10 @@ def lowrank_optimizer(cfg: LowRankConfig) -> GradientTransform:
             p2 = plan_lib.canonical_grad(p, plan) if cfg.weight_decay \
                 else None
             if do_subspace_update:
-                delta, new_st = _tracking_matrix_step(
-                    cfg, hp, g2, st, step, n_upd, lr, p2, p.dtype)
+                delta, new_st, diag = _tracking_matrix_step(
+                    cfg, hp, g2, st, step, n_upd, lr, p2, p.dtype, eta_scale)
+                if diag is not None:
+                    diags.append(health_lib.reduce_diag(diag))
             else:
                 delta, new_st = _plain_matrix_step(cfg, hp, g2, st, step, lr,
                                                    p2, p.dtype, tap)
@@ -306,22 +321,23 @@ def lowrank_optimizer(cfg: LowRankConfig) -> GradientTransform:
                     updates[k], states[k] = walk(plan, grads[k], inner[k],
                                                  params[k], taps[k])
                     continue
-                upd, states[k] = leaf_update(plan, grads[k], inner[k],
-                                             params[k], taps[k])
-                if apply:
-                    params[k].add_(upd)
-                    grads[k] = taps[k] = upd = None     # release them now
-                updates[k] = upd
+                updates[k], states[k] = leaf_update(
+                    plan, grads[k], inner[k], params[k], taps[k])
+                grads[k] = taps[k] = None               # release them now
             return updates, states
 
         if taps is None:
             taps = tree_map(lambda _: None, plans)
         updates, inner = walk(plans, grads, state.inner, params, taps)
-        if apply:
-            updates = None
-        return updates, OptState(step=step + 1,
-                                 n_updates=n_upd + int(do_subspace_update),
-                                 inner=inner)
+        new_state = OptState(step=step + 1,
+                             n_updates=n_upd + int(do_subspace_update),
+                             inner=inner)
+        if not with_health:
+            return updates, new_state
+        diag = health_lib.zero_diag(tree_leaves(params)[0].device)
+        for d in diags:
+            diag = health_lib.merge_diag(diag, d)
+        return updates, new_state, diag
 
     def state_bytes(params) -> int:
         plans = plan_lib.make_plans(params, cfg.rank)

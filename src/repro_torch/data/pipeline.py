@@ -129,3 +129,10 @@ def fetch_batch(model_cfg, dataset: SyntheticLMDataset, step: int, *,
           f"({type(err).__name__}: {err}) — returning skip marker",
           flush=True)
     return None, False
+
+
+def corrupt_tokens(batch: dict) -> dict:
+    """The corrupt-batch injection: one token id pushed out of range."""
+    bad = batch["tokens"].clone()
+    bad[0, 0] = 2 ** 30
+    return dict(batch, tokens=bad)

@@ -11,8 +11,17 @@ only.  Prints one JSON object per profiled step: the step's wall time (host
 clock around a step that ends in a device sync), the summed duration of
 its device activity (one stream: the sum is the time the card was busy),
 the busy and idle shares, the device time of the port's own kernels (by
-CUDA function name) and of the rest, and the top kernels by name.  Needs
-a CUDA device; raises if the profiler saw no device activity.
+CUDA function name) and of the rest, and the top kernels by name.  Then
+one plain and one tracking step more under a profiler that also records
+host activity, for the health gate alone (``steps.GATE_RANGE``: the
+update-norm pass and the report's one host read): its device time and
+its top kernels by name, its host time (which includes the wait for the
+device to finish the optimizer), and the stall the read leaves on the
+card (from the end of the report's device-to-host copy to the next device
+activity, the first apply), added to the same JSON objects as
+``gate_device_s``, ``gate_top_kernels_s``, ``gate_host_s`` and
+``gate_stall_s``.  Needs a CUDA device; raises if
+the profiler saw no device activity.
 """
 
 from __future__ import annotations
@@ -26,7 +35,7 @@ import torch
 from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
-from repro_torch.launch.steps import make_train_step
+from repro_torch.launch.steps import GATE_RANGE, make_train_step
 from repro_torch.launch.train import _parse_args, prepare, run
 from repro_torch.models.api import build_model
 
@@ -87,8 +96,37 @@ def main(argv=None) -> list[dict]:
                    "busy_share": busy / wall, "idle_share": 1 - busy / wall,
                    "port_kernels_s": port, "other_device_s": busy - port,
                    "top_kernels_s": [[n[:120], t / 1e6] for n, t in top]}
-            print(json.dumps(res), flush=True)
             out.append(res)
+    for res in out:                   # the gate, with host activity on
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            state, _ = step(state, batch, args.lr,
+                            do_subspace_update=res["step"] == "tracking")
+            torch.cuda.synchronize()
+        gate = [ev for ev in prof.events() if ev.name == GATE_RANGE
+                and ev.device_type == DeviceType.CPU]
+        if len(gate) != 1:
+            raise RuntimeError(f"{len(gate)} {GATE_RANGE} ranges profiled")
+        res["gate_device_s"] = gate[0].device_time_total / 1e6
+        kern: dict[str, float] = defaultdict(float)   # the gate's kernels
+        todo = list(gate[0].cpu_children)
+        while todo:
+            ev = todo.pop()
+            todo.extend(ev.cpu_children)
+            for k in ev.kernels:
+                kern[k.name] += k.duration             # microseconds
+        res["gate_top_kernels_s"] = [
+            [n[:120], t / 1e6]
+            for n, t in sorted(kern.items(), key=lambda kv: -kv[1])[:6]]
+        res["gate_host_s"] = gate[0].cpu_time_total / 1e6
+        span = gate[0].time_range
+        dev = sorted((ev.time_range for ev in prof.events()
+                      if ev.device_type == DeviceType.CUDA),
+                     key=lambda r: r.start)
+        read = [r for r in dev if span.start <= r.start <= span.end][-1]
+        res["gate_stall_s"] = (min(r.start for r in dev
+                                   if r.start >= read.end) - read.end) / 1e6
+        print(json.dumps(res), flush=True)
     return out
 
 

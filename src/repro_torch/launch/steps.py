@@ -2,18 +2,30 @@
 ``repro.launch.steps``, one device).
 
 The train step is loss and gradient -> global-norm clip -> optimizer
-update -> apply.  ``do_subspace_update`` is a Python bool picked per step
-by the loop.  Where the JAX step returns new arrays, the port updates in
-place to stay inside one card's memory at llama-7b: the clip scales the
-gradients in place, and the optimizer adds each leaf's update into its
-parameter as soon as it is computed (``update(..., apply=True)``), so no
-tree of updates is ever held.  With ``accum`` > 1 the batch is split
-into microbatches whose gradients add into one fp32 accumulator, which
-the clip and the optimizer then take as G.  With ``grad_fused`` the plain
-steps take the grad-fused backward: the taggable matmuls emit each
-low-rank leaf's [A; colnorms] tap, which feeds the clip and the
-optimizer.  Not ported yet: fault injection and the quarantine gate
-(``guarded_apply``) of the health runtime.
+update -> health gate -> apply.  ``do_subspace_update`` is a Python bool
+picked per step by the loop.  Where the JAX step returns new arrays, the
+port works in place to stay inside one card's memory at llama-7b: the
+clip scales the gradients in place, and the optimizer releases each
+leaf's gradient (and tap) as soon as that leaf's update exists
+(``update`` consumes them), so the updates take the bytes the
+gradients give back and no tree of gradients is held beside them.
+
+The gate is the JAX package's ``guarded_apply``: the update norm is summed
+on the device, the :class:`~repro_torch.core.health.HealthReport` is read
+to the host in one copy, and then the held updates are either added into
+the parameters in place or dropped with the new optimizer state.  The
+optimizer writes new M, V, S and ``lam_prev`` tensors and never its
+inputs, so a quarantined step returns the old state whole: params, S, M,
+V, ``lam_prev``, ``step`` and ``n_updates`` bit-identical.
+
+With ``accum`` > 1 the batch is split into microbatches whose gradients
+add into one fp32 accumulator, which the clip and the optimizer then take
+as G.  With ``grad_fused`` the plain steps take the grad-fused backward:
+the taggable matmuls emit each low-rank leaf's [A; colnorms] tap, which
+feeds the clip and the optimizer.  ``inject`` (``repro_torch.core.health``
+codes) scales the loss fed to the backward by NaN (nan-grad; on all three
+backward routes, the taps with it) or multiplies every update by
+``-LOSS_SPIKE_AMP`` before the gate (loss-spike).
 """
 
 from __future__ import annotations
@@ -22,6 +34,8 @@ from typing import Any, NamedTuple
 
 import torch
 
+from repro_torch.core import health as health_lib
+from repro_torch.core import program as program_lib
 from repro_torch.core.lowrank_adam import MatrixOptState
 from repro_torch.core.subtrack import (GradientTransform, OptState,
                                        tree_leaves, tree_map)
@@ -29,9 +43,19 @@ from repro_torch.models.api import ModelBundle
 from repro_torch.models.common import tap_seed
 
 
+GATE_RANGE = "health_gate"   # the profiler range around the step's gate
+
+
 class TrainState(NamedTuple):
     params: Any
     opt: OptState
+
+
+def checkpoint_descriptors(params, optimizer: GradientTransform):
+    """Per-param-leaf StateDescriptor tree for ``optimizer``'s state on one
+    device: the records a checkpoint embeds and the targets an elastic
+    restore transposes onto (all dense for the rank-less baselines)."""
+    return program_lib.state_leaf_descriptors(params, optimizer.config)
 
 
 def _unflatten(like, leaves: list) -> Any:
@@ -66,14 +90,22 @@ def clip_by_global_norm(grads, max_norm: float, taps=None):
     return grads, norm
 
 
-def value_and_grad(bundle: ModelBundle, params, batch, remat: str):
+def _seeded(loss: torch.Tensor, gscale) -> torch.Tensor:
+    """The loss fed to the backward: scaled by ``gscale`` (NaN under the
+    nan-grad injection), so every gradient scales with it while the true
+    loss still reaches the metrics."""
+    return loss if gscale is None else loss * gscale
+
+
+def value_and_grad(bundle: ModelBundle, params, batch, remat: str,
+                   gscale=None):
     """(loss, metrics, grads) with grads mirroring ``params``."""
     leaves = tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
     try:
         loss, metrics = bundle.loss(params, batch, remat=remat)
-        grads = torch.autograd.grad(loss, leaves)
+        grads = torch.autograd.grad(_seeded(loss, gscale), leaves)
     finally:
         for p in leaves:
             p.requires_grad_(False)
@@ -82,15 +114,16 @@ def value_and_grad(bundle: ModelBundle, params, batch, remat: str):
 
 
 def accumulated_grads(bundle: ModelBundle, params, batch, remat: str,
-                      accum: int):
+                      accum: int, gscale=None):
     """(loss, metrics, grads) over ``accum`` microbatches, the batch's
     leading axis split evenly (it must divide).  Each microbatch's
     gradient is added into an fp32 accumulator as ``acc += g.float() /
     accum``, the JAX package's order of rounding, and freed before the
     next backward; the loss is ``sum(loss_i / accum)``, the metrics the
-    last microbatch's.  ``accum == 1`` is :func:`value_and_grad`."""
+    last microbatch's.  ``accum == 1`` is :func:`value_and_grad`.
+    ``gscale`` seeds every microbatch's backward."""
     if accum == 1:
-        return value_and_grad(bundle, params, batch, remat)
+        return value_and_grad(bundle, params, batch, remat, gscale)
     rows = {v.shape[0] for v in batch.values()}
     if len(rows) != 1 or next(iter(rows)) % accum:
         raise ValueError(f"batch of {sorted(rows)} rows does not split into "
@@ -100,7 +133,8 @@ def accumulated_grads(bundle: ModelBundle, params, batch, remat: str,
     loss = 0.0
     for i in range(accum):
         loss_i, metrics, g = value_and_grad(
-            bundle, params, {k: v[i] for k, v in micro.items()}, remat)
+            bundle, params, {k: v[i] for k, v in micro.items()}, remat,
+            gscale)
         g = tree_leaves(g)
         for j in range(len(g)):
             x = g[j].float() / accum
@@ -147,11 +181,13 @@ def _none_like(tree):
 
 
 def tapped_grads(bundle: ModelBundle, state: TrainState, batch,
-                 remat: str):
+                 remat: str, gscale=None):
     """(loss, metrics, grads, taps) from one backward over the params and
     the zero seeds: the seeds' gradients are the per-leaf [A; colnorms]
     panels (``tapped_matmul``).  ``taps`` mirrors the params, None at
-    every untapped leaf; it is None when no site is a low-rank leaf."""
+    every untapped leaf; it is None when no site is a low-rank leaf.
+    ``gscale`` seeds the backward, so the taps scale with the
+    gradients."""
     sites = []
     for path in TAP_PATHS:
         p = _site_get(state.params, path)
@@ -160,7 +196,8 @@ def tapped_grads(bundle: ModelBundle, state: TrainState, batch,
             continue  # absent leaf or dense plan
         sites.append((path, st.S, st.M.shape[-1]))
     if not sites:
-        return (*value_and_grad(bundle, state.params, batch, remat), None)
+        return (*value_and_grad(bundle, state.params, batch, remat, gscale),
+                None)
 
     seeds = [tap_seed(S.shape[-1], n, S.shape[:-2], S.device
                       ).requires_grad_() for _, S, n in sites]
@@ -173,7 +210,7 @@ def tapped_grads(bundle: ModelBundle, state: TrainState, batch,
     try:
         loss, metrics = bundle.loss_taps(state.params, batch, taps_in,
                                          remat=remat)
-        out = torch.autograd.grad(loss, leaves + seeds)
+        out = torch.autograd.grad(_seeded(loss, gscale), leaves + seeds)
     finally:
         for p in leaves:
             p.requires_grad_(False)
@@ -185,12 +222,29 @@ def tapped_grads(bundle: ModelBundle, state: TrainState, batch,
     return loss.detach(), metrics, grads, taps
 
 
+def apply_updates(params, updates) -> None:
+    """Add each held update into its parameter in place (updates mirror
+    the params; None where a leaf gets none), releasing each once added."""
+    for k, u in updates.items():
+        if isinstance(u, dict):
+            apply_updates(params[k], u)
+        elif u is not None:
+            params[k].add_(u)
+            updates[k] = None
+
+
 def make_train_step(bundle: ModelBundle, optimizer: GradientTransform, *,
                     clip_norm: float = 1.0, accum: int = 1,
                     remat: str = "full", grad_fused: bool = False):
-    """train_step(state, batch, lr, *, do_subspace_update=False) ->
-    (state, metrics).  The parameters of ``state`` are updated in place;
-    the returned state carries them and the new optimizer state.
+    """train_step(state, batch, lr, *, do_subspace_update=False,
+    inject=INJECT_NONE, eta_scale=1.0) -> (state, metrics).  A healthy
+    step adds its updates into the parameters of ``state`` in place and
+    returns them with the new optimizer state; a quarantined one returns
+    ``state`` itself, untouched.  The metrics carry the true loss, the
+    gradient norm, ``lr``, and the health report's entries
+    (``health.report_metrics``: ``update_norm``, ``sigma``, ``theta``,
+    ``theta_clamped``, ``geo_degenerate``, ``quarantined``), as CPU
+    scalars from the gate's one host read.
 
     ``accum`` > 1 splits the batch into that many microbatches
     (:func:`accumulated_grads`); the optimizer then gets fp32 G.
@@ -208,14 +262,18 @@ def make_train_step(bundle: ModelBundle, optimizer: GradientTransform, *,
     use_taps = grad_fused and accum == 1
 
     def train_step(state: TrainState, batch, lr: float, *,
-                   do_subspace_update: bool = False):
+                   do_subspace_update: bool = False,
+                   inject: int = health_lib.INJECT_NONE,
+                   eta_scale: float = 1.0):
+        gscale = (float("nan") if inject == health_lib.INJECT_NAN_GRAD
+                  else None)
         taps = None
         if use_taps and not do_subspace_update:
             loss, metrics, grads, taps = tapped_grads(bundle, state, batch,
-                                                      remat)
+                                                      remat, gscale)
         else:
             loss, metrics, grads = accumulated_grads(
-                bundle, state.params, batch, remat, accum)
+                bundle, state.params, batch, remat, accum, gscale)
         grads, gnorm = clip_by_global_norm(grads, clip_norm, taps=taps)
         if taps is not None:
             # the clip scaled G by s: A scales by s, the squared column
@@ -227,12 +285,37 @@ def make_train_step(bundle: ModelBundle, optimizer: GradientTransform, *,
                     t[..., :-1, :].mul_(s)
                     t[..., -1, :].mul_(s * s)
         with torch.no_grad():
-            # apply=True consumes grads and taps leaf by leaf
-            _, opt = optimizer.update(grads, state.opt, state.params, lr,
-                                      do_subspace_update=do_subspace_update,
-                                      apply=True, taps=taps)
-        metrics = dict(metrics, loss=loss, grad_norm=gnorm, lr=lr)
-        return TrainState(params=state.params, opt=opt), metrics
+            # the update frees grads and taps leaf by leaf: the held
+            # updates take the gradients' place
+            updates, opt, diag = optimizer.update(
+                grads, state.opt, state.params, lr,
+                do_subspace_update=do_subspace_update, taps=taps,
+                with_health=True, eta_scale=eta_scale)
+            del grads, taps
+            held = [u for u in tree_leaves(updates) if u is not None]
+            if inject == health_lib.INJECT_LOSS_SPIKE:
+                for u in held:   # a bf16 u is scaled in fp32, rounded once
+                    u.mul_(-health_lib.LOSS_SPIKE_AMP)
+            # the gate: the update norm and one host read of the report
+            # (a profiler range, so launch/profile_train.py can time it)
+            with torch.profiler.record_function(GATE_RANGE):
+                # one norm kernel per leaf: on an H100 torch._foreach_norm
+                # ran 1.3x to ~90x slower on these large tensors (PERF.md)
+                usq = torch.zeros((), dtype=torch.float32,
+                                  device=loss.device)
+                for u in held:
+                    usq = usq + torch.linalg.vector_norm(
+                        u, dtype=torch.float32) ** 2
+                del held
+                report = health_lib.report_to_host(health_lib.make_report(
+                    loss, gnorm, torch.sqrt(usq), diag))
+            if report.ok:
+                apply_updates(state.params, updates)
+                state = TrainState(params=state.params, opt=opt)
+            del updates, opt    # a quarantined step drops both
+        metrics = dict(metrics, loss=report.loss, grad_norm=report.grad_norm,
+                       lr=lr, **health_lib.report_metrics(report))
+        return state, metrics
 
     return train_step
 

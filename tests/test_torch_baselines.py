@@ -18,8 +18,9 @@ import torch
 
 from repro.core.api import get_optimizer as jax_get_optimizer
 from repro_torch.core.api import get_optimizer
-from repro_torch.core.subtrack import tree_map
+from repro_torch.core.subtrack import tree_leaves, tree_map
 from repro_torch.interop import opt_state_from_jax
+from repro_torch.launch.steps import apply_updates
 
 STEPS = 4
 
@@ -71,12 +72,13 @@ def test_baseline_steps_match_jax(name, kw):
         tu, tstate = topt.update(tree_map(torch.tensor, g), tstate,
                                  tparams, 0.01, do_subspace_update=False)
         for path, t, j in _pairs(tu, ju):
-            assert _rel(t, j) < 1e-5, (s, path)
-            if not np.any(np.asarray(j)):
+            if not np.any(np.asarray(j)):   # the port gives no update
                 frozen.add((s, path))
-                assert not torch.any(t), (s, path)
+                assert t is None, (s, path)
+            else:
+                assert _rel(t, j) < 1e-5, (s, path)
         jparams = jax.tree.map(lambda p, u: p + u, jparams, ju)
-        tparams = tree_map(lambda p, u: p + u, tparams, tu)
+        tparams = tree_map(_add, tparams, tu)
     assert tstate.step == int(jstate.step) == STEPS
     for path, t, j in _pairs(tstate.inner, jstate.inner):
         for f in ("M", "V"):
@@ -91,11 +93,16 @@ def test_baseline_steps_match_jax(name, kw):
         assert not frozen
 
 
+def _add(p, u):
+    return p if u is None else p + u
+
+
 @pytest.mark.parametrize("name", ["adamw", "badam"])
 def test_apply_in_place_matches_returned_updates(name):
-    """``update(..., apply=True)`` adds each update into its parameter,
-    releases the gradients and returns no updates; the state continues
-    from the JAX package's (``opt_state_from_jax``)."""
+    """``update`` releases the gradients and never writes the old state
+    (a second update from it is bit-identical); ``apply_updates`` adds
+    the held updates into the params in place and releases them.  The
+    state continues from the JAX package's (``opt_state_from_jax``)."""
     kw = {"block_interval": 1, "n_blocks": 3} if name == "badam" else {}
     opt = get_optimizer(name, **kw)
     params0 = _tree(np.random.default_rng(1), 0.1)
@@ -105,13 +112,14 @@ def test_apply_in_place_matches_returned_updates(name):
     params = tree_map(torch.tensor, params0)
     g = tree_map(torch.tensor, _tree(np.random.default_rng(2)))
     upd, want = opt.update(tree_map(torch.clone, g), state, params, 0.01)
-    applied = tree_map(torch.clone, params)
-    none, got = opt.update(g, state, applied, 0.01, apply=True)
-    assert none is None
+    held, got = opt.update(g, state, params, 0.01)
     assert all(v is None for v in (g["z"], g["a"], g["layers"]["wq"],
                                    g["layers"]["ln"]))
-    for path, a, b in _pairs(applied, tree_map(lambda p, u: p + u, params,
-                                                upd)):
+    assert (name == "badam") == any(u is None for u in tree_leaves(upd))
+    applied = tree_map(torch.clone, params)
+    apply_updates(applied, held)
+    assert all(u is None for u in tree_leaves(held))
+    for path, a, b in _pairs(applied, tree_map(_add, params, upd)):
         assert torch.equal(a, b), path
     for path, a, b in _pairs(got.inner, want.inner):
         assert all(torch.equal(x, y) for x, y in zip(a, b)), path

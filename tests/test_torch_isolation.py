@@ -1,5 +1,7 @@
-"""The port stands alone: it imports neither JAX nor the JAX package, and
-its entry point never drops to the CPU on its own."""
+"""The port stands alone: it imports neither JAX nor the JAX package (nor
+the ``msgpack`` and ``ml_dtypes`` packages the JAX package's checkpoints
+are written with), and its entry point never drops to the CPU on its
+own."""
 
 import os
 import subprocess
@@ -24,18 +26,21 @@ names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
 for name in names:
     importlib.import_module(name)
 leaked = sorted(m for m in sys.modules
-                if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+                if m.split(".")[0] in ("jax", "jaxlib", "repro", "msgpack",
+                                       "ml_dtypes", "zstandard"))
 print(len(names), leaked)
 """
 
 
 def test_importing_every_module_loads_no_jax_and_no_repro():
+    """Also none of msgpack, ml_dtypes and zstandard: the checkpoint
+    manager reads a zstd leaf through zstandard only when it meets one."""
     run = subprocess.run([sys.executable, "-c", _IMPORT_ALL],
                          env={**os.environ, "PYTHONPATH": str(SRC)},
                          capture_output=True, text=True, timeout=120)
     assert run.returncode == 0, run.stderr
     n_modules, leaked = run.stdout.split(" ", 1)
-    assert int(n_modules) >= 34
+    assert int(n_modules) >= 44
     assert leaked.strip() == "[]"
 
 
@@ -135,8 +140,7 @@ def test_ported_flags_run_on_the_asked_device(monkeypatch, entry, argv):
 
 @pytest.mark.parametrize("argv,match", [
     (["--mesh", "host"], "--mesh"),
-    (["--checkpoint-dir", "ckpt"], "--checkpoint-dir"),
-    (["--inject", "nan-grad@3"], "--inject"),
+    (["--inject", "dev-loss@3"], "--inject"),
     (["--arch", "gemma2-27b"], "not yet ported"),
 ])
 def test_train_parts_not_ported_yet_raise(argv, match):

@@ -30,6 +30,7 @@ from repro_torch.core import subspace as tsub
 from repro_torch.core.api import get_optimizer
 from repro_torch.interop import opt_state_from_jax
 from repro_torch.kernels import ops as tops
+from repro_torch.launch.steps import apply_updates
 
 ETA, RANK = 2e-5, 16
 
@@ -210,18 +211,30 @@ def test_optimizer_update_matches_jax(kernels, wd):
 
 
 def test_update_apply_in_place_matches_returned_updates():
+    """On plain and tracking steps ``update`` releases each gradient and
+    never writes the old state (a second update from it is bit-identical,
+    state too); ``apply_updates`` adds the held updates into the params
+    in place."""
     opt = get_optimizer("subtrack", rank=RANK, update_interval=2, eta=ETA,
                         use_kernels=True)
     params = _tmap(torch.tensor, _tree(np.random.default_rng(3)))
     state = opt.warm_start(opt.init(params), _tmap(torch.tensor, _grads(0)))
-    g = _tmap(torch.tensor, _grads(1))
-    upd, _ = opt.update(g, state, params, 0.01)
-    applied = _tmap(torch.clone, params)
-    none, _ = opt.update(g, state, applied, 0.01, apply=True)
-    assert none is None
-    for k in params:
-        torch.testing.assert_close(applied[k], params[k] + upd[k], atol=0,
-                                   rtol=0)
+    for track in (False, True):
+        g = _tmap(torch.tensor, _grads(1))
+        upd, want = opt.update(_tmap(torch.clone, g), state, params, 0.01,
+                               do_subspace_update=track)
+        held, got = opt.update(g, state, params, 0.01,
+                               do_subspace_update=track)
+        assert all(v is None for v in g.values())
+        applied = _tmap(torch.clone, params)
+        apply_updates(applied, held)
+        assert all(u is None for u in held.values())
+        for k in params:
+            torch.testing.assert_close(applied[k], params[k] + upd[k],
+                                       atol=0, rtol=0)
+        for k in want.inner:
+            for x, y in zip(got.inner[k], want.inner[k]):
+                assert torch.equal(x, y), (track, k)
 
 
 def test_warm_start_matches_jax_by_projector():
