@@ -5,8 +5,8 @@
 
 Phases (run in this order, except that 13-15 and 17-19, the kernel checks
 of the llama-1b slice and of the last three kernels, run right after phase
-10, before the long training runs, and 20-22 right after phase 16); any
-failure raises and the script exits non-zero:
+10, before the long training runs, 23 right after phase 11, and 20-22
+right after phase 16); any failure raises and the script exits non-zero:
 
 1. print the card's name and power limit as nvidia-smi gives them;
 2. build every CUDA kernel of the ported paths from ``src/repro_torch/csrc``
@@ -172,8 +172,9 @@ failure raises and the script exits non-zero:
    dots within ``REMAT_LOSS_REL`` of full's, step times and peaks
    printed; (c) ``method="grass"`` with its own warm start: S one-hot in
    every low-rank leaf after the warm start and after the tracking step,
-   3 launches per leaf on every step (project_colnorms,
-   adam_lowrank_norms, fused_update); (d) AdamW and BAdam: no launch,
+   2 launches per leaf on every step (adam_lowrank_norms, fused_update:
+   its projection is the grass program's ``sel_gather`` round, a gather
+   of G's rows); (d) AdamW and BAdam: no launch,
    peaks and ``state_bytes`` beside the low-rank run's;
 22. the runtime around llama-1b's step, from phase 16's final state (after
    its step 3), in a temporary directory whose free disk is printed first
@@ -191,8 +192,24 @@ failure raises and the script exits non-zero:
    step 6 (a checkpoint at 5) and restarted: steps 6-9 within
    ``RESTART_RTOL`` of (d)'s uninterrupted losses; the phase's time
    printed;
-23. print the kernels line (project, project_colnorms and the front end
-   with their fp32 routes' times as ``fp32_ms``), then ``{"ok": true,
+23. the multi-GPU StepPrograms at group size 1 on a one-rank NCCL group
+   (NCCL refuses two ranks on one device, so every round is an identity
+   here; runs of 2 and 4 ranks are held on the CPU over gloo), from phase
+   11's final llama-7b state, which phase 12 then continues: from one
+   clipped gradient of the stream's next batch, (a) the row programs
+   (every low-rank leaf's canonical m on the ``model`` axis), (b) row-rs
+   and (c) column, one plain and one tracking optimizer step each at eta
+   ``MESH_ETA``, leaf by leaf beside the replicated program's on the same
+   state: exact launch counts (a row-family tracking step launches
+   tangent_gram once per leaf and project never), updates and S, M, V
+   within ``MESH_REL``, step times beside the replicated program's and
+   phase 11's, tangent_gram's share; (d) the bf16 smoke llama through
+   ``torchrun --nproc-per-node 1 -m repro_torch.launch.train --mesh
+   host`` and through ``--mesh smoke``: the same losses and launches; the
+   phase's time printed;
+24. print the kernels line (project, project_colnorms and the front end
+   with their fp32 routes' times as ``fp32_ms``; tangent_gram's launches
+   those of phase 23's row tracking step), then ``{"ok": true,
    "device": {...}}`` last.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -1277,7 +1294,8 @@ def phase_train_7b() -> dict:
           f" tok/s on warm plain steps; peak memory {peak / 2**30:.2f} GiB; "
           f"launches {launches}", flush=True)
     return {"launches": launches, "plain_steps": n_plain,
-            "tracking_steps": 1, "state": out["state"]}
+            "tracking_steps": 1, "plain_s": plain_s, "tracking_s": track_s,
+            "state": out["state"]}
 
 
 def phase_train_7b_grad_fused(trained: dict) -> dict:
@@ -1371,6 +1389,319 @@ def phase_train_7b_grad_fused(trained: dict) -> dict:
               flush=True)
     return {"launches": launches, "plain_s": plain_s, "tracking_s": track_s,
             "tok_s": tok_s, "peak_gib": peak / 2**30}
+
+
+# ---------------------------------------------------------------------------
+# The multi-GPU StepPrograms at group size 1 (phase 23)
+# ---------------------------------------------------------------------------
+
+# a program's step against the replicated program's on the same state, of
+# the largest entry (bf16 updates: the first ulp of each entry forgiven):
+# a plain step runs the same kernels on the same inputs; a tracking step
+# of the row family runs the gram schedule against the tangent schedule
+MESH_REL = {False: 1e-5, True: 1e-3}
+# the clip holds each leaf's ||G|| <= 1, so sigma <= 2 ||G - S A|| ||A|| <= 2
+# and theta = eta sigma <= 1: O(1), inside the clamp.  At phase 11's eta 10
+# theta clamps at ~pi/2, the rotation all but zeroes the moments of the
+# basis's turned direction, and the next Adam step divides by |Gt| there:
+# 1e-6 of difference in the new projection flips signs (6.1e-3 of the
+# largest entry of lm_head's update, measured on the H100)
+MESH_ETA = 0.5
+MESH_PROGRAMS = {   # name -> (sharded canonical dim, row_state)
+    "row": ("m", "auto"), "row-rs": ("m", "reduce-scatter"),
+    "column": ("n", "auto")}
+
+
+def _leaf_paths(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            yield from _leaf_paths(v, prefix + (k,))
+        else:
+            yield prefix + (k,), v
+
+
+def _at(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _nested(path, leaf) -> dict:
+    for k in reversed(path):
+        leaf = {k: leaf}
+    return leaf
+
+
+def _program_specs(params, rank: int, dim: str) -> dict:
+    """Every low-rank leaf's canonical m (``dim`` "m") or n dim on the
+    ``model`` axis; dense leaves replicated."""
+    from repro_torch.core import plan as plan_lib
+    from repro_torch.core.subtrack import tree_map
+
+    def leaf(p):
+        plan = plan_lib.plan_for_shape(tuple(p.shape), rank)
+        if plan.mode != "lowrank":
+            return ()
+        spec = [None] * p.dim()
+        n_dim = p.dim() - 2 if plan.transpose else p.dim() - 1
+        spec[(2 * p.dim() - 3 - n_dim) if dim == "m" else n_dim] = "model"
+        return tuple(spec)
+
+    return tree_map(leaf, params)
+
+
+def _mesh_steps(opt, replicated, grads, params, opt_state, lr: float,
+                tracking: bool) -> dict:
+    """One optimizer step of ``opt``'s programs over every low-rank leaf,
+    leaf by leaf (a single-leaf tree each: the whole tree's new moments
+    and updates beside the model and its gradients would not fit), each
+    beside the replicated program's step on the same leaf and state.
+    Returns the summed step times (each leaf's call between two device
+    syncs), ``opt``'s launch counts, the worst errors, and the device time
+    of ``tangent_gram`` (CUDA events around each call)."""
+    from collections import Counter
+
+    from repro_torch.core.lowrank_adam import MatrixOptState
+    from repro_torch.core.subtrack import OptState
+    from repro_torch.kernels import ops
+
+    counts, errs = Counter(), {}
+    t_prog = t_rep = theta = 0.0
+    events = []
+    tangent_gram = ops.tangent_gram
+
+    def timed_gram(*args, **kw):
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        out = tangent_gram(*args, **kw)
+        ev[1].record()
+        events.append(ev)
+        return out
+
+    for path, st in _leaf_paths(opt_state.inner):
+        if not isinstance(st, MatrixOptState):
+            continue
+
+        def step(o):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            upd, new, diag = o.update(
+                _nested(path, _at(grads, path)),
+                OptState(opt_state.step, opt_state.n_updates,
+                         _nested(path, st)),
+                _nested(path, _at(params, path)), lr, tracking,
+                with_health=True)
+            torch.cuda.synchronize()
+            return _at(upd, path), _at(new.inner, path), diag, \
+                time.perf_counter() - t0
+
+        ops.reset_launch_counts()
+        ops.tangent_gram = timed_gram
+        try:
+            upd, new, diag, dt = step(opt)
+        finally:
+            ops.tangent_gram = tangent_gram
+        counts.update(ops.launch_counts())
+        t_prog += dt
+        theta = max(theta, diag[1].item())
+        upd_r, new_r, _, dt = step(replicated)
+        t_rep += dt
+        name = path[-1]
+        errs[f"{name} update"] = _stack_rel(upd, upd_r)
+        for field, a, b in zip(("S", "M", "V", "lam"), new, new_r):
+            if a.shape != b.shape:
+                raise AssertionError(f"{name} {field}: {tuple(a.shape)} vs "
+                                     f"{tuple(b.shape)}")
+            errs[f"{name} {field}"] = _stack_rel(a, b)
+        del upd, new, upd_r, new_r
+        torch.cuda.empty_cache()      # the next leaf's blocks, unfragmented
+    gram_ms = sum(a.elapsed_time(b) for a, b in events)
+    return {"s": t_prog, "replicated_s": t_rep, "launches": dict(counts),
+            "err": max(errs.values()), "worst": max(errs, key=errs.get),
+            "tangent_gram_ms": gram_ms, "theta": theta}
+
+
+def _stack_rel(got, want) -> float:
+    """``_opt_error``'s relative error, one matrix of a stack at a time:
+    fp32 copies of a whole 7b stack would not fit beside the model."""
+    if got.dim() < 3:
+        return _opt_error(got, want)[1]
+    worst = scale = 0.0
+    for g, w in zip(got, want):
+        w_max = w.float().abs().max().item()
+        worst = max(worst, _opt_error(g, w)[1] * w_max)
+        scale = max(scale, w_max)
+    return worst / max(scale, 1e-30)
+
+
+def phase_mesh_programs(trained: dict) -> dict:
+    """Phase 23, right after phase 11 and from its final llama-7b state
+    (rank 1024, full width; no new warm start), which it leaves as it
+    found it for phase 12: the multi-GPU StepPrograms at group size 1 on
+    a one-rank NCCL group.  NCCL refuses two ranks on one device, so on
+    this card the layouts, the gram schedule and its kernels are real and
+    every collective round is an identity; runs of two and four ranks are
+    held on the CPU over gloo (tests/test_torch_mesh.py).
+
+    From one gradient of the stream's next batch (clipped as the train
+    step clips it), for (a) the row programs (every low-rank leaf's
+    canonical m on the ``model`` axis), (b) row-rs (``row_state=
+    "reduce-scatter"``) and (c) column (canonical n), one plain and one
+    tracking optimizer step, leaf by leaf beside the replicated
+    program's on copies of the same state: exact launch counts (a
+    row-family tracking step launches tangent_gram once per leaf and
+    project never), updates and S, M, V within ``MESH_REL``, and the step
+    times (summed over the leaves) beside the replicated program's and
+    phase 11's whole train steps, with tangent_gram's share.  (d) The
+    driver: the smoke config through ``torchrun --nproc-per-node 1 -m
+    repro_torch.launch.train --mesh host`` (its NCCL initialisation) and
+    through ``--mesh smoke``: the same losses."""
+    import torch.distributed as dist
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.api import get_optimizer
+    from repro_torch.core.program import build_program
+    from repro_torch.core import plan as plan_lib
+    from repro_torch.core.subtrack import tree_leaves
+    from repro_torch.data.pipeline import (DataConfig, SyntheticLMDataset,
+                                           fetch_batch)
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import host_context
+    from repro_torch.launch.steps import clip_by_global_norm, value_and_grad
+    from repro_torch.models.api import build_model
+
+    t_phase = time.perf_counter()
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1,
+                            device_id=torch.device("cuda", 0))
+    results = {}
+    try:
+        one = torch.ones(1, device="cuda")
+        dist.all_reduce(one)
+        torch.cuda.synchronize()
+        if one.item() != 1.0:
+            raise AssertionError(f"one-rank NCCL all-reduce gave {one}")
+        ctx = host_context()
+        cfg = get_config("llama-7b")
+        state = trained["state"]
+        params, opt_state = state.params, state.opt
+        del state
+        data = SyntheticLMDataset(DataConfig(vocab_size=cfg.vocab_size,
+                                             seq_len=512, global_batch=2,
+                                             seed=SEED))
+        batch, ok = fetch_batch(cfg, data, 4)
+        if not ok:
+            raise AssertionError("llama-7b: batch 4 rejected")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _, _, grads = value_and_grad(build_model(cfg), params,
+                                     {k: v.cuda() for k, v in batch.items()},
+                                     "full")
+        with torch.no_grad():
+            grads, _ = clip_by_global_norm(grads, 1.0)
+            kw = dict(rank=RANK_7B, update_interval=2, eta=MESH_ETA,
+                      use_kernels=True)
+            replicated = get_optimizer("subtrack", **kw)
+            zero = {k: 0 for k in ops.launch_counts()}
+            for name, (dim, row_state) in MESH_PROGRAMS.items():
+                specs = _program_specs(params, RANK_7B, dim)
+                opt = get_optimizer("subtrack", **kw, mesh=ctx,
+                                    param_specs=specs, row_state=row_state)
+                plans = [p for p in tree_leaves(plan_lib.make_plans(
+                    params, RANK_7B, specs=specs)) if p.mode == "lowrank"]
+                progs = {build_program(p, opt.config, ctx, tracking=True)
+                         .regime for p in plans}
+                if progs != {name}:
+                    raise AssertionError(f"{name}: programs {progs}")
+                for tracking in (False, True):
+                    res = _mesh_steps(opt, replicated, grads, params,
+                                      opt_state, 1e-3, tracking)
+                    leaves = N_LOWRANK_LEAVES
+                    front = (("tangent", "tangent_gram") if dim == "m"
+                             else ("tangent", "project"))
+                    want = dict(zero, project_colnorms=leaves,
+                                adam_lowrank_norms=leaves,
+                                fused_update=leaves,
+                                **({k: leaves for k in front}
+                                   if tracking else {}))
+                    kind = "tracking" if tracking else "plain"
+                    if res["launches"] != want:
+                        raise AssertionError(
+                            f"{name} {kind} launches {res['launches']}, "
+                            f"want {want}")
+                    if tracking and not 0.0 < res["theta"] < 1.2:
+                        raise AssertionError(f"{name}: largest theta "
+                                             f"{res['theta']}")
+                    if not res["err"] <= MESH_REL[tracking]:
+                        raise AssertionError(
+                            f"{name} {kind}: {res['worst']} off the "
+                            f"replicated program's by {res['err']:.2e}")
+                    results[(name, kind)] = res
+                    p11 = trained["tracking_s" if tracking else "plain_s"]
+                    p11 = ([round(t, 3) for t in p11]
+                           if isinstance(p11, list) else round(p11, 3))
+                    share = (f"; largest theta {res['theta']:.4f}"
+                             if tracking else "")
+                    share += (f"; tangent_gram {res['tangent_gram_ms']:.2f} "
+                             f"ms, {res['tangent_gram_ms'] / 10 / res['s']:.1f}"
+                             "% of it" if res["tangent_gram_ms"] else "")
+                    print(f"[mesh] llama-7b {name} programs at group 1, "
+                          f"{kind} step: optimizer {res['s']:.3f} s over the "
+                          f"{leaves} low-rank leaves (replicated program "
+                          f"{res['replicated_s']:.3f} s; phase 11's whole "
+                          f"{kind} train steps {p11} s){share}; worst error "
+                          f"{res['err']:.2e} ({res['worst']}, budget "
+                          f"{MESH_REL[tracking]:g}); launches "
+                          f"{ {k: v for k, v in res['launches'].items() if v} }",
+                          flush=True)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            print(f"[mesh] peak memory {peak:.2f} GiB", flush=True)
+        del grads, params, opt_state
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # (d) the driver: torchrun's one rank on NCCL against --mesh smoke
+        argv = ["-m", "repro_torch.launch.train", "--arch", "llama-100m",
+                "--smoke", "--rank", "32", "--update-interval", "2",
+                "--steps", "4", "--batch", "4", "--seq", "64",
+                "--use-kernels", "--eta", "2e-5", "--seed", str(SEED),
+                "--log-every", "1"]
+        build = ROOT / "build"
+        build.mkdir(exist_ok=True)
+        env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+        runs = {}
+        for mesh, launch in (
+                ("host", [sys.executable, "-m", "torch.distributed.run",
+                          "--standalone", "--nproc-per-node", "1"]),
+                ("smoke", [sys.executable])):
+            out = build / f"mesh_{mesh}.json"
+            cmd = launch + argv + ["--mesh", mesh, "--metrics-out", str(out)]
+            t0 = time.perf_counter()
+            proc = subprocess.run(cmd, cwd=ROOT, env=env, capture_output=True,
+                                  text=True, timeout=600)
+            if proc.returncode:
+                raise AssertionError(f"{' '.join(cmd)} exited "
+                                     f"{proc.returncode}:\n{proc.stdout[-3000:]}"
+                                     f"\n{proc.stderr[-3000:]}")
+            runs[mesh] = json.loads(out.read_text())
+            out.unlink()
+            print(f"[mesh] --mesh {mesh}: losses {runs[mesh]['losses']} "
+                  f"({time.perf_counter() - t0:.1f} s with the start-up)",
+                  flush=True)
+        if runs["host"]["losses"] != runs["smoke"]["losses"] \
+                or runs["host"]["launch_counts"] \
+                != runs["smoke"]["launch_counts"] \
+                or not any(runs["host"]["launch_counts"].values()):
+            raise AssertionError(f"--mesh host {runs['host']} vs --mesh "
+                                 f"smoke {runs['smoke']}")
+    finally:
+        dist.destroy_process_group()
+    print(f"[mesh] phase 23: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return {"launches": results[("row", "tracking")]["launches"],
+            "results": results}
 
 
 # ---------------------------------------------------------------------------
@@ -2466,8 +2797,9 @@ def phase_train_1b_options(trained_1b: dict) -> None:
     res = go("grass", grass, warm.opt)
     del warm
     _one_hot_bases(res.pop("state").opt)
+    # the projection is the program's row gather: no project_colnorms
     want_grass = dict(want, project_tangent_colnorms=0, project=0,
-                      project_colnorms=N_LOWRANK_LEAVES * steps)
+                      project_colnorms=0)
     if res["launches"] != want_grass:
         raise AssertionError(f"grass launches {res['launches']}, want "
                              f"{want_grass}")
@@ -2771,10 +3103,11 @@ def main() -> int:
     unfused = phase_unfused_step()
     gram_err = phase_check_gram_adam()
     gram_time = phase_time_gram_adam()
-    gram = phase_gram_schedule()
+    phase_gram_schedule()
     flash = phase_flash()
     phase_time_svd()
     trained = phase_train_7b()
+    mesh = phase_mesh_programs(trained)
     fused = phase_train_7b_grad_fused(trained)
     trained_1b = phase_train_1b()
     phase_serve_dense(served)
@@ -2835,7 +3168,7 @@ def main() -> int:
                 kernels[-1][key] = t[key]
     for name, src, line, launches in (
             ("tangent_gram", "grassmann_tangent_gram.cu", 479,
-             gram["launches"]),
+             mesh["launches"]["tangent_gram"]),
             ("adam_lowrank", "adam_lowrank_norms.cu", 634,
              gram_err["adam_lowrank_launches"])):
         t = gram_time[name]

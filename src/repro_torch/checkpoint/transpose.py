@@ -1,7 +1,7 @@
 """Layout-transposing checkpoint restore on one device.
 
 Counterpart of ``repro.checkpoint.transpose`` (all but ``restore_targets``,
-which reports sharded regimes and waits for the multi-GPU slice).  Every
+which restores sharded state and waits for the sharded restore).  Every
 leaf is stored as its logical array, so a checkpoint written under one
 program is portable to another: on save, :func:`state_program_records`
 puts one :class:`~repro_torch.core.program.StateDescriptor` record per

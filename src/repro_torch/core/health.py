@@ -19,6 +19,7 @@ import math
 from typing import NamedTuple, Optional
 
 import torch
+import torch.distributed as dist
 
 # Indices into the per-leaf subspace diagnostic vector.
 DIAG_SIGMA = 0        # raw top singular value of the tangent (pre-clamp)
@@ -88,6 +89,26 @@ def make_report(loss: torch.Tensor, grad_norm: torch.Tensor,
 def step_ok(report: HealthReport) -> torch.Tensor:
     """The quarantine gate (``report.ok``)."""
     return report.ok
+
+
+def agree_over(report: HealthReport, group) -> HealthReport:
+    """One verdict over a mesh: the gate and the two guard flags
+    MAX-all-reduced over ``group`` (a quarantine anywhere quarantines
+    every rank), so no replica applies a step another dropped.  The
+    values (loss, norms, sigma, theta) are the same on every rank by
+    construction: the forward runs whole on each, the update norm is
+    taken over the gathered updates, and the tracker's diagnostics
+    derive from summed quantities.  ``group`` None (one rank) returns
+    ``report``."""
+    if group is None:
+        return report
+    flags = torch.stack([(~report.ok).float(), report.theta_clamped.float(),
+                         report.geo_degenerate.float()])
+    opts = dist.AllreduceOptions()
+    opts.reduceOp = dist.ReduceOp.MAX
+    group.allreduce([flags], opts).wait()
+    return report._replace(theta_clamped=flags[1], geo_degenerate=flags[2],
+                           ok=flags[0] == 0)
 
 
 def report_to_host(report: HealthReport) -> HealthReport:

@@ -6,8 +6,9 @@ Counterpart of ``repro.core.lowrank_adam``.  Every function takes a
 gradient ``G (..., m, n)`` with ``m <= n`` and its per-matrix state with
 the same leading stack dims: the JAX package ``vmap``s one matrix, the
 port runs the stack batched (one kernel launch per leaf).  fp32
-throughout.  Only the replicated (one-device) program is ported: every
-collective round of the JAX ``Exec`` is an identity here.
+throughout.  Every cross-rank interaction of the step is a named round of
+the leaf's StepProgram, issued (or skipped) by its
+:class:`~repro_torch.core.program.Exec`.
 
 The default rotation is the raw-moment form
 
@@ -23,6 +24,8 @@ from dataclasses import dataclass
 from typing import NamedTuple, Optional
 
 import torch
+
+from repro_torch.core import program as program_lib
 
 _TINY = 1e-30
 # Relative noise floor for the closed-form residual energy ||G_:,j||^2 -
@@ -137,30 +140,68 @@ def _limiter(lam_norm, lam_prev, zeta: float):
 
 
 def _fused_step(G, st, step, hp, rotated, S, recovery, backend, lr,
-                weight_decay, param, out_dtype, gsq=None,
+                weight_decay, param, out_dtype, exec, gsq=None,
                 proj=None) -> MatrixStepOut:
-    """Single-pass hot-path schedule, replicated program only:
+    """Single-pass hot-path schedule:
 
         project_colnorms     Gt = S^T G (+ ||G_:,j||^2)
+        [round "proj"]       the stacked [Gt; gsq] made global, or this
+                             shard's state slice of it
         adam_lowrank_norms   M', V', Gto (+ ||Gt_:,j||^2, ||Gto_:,j||^2)
+        [round "clip" / "epilogue_gather"]
         fused_update         upd = -lr*scale*(S Gto + (G - S Gt) phi clip)
 
     The Eq. 12 clip is known before the epilogue from the exact identity
-    ||Lam||^2 = sum_j phi_j^2 (||G_:,j||^2 - ||Gt_:,j||^2).  A tracking
-    step passes ``gsq`` (harvested by its front end; basis-independent),
-    and the projection onto the new basis runs through ``project``.  A
-    grad-fused plain step passes both ``proj`` and ``gsq`` (the backward's
-    tap) and skips the projection pass over G.  The JAX package's sharded
-    branches (``sel_gather`` of the Grass regime, the row and row-rs
-    rounds) come with the multi-GPU slice."""
+    ||Lam||^2 = sum_j phi_j^2 (||G_:,j||^2 - ||Gt_:,j||^2).  Per regime:
+    replicated programs declare no round; column programs the scalar
+    "clip" sum; row programs "proj" as an all-reduce, after which Adam,
+    phi and the clip run redundantly on replicated inputs and
+    ``fused_update`` writes the local rows; row-rs programs "proj" as a
+    reduce-scatter (each shard gets its (r, n/g) column slice, Adam runs
+    on the sliced M/V) and one "epilogue_gather" of the stacked [Gt; Gto;
+    phi; clip partials] back to full width before the epilogue.  The
+    grass program's "sel_gather": S is a one-hot row selection, so A is a
+    gather of G's rows.
+
+    A tangent-schedule tracking step passes ``gsq`` (harvested by its
+    front end; basis-independent), and the projection onto the new basis
+    runs through ``project``.  A gram-schedule tracking step passes
+    ``proj`` too, the global new-basis projection its rounds already
+    assembled (``A_new``), which the state layout only slices: no
+    projection pass.  A grad-fused plain step passes both from the
+    backward's tap."""
+    n = G.shape[-1]
     if proj is not None:
-        # a row slice of the stacked (r+1, n) tap: the kernels take it
-        # contiguous
-        Gt = proj.contiguous()
+        # already-global new-basis projection, or a row slice of the tap:
+        # the kernels take it contiguous
+        Gt_full = proj.contiguous()
+        Gt = exec.state_slice(Gt_full)
+        gsq_st = exec.state_slice(gsq)
     elif gsq is None:
-        Gt, gsq = backend.project_colnorms(S, G)
+        if exec.has("sel_gather"):
+            idx = S.argmax(dim=-2)                         # (..., r)
+            Gt = torch.gather(G, -2, idx[..., None].expand(
+                idx.shape + (n,))).float()
+            gsq_st = torch.linalg.vector_norm(G, dim=-2,
+                                              dtype=torch.float32) ** 2
+        else:
+            Gt, gsq_st = backend.project_colnorms(S, G)
+        if exec.has("proj"):
+            stacked = exec.collective(
+                "proj", torch.cat([Gt, gsq_st[..., None, :]], dim=-2))
+            Gt, gsq_st = (stacked[..., :-1, :].contiguous(),
+                          stacked[..., -1, :])
+        # the reduce-scatter flavour never materializes the global panel
+        Gt_full = Gt if Gt.shape[-1] == n else None
+        if Gt.shape[-1] != exec.state_width(n):
+            # an invariant guard no program reaches: a full-width round
+            # paired with sliced state takes this shard's block locally
+            Gt = exec.state_slice(Gt)
+            gsq_st = exec.state_slice(gsq_st)
     else:
         Gt = backend.project(S, G)
+        gsq_st = gsq
+        Gt_full = Gt
     M_prev, V_prev = (st.M, st.V) if rotated is None else rotated
     M, V, Gto, gtsq, gtosq = backend.adam_lowrank_norms(
         Gt, M_prev, V_prev, step, beta1=hp.beta1, beta2=hp.beta2,
@@ -173,17 +214,34 @@ def _fused_step(G, st, step, hp, rotated, S, recovery, backend, lr,
     if recovery:
         # phi_j = ||Gto_:,j|| / ||Gt_:,j|| (Eq. 11), zeroed below the fp32
         # cancellation floor of the column's residual energy
-        resid_sq = torch.clamp_min(gsq - gtsq, 0.0)
-        keep = (resid_sq > _RESID_REL_FLOOR * gsq).float()
+        resid_sq = torch.clamp_min(gsq_st - gtsq, 0.0)
+        keep = (resid_sq > _RESID_REL_FLOOR * gsq_st).float()
         phi = keep * torch.sqrt(gtosq) / torch.clamp_min(torch.sqrt(gtsq),
                                                          _TINY)
-        lam_norm = torch.sqrt((phi * phi * resid_sq).sum(dim=-1))
-        clip, lam_new = _limiter(lam_norm, st.lam_prev, hp.zeta)
-        upd = backend.fused_update(G, S, Gt, Gto, phi, coef, clip,
+        lam_part = phi * phi * resid_sq                    # (..., n_state)
+        if exec.has("epilogue_gather"):
+            # full width for the write-back: [Gt, where the scatter left
+            # it sliced; Gto; phi; clip partials] gathered in one round
+            pieces = ([] if Gt_full is not None else [Gt]) + [
+                Gto, phi[..., None, :], lam_part[..., None, :]]
+            full = exec.collective("epilogue_gather",
+                                   torch.cat(pieces, dim=-2))
+            r = Gto.shape[-2]
+            if Gt_full is None:
+                Gt_full, full = full[..., :r, :].contiguous(), \
+                    full[..., r:, :]
+            Gto = full[..., :r, :].contiguous()
+            phi = full[..., r, :].contiguous()
+            lam_sq = full[..., r + 1, :].sum(dim=-1)
+        else:
+            lam_sq = exec.collective("clip", lam_part.sum(dim=-1))
+        clip, lam_new = _limiter(torch.sqrt(lam_sq), st.lam_prev, hp.zeta)
+        upd = backend.fused_update(G, S, Gt_full, Gto, phi, coef, clip,
                                    out_dtype=out_dtype, param=wd_param,
                                    wd_coef=wd_coef)
     else:
         lam_new = st.lam_prev
+        Gto = exec.collective("epilogue_gather", Gto)
         upd = backend.fused_update(None, S, None, Gto, None, coef, 1.0,
                                    out_dtype=out_dtype, param=wd_param,
                                    wd_coef=wd_coef)
@@ -196,7 +254,7 @@ def lowrank_adam_step(G, st: MatrixOptState, step: int, hp: AdamHP, *,
                       precomputed_proj=None, backend=None,
                       lr: Optional[float] = None, weight_decay: float = 0.0,
                       param=None, out_dtype=None,
-                      precomputed_gsq=None) -> MatrixStepOut:
+                      precomputed_gsq=None, exec=None) -> MatrixStepOut:
     """One Alg. 1 iteration for a (stack of) matrices.
 
     When the subspace just moved, callers pass ``S_new`` plus the rotated
@@ -209,17 +267,24 @@ def lowrank_adam_step(G, st: MatrixOptState, step: int, hp: AdamHP, *,
     whose (m, n) products run through the backend's ``project``,
     ``backproject`` and ``recovery`` when one is given (the JAX package's
     legacy contract) and in plain PyTorch when not.  ``step`` is the
-    Python int count of
-    updates applied so far.  ``precomputed_proj`` (S^T G on the current
-    basis) and ``precomputed_gsq`` (||G_:,j||^2) together are the
-    grad-fused plain step's tap; ``precomputed_gsq`` alone is the
-    tracking step's harvested norms."""
+    Python int count of updates applied so far.
+
+    ``precomputed_proj`` (S^T G) and ``precomputed_gsq`` (||G_:,j||^2)
+    together are the grad-fused plain step's tap, or a gram-schedule
+    tracking step's new-basis projection and harvested norms;
+    ``precomputed_gsq`` alone is the tangent schedule's harvested norms.
+    ``exec`` is the :class:`~repro_torch.core.program.Exec` of the leaf's
+    StepProgram, whose declared rounds are the only collectives issued
+    (the null program's by default: identities)."""
     S = st.S if S_new is None else S_new
     out_dtype = out_dtype or torch.float32
+    exec = exec if exec is not None else program_lib.NULL_EXEC
     if backend is not None and lr is not None:
-        proj = precomputed_proj if precomputed_gsq is not None else None
+        proj = (precomputed_proj
+                if (exec.schedule == "gram" or precomputed_gsq is not None)
+                else None)
         return _fused_step(G, st, step, hp, rotated, S, recovery, backend,
-                           lr, weight_decay, param, out_dtype,
+                           lr, weight_decay, param, out_dtype, exec,
                            gsq=precomputed_gsq, proj=proj)
 
     # the kernels widen G per tile (exactly, as the JAX package's fp32 copy
@@ -227,10 +292,10 @@ def lowrank_adam_step(G, st: MatrixOptState, step: int, hp: AdamHP, *,
     G = G if backend is not None else G.float()
     if precomputed_proj is not None:
         Gt = precomputed_proj
-    elif backend is not None:
-        Gt = backend.project(S, G)
     else:
-        Gt = S.mT @ G
+        Gt = backend.project(S, G) if backend is not None else S.mT @ G
+        if exec.rows_sharded:                  # A contracts over the rows
+            Gt = exec.psum(Gt)
     M_prev, V_prev = (st.M, st.V) if rotated is None else rotated
     M = hp.beta1 * M_prev + (1.0 - hp.beta1) * Gt
     V = hp.beta2 * V_prev + (1.0 - hp.beta2) * (Gt * Gt)
@@ -252,7 +317,9 @@ def lowrank_adam_step(G, st: MatrixOptState, step: int, hp: AdamHP, *,
             Lam = backend.recovery(S, G, Gt.contiguous(), phi)
         else:
             Lam = (G - S @ Gt) * phi[..., None, :]
-        lam_norm = torch.sqrt((Lam * Lam).sum(dim=(-2, -1)))
+        # the ||Lam||^2 partial is shard-local under either sharded
+        # layout (columns or rows of Lam): one raw sum either way
+        lam_norm = torch.sqrt(exec.psum((Lam * Lam).sum(dim=(-2, -1))))
         scale, lam_new = _limiter(lam_norm, st.lam_prev, hp.zeta)
         Lam = Lam * scale[..., None, None]
         delta = hp.scale * (Ghat + Lam)

@@ -8,13 +8,12 @@ projection (Eq. 2-3), the Grassmann tangent (Eq. 4) in its fused form
 ``-2 G A^T + 2 S (A A^T)``, the top singular triple of the tangent by a
 Gram power iteration, and the rank-1 geodesic step (Eq. 5).
 
-``track_subspace`` has both schedules of the JAX package: the tangent
-schedule (the replicated program, which the optimizer runs) and the gram
-schedule of the row-sharded programs, at group size 1.  On one device the
-gram schedule's two collective rounds are identities; the multi-GPU slice
-adds them, and a StepProgram to pick the schedule.  Random draws take an
-explicit ``torch.Generator``; they differ from the JAX package's
-``jax.random`` draws.
+``track_subspace`` runs the schedule of the leaf's StepProgram
+(``repro_torch.core.program``): the tangent schedule of the replicated and
+column programs, or the gram schedule of the row-family programs, whose
+collective rounds the program's :class:`~repro_torch.core.program.Exec`
+issues by name.  Random draws take an explicit ``torch.Generator``; they
+differ from the JAX package's ``jax.random`` draws.
 """
 
 from __future__ import annotations
@@ -24,6 +23,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.core import program as program_lib
 from repro_torch.core.health import THETA_MAX
 
 _TINY = 1e-30
@@ -259,9 +259,13 @@ class TrackResult(NamedTuple):
 
 
 def _track_tangent_schedule(S, G, *, eta, fused_tangent, exact_top1,
-                            power_iters, backend) -> TrackResult:
-    """The replicated tangent schedule: the (m, r) tangent, its top-1
-    triple, the stabilizer, the guards and the geodesic."""
+                            power_iters, backend, exec) -> TrackResult:
+    """The tangent schedule (replicated and column programs): the (m, r)
+    tangent on every shard, its top-1 triple, the stabilizer, the guards
+    and the geodesic.  Under a column program the round "tangent_psum"
+    sums the shards' tangents: T = -2 G A^T + 2 S (A A^T) is a sum over
+    columns (A A^T = S^T W with W = G A^T), so the shard-local tangents
+    add up to the global one.  A and gsq stay per column, on the shard."""
     if backend is not None:
         A, gsq, T = backend.project_tangent_colnorms(S, G)
     else:
@@ -269,6 +273,7 @@ def _track_tangent_schedule(S, G, *, eta, fused_tangent, exact_top1,
         A = project(S, G)
         gsq = None
         T = (tangent_fused if fused_tangent else tangent_naive)(S, G, A)
+    T = exec.collective("tangent_psum", T)
     triple = (top1_eigh(T) if exact_top1
               else top1_power(T, n_iter=power_iters))
     # DESCENT: follow -grad F (the printed Alg. 1 ascends; see the JAX
@@ -282,12 +287,12 @@ def _track_tangent_schedule(S, G, *, eta, fused_tangent, exact_top1,
 
 
 def _track_gram_schedule(S, G, *, eta, fused_tangent, exact_top1,
-                         power_iters, backend) -> TrackResult:
-    """The gram schedule (``repro/core/subspace.py`` ``_track_gram_schedule``)
-    at group size 1.  Under a row-sharded program S and G are row slices and
-    two collective rounds make everything after them replicated; on one
-    device both rounds are identities, and the multi-GPU slice inserts them
-    where the comments say.
+                         power_iters, backend, exec) -> TrackResult:
+    """The gram schedule of the row-family programs (``repro/core/
+    subspace.py`` ``_track_gram_schedule``): S and G arrive as (m/g, r) and
+    (m/g, n) row shards, and two collective rounds make everything after
+    them replicated algebra plus row-local panel math.  At group size 1
+    both rounds are identities.
 
     Round "proj" sums the stacked [A; ||G_:,j||^2] over the row shards.
     Given the global A, the tangent T = -2 G A^T + 2 S (A A^T) is row-local.
@@ -311,14 +316,25 @@ def _track_gram_schedule(S, G, *, eta, fused_tangent, exact_top1,
         G = G.float()
         A = S.mT @ G
         gsq = (G * G).sum(dim=-2)
-    # round "proj": [A; gsq] summed over the row shards
+    if exec.has("proj"):
+        # round "proj": [A; gsq] summed over the row shards
+        stacked = exec.collective("proj", torch.cat([A, gsq[..., None, :]],
+                                                    dim=-2))
+        A, gsq = stacked[..., :-1, :].contiguous(), stacked[..., -1, :]
+    n, r = G.shape[-1], S.shape[-1]
     if backend is not None:
         T = backend.tangent(G, A, S)     # this shard's rows of the tangent
         TtG, StT, C, StS = backend.tangent_gram(S, T, G)
     else:
         T = tangent_fused(S, G, A)
         TtG, StT, C, StS = T.mT @ G, S.mT @ T, T.mT @ T, S.mT @ S
-    # round "gram_psum": [TtG | StT | C | StS] summed over the row shards
+    if exec.has("gram_psum"):
+        # round "gram_psum": [TtG | StT | C | StS] summed over the shards
+        payload = exec.collective("gram_psum",
+                                  torch.cat([TtG, StT, C, StS], dim=-1))
+        TtG, StT, C, StS = (payload[..., :n], payload[..., n:n + r],
+                            payload[..., n + r:n + 2 * r],
+                            payload[..., n + 2 * r:])
 
     def mv(X, x):                        # (..., a, b) @ (..., b) -> (..., a)
         return (X @ x[..., None])[..., 0]
@@ -374,21 +390,32 @@ _SCHEDULES = {"tangent": _track_tangent_schedule,
 
 def track_subspace(S, G, *, eta: float, fused_tangent: bool = True,
                    exact_top1: bool = False, power_iters: int = 24,
-                   backend=None, schedule: str = "tangent") -> TrackResult:
+                   backend=None, exec=None,
+                   schedule: Optional[str] = None) -> TrackResult:
     """Grassmannian subspace-tracking update.  Returns the new basis and
     the (cos_theta, v) pair that fixes Q = S_new^T S_old = I + (cos - 1)
     v v^T, so the moments rotate in O(rn).  With ``backend``
     (:mod:`repro_torch.kernels.ops`) the front end runs the kernels and G
-    is never upcast to an (m, n) fp32 copy.  ``schedule`` is "tangent"
-    (what the optimizer runs) or "gram" (the row programs' schedule at
-    group size 1, which also returns ``A_new``)."""
+    is never upcast to an (m, n) fp32 copy.
+
+    ``exec`` is the :class:`~repro_torch.core.program.Exec` of the leaf's
+    StepProgram: the program's schedule picks the pipeline ("tangent" for
+    the replicated and column programs, "gram" for the row family, which
+    also returns the new basis's projection ``A_new``), and its declared
+    rounds are the only collectives issued.  Without one the null program
+    applies (identity rounds, the tangent schedule).  ``schedule``
+    overrides the program's, for a caller with no program (the kernel
+    checks run the gram schedule on one device)."""
+    exec = exec if exec is not None else program_lib.NULL_EXEC
+    schedule = schedule or exec.schedule
     try:
         fn = _SCHEDULES[schedule]
     except KeyError:
         raise ValueError(f"unknown tracking schedule {schedule!r}; options: "
                          f"{sorted(_SCHEDULES)}") from None
     return fn(S, G, eta=eta, fused_tangent=fused_tangent,
-              exact_top1=exact_top1, power_iters=power_iters, backend=backend)
+              exact_top1=exact_top1, power_iters=power_iters, backend=backend,
+              exec=exec)
 
 
 # ---------------------------------------------------------------------------

@@ -14,13 +14,17 @@ JAX package's:
 
 Each low-rank leaf runs as ONE batched call over its stack dims (one kernel
 launch per leaf with ``use_kernels``).  Same-shape leaves are not
-concatenated into a bucket as the JAX package does on one device: the
-concatenation would copy every gradient, parameter and state of the bucket
-(tens of GB at llama-7b), and per-matrix results are the same either way.
-There are no mesh regimes here yet; ``method="grass"``
-runs its one-device form (a one-hot row-selection basis, projected by
-``project_colnorms`` like any other; the mesh's ``sel_gather`` round comes
-with the multi-GPU slice).
+concatenated into a bucket as the JAX package does: the concatenation
+would copy every gradient, parameter and state of the bucket (tens of GB
+at llama-7b), and per-matrix results are the same either way
+(``bucket_leaves=True`` raises).
+
+With ``mesh`` and ``param_specs`` every leaf runs its StepProgram
+(``repro_torch.core.program``): replicated, column, row, row-rs or grass,
+each rank on its own shards of G, S, M and V, the program's declared
+rounds its only collectives.  ``method="grass"`` keeps a one-hot
+row-selection basis, and its projection is the program's ``sel_gather``
+round (a gather of G's rows), not a kernel.
 
 Flag matrix (as the JAX package):
     SubTrack++           method=grassmann, projection_aware=True,  recovery=True
@@ -34,12 +38,13 @@ Flag matrix (as the JAX package):
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Any, Callable, NamedTuple
+from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
 from repro_torch.core import health as health_lib
 from repro_torch.core import plan as plan_lib
+from repro_torch.core import program as program_lib
 from repro_torch.core import subspace as sub
 from repro_torch.core.lowrank_adam import (AdamHP, MatrixOptState,
                                            dense_adam_step,
@@ -48,6 +53,7 @@ from repro_torch.core.lowrank_adam import (AdamHP, MatrixOptState,
                                            lowrank_adam_step,
                                            rotate_moments_dense,
                                            rotate_moments_rank1)
+from repro_torch.distributed import sharding
 
 
 @dataclass(frozen=True)
@@ -67,6 +73,13 @@ class LowRankConfig:
     exact_top1: bool = False
     reorth_interval: int = 0            # QR scrub every N updates (0 = off)
     use_kernels: bool = False           # the fused kernel hot path
+    # row-family Adam-state flavour: "replicated" M/V, "reduce-scatter"
+    # n/g column slices, or "auto" by the modeled per-rank bytes
+    # (repro_torch.core.program.pick_row_flavor)
+    row_state: str = "auto"
+    # same-shape bucketing: None or False (every leaf runs on its own);
+    # True is not ported yet
+    bucket_leaves: Optional[bool] = None
     osd_lr: float = 1e-2
     adam: AdamHP = field(default_factory=AdamHP)
     weight_decay: float = 0.0
@@ -84,6 +97,12 @@ class GradientTransform(NamedTuple):
     update: Callable[..., tuple[Any, OptState]]
     state_bytes: Callable[[Any], int]
     config: Any
+    # the mesh (a MeshContext) and hot-path specs the optimizer was built
+    # with, and ``grad_specs(params)``: each leaf's gradient / update
+    # layout (param orientation), None where the leaf is whole
+    mesh: Any = None
+    param_specs: Any = None
+    grad_specs: Optional[Callable[[Any], Any]] = None
 
 
 def _get_backend(cfg: LowRankConfig):
@@ -115,7 +134,7 @@ def tree_leaves(tree) -> list:
 
 
 def _plain_matrix_step(cfg: LowRankConfig, hp: AdamHP, G, st, step: int,
-                       lr: float, param, out_dtype, tap=None):
+                       lr: float, param, out_dtype, exec=None, tap=None):
     """``tap``, when given, is the grad-fused (..., r+1, n) [A; colnorms]
     panel of the backward (``models.common.tapped_matmul``): rows [0:r]
     are S^T G, row r the per-column ||G||^2, handed down as the
@@ -127,64 +146,75 @@ def _plain_matrix_step(cfg: LowRankConfig, hp: AdamHP, G, st, step: int,
                             backend=_get_backend(cfg), lr=lr,
                             weight_decay=cfg.weight_decay, param=param,
                             out_dtype=out_dtype, precomputed_proj=pp,
-                            precomputed_gsq=pg)
+                            precomputed_gsq=pg, exec=exec)
     return out.delta, out.state
 
 
 def _refresh_subspace(cfg: LowRankConfig, G, st: MatrixOptState, step: int,
-                      n_updates: int, backend=None, eta_scale: float = 1.0):
+                      n_updates: int, backend=None, exec=None,
+                      eta_scale: float = 1.0):
     """The new basis per the configured method: (S_new, rank1_info, gsq,
-    diag), rank1_info = (cos_theta, v) where the rank-1 rotation applies,
-    diag the tracker's (..., 4) health vector (None for methods with no
-    geodesic).  ``eta_scale`` multiplies the geodesic step size (1.0 but
-    for the sigma-blowup fault injection)."""
+    proj, diag).  rank1_info = (cos_theta, v) where the rank-1 rotation
+    applies; gsq the front end's ||G_:,j||^2; proj the global new-basis
+    projection ``A_new`` of the gram schedule (None otherwise), which the
+    epilogue consumes instead of projecting G again; diag the tracker's
+    (..., 4) health vector (None for methods with no geodesic).  ``exec``
+    carries the leaf's StepProgram: only the Grassmann tracker and the
+    frozen subspace run sharded.  ``eta_scale`` multiplies the geodesic
+    step size (1.0 but for the sigma-blowup fault injection)."""
     rank = st.S.shape[-1]
     if cfg.method == "grassmann":
         res = sub.track_subspace(st.S, G, eta=cfg.eta * eta_scale,
                                  fused_tangent=cfg.fused_tangent,
                                  exact_top1=cfg.exact_top1,
                                  power_iters=cfg.power_iters,
-                                 backend=backend)
+                                 backend=backend, exec=exec)
         if cfg.reorth_interval:
             S_new = res.S_new
             if n_updates % cfg.reorth_interval == cfg.reorth_interval - 1:
                 S_new = sub.reorthonormalize(S_new)
             # the rank-1 identity does not survive a QR scrub
-            return S_new, None, res.gsq, res.diag
-        return res.S_new, (res.cos_theta, res.v), res.gsq, res.diag
+            return S_new, None, res.gsq, res.A_new, res.diag
+        return res.S_new, (res.cos_theta, res.v), res.gsq, res.A_new, \
+            res.diag
     if cfg.method == "svd":
         return _per_matrix(lambda g: sub.refresh_svd(g, rank), G), None, \
-            None, None
+            None, None, None
     if cfg.method == "random":
-        return sub.refresh_random(G, rank, step=step), None, None, None
+        return sub.refresh_random(G, rank, step=step), None, None, None, None
     if cfg.method == "osd":
         G32 = G.float()
         GGS = G32 @ (G32.mT @ st.S)
         corr = GGS - st.S @ (st.S.mT @ GGS)
         return sub.reorthonormalize(st.S + cfg.osd_lr * corr).contiguous(), \
-            None, None, None
+            None, None, None, None
     if cfg.method == "none":
+        # the change of basis is exactly I, as the rank-1 identity (cos 1,
+        # v 0), so the rotation stays shard-local under row programs
         lead = st.S.shape[:-2]
         return st.S, (torch.ones(lead, device=st.S.device),
                       torch.zeros(lead + (rank,), device=st.S.device)), \
-            None, None
+            None, None, None
     if cfg.method == "grass":
-        return _grass_basis(G, rank), None, None, None
+        return _grass_basis(G, rank), None, None, None, None
     raise ValueError(f"unknown subspace method {cfg.method!r}")
 
 
 def _tracking_matrix_step(cfg: LowRankConfig, hp: AdamHP, G, st, step: int,
                           n_updates: int, lr: float, param, out_dtype,
-                          eta_scale: float = 1.0):
-    """The 1-of-k subspace-update step: refresh -> rank-1 (M, V) rotation
-    -> the plain steps' epilogue on the new basis (the front end's column
-    norms feed the Eq. 12 clip).  Without kernels: the paper-literal
-    unfused schedule.  Returns (delta, state, diag or None)."""
+                          exec=None, eta_scale: float = 1.0):
+    """The 1-of-k subspace-update step: the program's refresh -> rank-1
+    (M, V) rotation -> the plain steps' epilogue on the new basis (the
+    front end's column norms feed the Eq. 12 clip; the gram schedule also
+    hands it the new basis's projection, so no ``project`` runs).  The
+    rank-1 rotation is column-wise, so it runs on whatever M/V block the
+    state layout holds.  Without kernels: the paper-literal unfused
+    schedule.  Returns (delta, state, diag or None)."""
     backend = _get_backend(cfg)
     # the kernels cast per tile: no (m, n) fp32 copy on the kernel path
     Gc = G if backend is not None else G.float()
-    S_new, rank1_info, gsq, diag = _refresh_subspace(
-        cfg, Gc, st, step, n_updates, backend, eta_scale)
+    S_new, rank1_info, gsq, proj, diag = _refresh_subspace(
+        cfg, Gc, st, step, n_updates, backend, exec, eta_scale)
     rotated = None
     if cfg.projection_aware:
         if rank1_info is not None and (cfg.rank1_rotation
@@ -197,7 +227,8 @@ def _tracking_matrix_step(cfg: LowRankConfig, hp: AdamHP, G, st, step: int,
     out = lowrank_adam_step(Gc, st, step, hp, rotated=rotated, S_new=S_new,
                             recovery=cfg.recovery, backend=backend, lr=lr,
                             weight_decay=cfg.weight_decay, param=param,
-                            out_dtype=out_dtype, precomputed_gsq=gsq)
+                            out_dtype=out_dtype, precomputed_proj=proj,
+                            precomputed_gsq=gsq, exec=exec)
     return out.delta, out.state, diag
 
 
@@ -219,15 +250,14 @@ def _grass_basis(G, rank: int) -> torch.Tensor:
         .contiguous()
 
 
-def _warm_matrix_state(cfg: LowRankConfig, G, st: MatrixOptState):
-    rank = st.S.shape[-1]
+def _warm_basis(cfg: LowRankConfig, G, rank: int) -> torch.Tensor:
+    """S_0 (..., m, r) from the first gradient (Alg. 1 line 1)."""
     if cfg.method == "grass":
         # one-hot from step 0: the grass programs assume S is always a row
         # selection, which an SVD warm start would break
-        return st._replace(S=_grass_basis(G, rank))
-    S = _per_matrix(lambda g: sub.init_subspace(g.float(), rank, cfg.init),
-                    G)
-    return st._replace(S=S.contiguous())
+        return _grass_basis(G, rank)
+    return _per_matrix(lambda g: sub.init_subspace(g.float(), rank,
+                                                   cfg.init), G).contiguous()
 
 
 # ---------------------------------------------------------------------------
@@ -242,27 +272,107 @@ def _leaf_init(plan: plan_lib.ParamPlan, p: torch.Tensor):
                              stack=tuple(p.shape[:-2]), device=p.device)
 
 
-def lowrank_optimizer(cfg: LowRankConfig) -> GradientTransform:
+def lowrank_optimizer(cfg: LowRankConfig, *, mesh=None,
+                      param_specs=None) -> GradientTransform:
     """Build the SubTrack++ / GaLore / Fira / ... optimizer for a dict tree
-    of parameters on one device."""
+    of parameters.
+
+    ``mesh`` (a :class:`~repro_torch.distributed.context.MeshContext`) and
+    ``param_specs`` (a tree of spec tuples mirroring the params, from
+    ``distributed.sharding.hotpath_param_specs``) opt the fused hot path
+    into the multi-GPU programs: per leaf,
+    :func:`~repro_torch.core.program.build_program` classifies the
+    canonical (m, n) sharding into a StepProgram, and the leaf's state is
+    held in that program's layout: column (n sharded: one scalar clip sum
+    per plain step, one (m, r) tangent sum per tracking step), row (m
+    sharded, replicated M/V: one (r+1, n) [A; colnorms] sum, plus one
+    (r, n + 3r) Gram sum when tracking), row-rs (M/V in n/g slices: a
+    reduce-scatter and one epilogue all-gather, three collectives when
+    tracking), or replicated.  ``mesh`` alone (no specs) keeps every leaf
+    replicated but still shares rank 0's warm-start basis.
+
+    Under a mesh ``init`` and ``warm_start`` take the whole params and
+    gradients; ``update`` takes each leaf's gradient as this rank's shard
+    by ``grad_specs(params)`` (a view of the whole gradient; the params
+    and taps whole) and returns the update shards, which the train step
+    gathers (``launch/steps.py``).  A tracking step whose program would
+    hold another layout than the plain step's (the SVD / random / Oja
+    refreshes, or a QR scrub on a row leaf) raises: that relayout is not
+    ported yet."""
     hp = cfg.adam
+    if cfg.bucket_leaves:
+        raise NotImplementedError("bucket_leaves=True (same-shape "
+                                  "bucketing) is not yet ported to "
+                                  "repro_torch")
+    run_mesh = mesh if param_specs is not None else None
+
+    def plans_of(params):
+        return plan_lib.make_plans(params, cfg.rank, specs=(
+            param_specs if run_mesh is not None else None))
+
+    def program_of(plan, tracking=False, tapped=False):
+        return program_lib.build_program(plan, cfg, run_mesh,
+                                         tracking=tracking, tapped=tapped)
+
+    def local(x, spec):
+        return x if run_mesh is None else sharding.local_view(x, spec,
+                                                              run_mesh)
+
+    def layouts(plan):
+        """The leaf's plain-program layouts: (gradient spec, canonical;
+        state specs), as every rank holds them between steps."""
+        return program_lib.layout_specs(program_of(plan), plan.batch_dims)
+
+    def leaf_spec(plan):
+        """The gradient spec in the leaf's own orientation (the canonical
+        transpose is its own inverse)."""
+        gspec = layouts(plan)[0]
+        return plan_lib.canonicalize_spec(gspec, len(gspec), plan.transpose)
 
     def init(params) -> OptState:
-        plans = plan_lib.make_plans(params, cfg.rank)
+        def leaf(plan, p):
+            st = _leaf_init(plan, p)
+            if plan.mode == "dense" or run_mesh is None:
+                return st
+            return MatrixOptState(*(
+                local(t, spec).clone(memory_format=torch.contiguous_format)
+                for t, spec in zip(st, layouts(plan)[1])))
+
         return OptState(step=0, n_updates=0,
-                        inner=tree_map(_leaf_init, plans, params))
+                        inner=tree_map(leaf, plans_of(params), params))
 
     def warm_start(state: OptState, grads) -> OptState:
-        plans = plan_lib.make_plans(grads, cfg.rank)
-
         def leaf(plan, g, st):
             if plan.mode == "dense":
                 return st
-            return _warm_matrix_state(cfg, plan_lib.canonical_grad(g, plan),
-                                      st)
+            g = plan_lib.canonical_grad(g, plan)
+            rank = st.S.shape[-1]
+            if mesh is None or mesh.world is None:
+                return st._replace(S=_warm_basis(cfg, g, rank))
+            # rank 0's basis everywhere: the SVDs of N processes need not
+            # agree in sign
+            S = (_warm_basis(cfg, g, rank) if mesh.rank == 0
+                 else torch.empty(g.shape[:-2] + (plan.m, rank),
+                                  device=g.device))
+            sharding.broadcast(S, mesh)
+            if run_mesh is not None:
+                S = local(S, layouts(plan)[1].S).clone(
+                    memory_format=torch.contiguous_format)
+            return st._replace(S=S)
 
-        return state._replace(inner=tree_map(leaf, plans, grads,
+        return state._replace(inner=tree_map(leaf, plans_of(grads), grads,
                                              state.inner))
+
+    def grad_specs(params):
+        """Each leaf's gradient / update layout in the leaf's own
+        orientation, None where the leaf is whole."""
+        def leaf(plan):
+            if plan.mode == "dense" or run_mesh is None:
+                return None
+            spec = leaf_spec(plan)
+            return None if all(a is None for a in spec) else spec
+
+        return tree_map(leaf, plans_of(params))
 
     def update(grads, state: OptState, params, lr: float,
                do_subspace_update: bool = False, *, taps=None,
@@ -274,20 +384,26 @@ def lowrank_optimizer(cfg: LowRankConfig) -> GradientTransform:
         (13.5 GB) give back and the taps (6.6 GB) go leaf by leaf, and the
         caller holds the updates for its quarantine gate with no tree of
         gradients beside them.  ``state`` is never written, so the old
-        state stays whole for a quarantined step.
+        state stays whole for a quarantined step.  Under a mesh each
+        gradient (and each update returned) is this rank's shard by
+        ``grad_specs(params)``; ``params`` and ``taps`` are whole.
 
         ``with_health=True`` returns (updates, new_state, diag): ``diag``
         the element-wise max of the (4,) health diagnostic over every
-        low-rank leaf and its stack (zero on plain steps).
-        ``eta_scale`` multiplies ``cfg.eta`` in the tracker (the
-        sigma-blowup fault injection).
+        low-rank leaf and its stack (zero on plain steps; the same on
+        every rank).  ``eta_scale`` multiplies ``cfg.eta`` in the tracker
+        (the sigma-blowup fault injection).
 
         ``taps`` (optional) mirrors ``grads`` with None or, at a tapped
         leaf, the grad-fused (..., r+1, n) [A; colnorms] panel of the
-        backward (canonical orientation).  A tapped low-rank leaf's plain
-        step consumes it instead of projecting G; tracking steps ignore
-        the taps, as do dense leaves."""
-        plans = plan_lib.make_plans(grads, cfg.rank)
+        backward (canonical orientation).  A tapped leaf's plain step
+        consumes it (its column shard, under a column program) instead of
+        projecting G, where its program declares the ``grad_tap`` round;
+        row programs, tracking steps and dense leaves ignore it.
+
+        Every rank walks the leaves in the same order and builds the same
+        programs, so the collectives line up."""
+        plans = plans_of(params)
         step, n_upd = state.step, state.n_updates
         lr32 = torch.tensor(lr, dtype=torch.float32)
         diags = []
@@ -300,17 +416,38 @@ def lowrank_optimizer(cfg: LowRankConfig) -> GradientTransform:
                     upd = upd - (lr32 * cfg.weight_decay
                                  * p.float()).to(p.dtype)
                 return upd, new_st
+            prog = program_of(plan, tracking=do_subspace_update,
+                              tapped=tap is not None)
+            gspec = layouts(plan)[0]
+            held = program_of(plan)
+            if (prog.axes, prog.grad_layout, prog.state_layout) != (
+                    held.axes, held.grad_layout, held.state_layout):
+                raise NotImplementedError(
+                    f"a {prog.regime} step on a leaf held in the "
+                    f"{held.regime} layout (the relayout of the SVD, random "
+                    "and Oja refreshes, or of a QR scrub on row shards) is "
+                    "not yet ported to repro_torch")
+            if prog.round("grad_tap") is None:
+                tap = None
+            elif tap is not None:
+                tap = local(tap, gspec[:-2] + (None, gspec[-1]))
             g2 = plan_lib.canonical_grad(g, plan)
-            p2 = plan_lib.canonical_grad(p, plan) if cfg.weight_decay \
-                else None
+            p2 = (plan_lib.canonical_grad(local(p, leaf_spec(plan)), plan)
+                  if cfg.weight_decay else None)
+            exec = program_lib.executor(prog, run_mesh)
             if do_subspace_update:
-                delta, new_st, diag = _tracking_matrix_step(
-                    cfg, hp, g2, st, step, n_upd, lr, p2, p.dtype, eta_scale)
-                if diag is not None:
-                    diags.append(health_lib.reduce_diag(diag))
+                def fn(G, s, pp, _tap):
+                    return _tracking_matrix_step(cfg, hp, G, s, step, n_upd,
+                                                 lr, pp, p.dtype, exec,
+                                                 eta_scale)
             else:
-                delta, new_st = _plain_matrix_step(cfg, hp, g2, st, step, lr,
-                                                   p2, p.dtype, tap)
+                def fn(G, s, pp, t):
+                    return (*_plain_matrix_step(cfg, hp, G, s, step, lr, pp,
+                                                p.dtype, exec, t), None)
+            delta, new_st, diag = program_lib.lower(
+                prog, fn, batch_dims=plan.batch_dims)(g2, st, p2, tap)
+            if diag is not None:
+                diags.append(health_lib.reduce_diag(diag))
             return plan_lib.uncanonical_update(delta, plan), new_st
 
         def walk(plans, grads, inner, params, taps):
@@ -346,7 +483,8 @@ def lowrank_optimizer(cfg: LowRankConfig) -> GradientTransform:
                                       tree_leaves(params)))
 
     return GradientTransform(init=init, warm_start=warm_start, update=update,
-                             state_bytes=state_bytes, config=cfg)
+                             state_bytes=state_bytes, config=cfg, mesh=mesh,
+                             param_specs=param_specs, grad_specs=grad_specs)
 
 
 # ---------------------------------------------------------------------------
@@ -355,11 +493,12 @@ def lowrank_optimizer(cfg: LowRankConfig) -> GradientTransform:
 
 
 def _build(overrides: dict) -> GradientTransform:
-    for key in ("mesh", "param_specs", "row_state", "bucket_leaves"):
-        if overrides.pop(key, None) is not None:
-            raise NotImplementedError(f"{key!r} (multi-device execution) is "
-                                      "not yet ported to repro_torch")
-    return lowrank_optimizer(LowRankConfig(**overrides))
+    """Split the distribution kwargs (mesh, param_specs) from the
+    LowRankConfig fields, so every named constructor takes them."""
+    mesh = overrides.pop("mesh", None)
+    param_specs = overrides.pop("param_specs", None)
+    return lowrank_optimizer(LowRankConfig(**overrides), mesh=mesh,
+                             param_specs=param_specs)
 
 
 def subtrack(**overrides) -> GradientTransform:

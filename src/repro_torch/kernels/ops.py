@@ -26,8 +26,10 @@ The grad-fused backward (``repro_torch.models.common.tapped_matmul``)
 calls :func:`grad_tap` once per tapped matmul; on such a plain step the
 optimizer skips ``project_colnorms`` for the tapped leaves.
 
-The gram tracking schedule (``track_subspace(schedule="gram")``) runs
-``project_colnorms``, ``tangent`` and ``tangent_gram``: three launches.
+The gram tracking schedule of the row-family StepPrograms
+(``repro_torch.core.program``) runs ``project_colnorms``, ``tangent`` and
+``tangent_gram``, and its new-basis projection replaces the epilogue's
+``project``: five launches per leaf on such a tracking step.
 ``adam_lowrank`` and ``flash_attention`` are on no path of the JAX
 package; their entry points are the functions here.
 

@@ -283,8 +283,8 @@ def prepare(argv=None) -> Callable[[], dict]:
     args = ap.parse_args(argv)
 
     if args.mesh != "smoke":
-        raise NotImplementedError("--mesh is not yet ported to repro_torch "
-                                  "(one device only)")
+        raise NotImplementedError("--mesh (serving over a mesh) is not yet "
+                                  "ported to repro_torch.launch.serve")
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
     engine = args.engine

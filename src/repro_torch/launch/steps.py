@@ -1,5 +1,5 @@
 """Train-step factories for the training driver (counterpart of
-``repro.launch.steps``, one device).
+``repro.launch.steps``).
 
 The train step is loss and gradient -> global-norm clip -> optimizer
 update -> health gate -> apply.  ``do_subspace_update`` is a Python bool
@@ -26,6 +26,18 @@ feeds the clip and the optimizer.  ``inject`` (``repro_torch.core.health``
 codes) scales the loss fed to the backward by NaN (nan-grad; on all three
 backward routes, the taps with it) or multiplies every update by
 ``-LOSS_SPIKE_AMP`` before the gate (loss-spike).
+
+Under a mesh (an optimizer built with ``mesh`` and ``param_specs``) every
+rank takes the same batch and runs the forward and backward whole, so
+the global-norm clip is local.  Each rank then hands the optimizer its
+shard of each low-rank leaf's gradient (a view by the leaf's program
+layout, ``optimizer.grad_specs``: no communication), the optimizer fires
+only its programs' declared rounds, and the step all-gathers each
+sharded leaf's update shards into the whole update (one gather per leaf,
+outside the program: the port's counterpart of GSPMD's reshard around
+the JAX package's ``shard_map``).  The gate's verdict is MAX-all-reduced
+over the mesh before its one host read, so every rank applies or drops
+the step alike.
 """
 
 from __future__ import annotations
@@ -39,6 +51,7 @@ from repro_torch.core import program as program_lib
 from repro_torch.core.lowrank_adam import MatrixOptState
 from repro_torch.core.subtrack import (GradientTransform, OptState,
                                        tree_leaves, tree_map)
+from repro_torch.distributed import sharding
 from repro_torch.models.api import ModelBundle
 from repro_torch.models.common import tap_seed
 
@@ -52,10 +65,12 @@ class TrainState(NamedTuple):
 
 
 def checkpoint_descriptors(params, optimizer: GradientTransform):
-    """Per-param-leaf StateDescriptor tree for ``optimizer``'s state on one
-    device: the records a checkpoint embeds and the targets an elastic
-    restore transposes onto (all dense for the rank-less baselines)."""
-    return program_lib.state_leaf_descriptors(params, optimizer.config)
+    """Per-param-leaf StateDescriptor tree for ``optimizer``'s state: the
+    records a checkpoint embeds and the targets an elastic restore
+    transposes onto (all dense for the rank-less baselines)."""
+    return program_lib.state_leaf_descriptors(
+        params, optimizer.config, mesh=optimizer.mesh,
+        param_specs=optimizer.param_specs)
 
 
 def _unflatten(like, leaves: list) -> Any:
@@ -222,6 +237,16 @@ def tapped_grads(bundle: ModelBundle, state: TrainState, batch,
     return loss.detach(), metrics, grads, taps
 
 
+def _over_specs(fn, tree, specs):
+    """Replace each leaf x of ``tree`` whose spec is not None by
+    ``fn(x, spec)``, in place, one leaf at a time."""
+    for k, x in tree.items():
+        if isinstance(x, dict):
+            _over_specs(fn, x, specs[k])
+        elif x is not None and specs[k] is not None:
+            tree[k] = fn(x, specs[k])
+
+
 def apply_updates(params, updates) -> None:
     """Add each held update into its parameter in place (updates mirror
     the params; None where a leaf gets none), releasing each once added."""
@@ -235,7 +260,8 @@ def apply_updates(params, updates) -> None:
 
 def make_train_step(bundle: ModelBundle, optimizer: GradientTransform, *,
                     clip_norm: float = 1.0, accum: int = 1,
-                    remat: str = "full", grad_fused: bool = False):
+                    remat: str = "full", grad_fused: bool = False,
+                    mesh=None):
     """train_step(state, batch, lr, *, do_subspace_update=False,
     inject=INJECT_NONE, eta_scale=1.0) -> (state, metrics).  A healthy
     step adds its updates into the parameters of ``state`` in place and
@@ -255,11 +281,20 @@ def make_train_step(bundle: ModelBundle, optimizer: GradientTransform, *,
     Tracking steps take the plain backward, and so does every step under
     ``accum`` > 1 (the taps are not additive across microbatches: sum_i
     ||G_i||^2 != ||sum_i G_i||^2), as in the JAX package.  A bundle without
-    ``loss_taps`` raises rather than fall back."""
+    ``loss_taps`` raises rather than fall back.
+
+    ``mesh`` (a :class:`~repro_torch.distributed.context.MeshContext`;
+    the optimizer's own by default) is the mesh whose ranks run this step
+    together: the gradient shards, the update gather and the one verdict
+    of the module notes."""
     if grad_fused and bundle.loss_taps is None:
         raise NotImplementedError(f"{bundle.cfg.name} exposes no taggable "
                                   "matmuls for the grad-fused backward")
     use_taps = grad_fused and accum == 1
+    mesh = mesh if mesh is not None else optimizer.mesh
+    if (optimizer.mesh is not None and mesh is not None
+            and optimizer.mesh != mesh):
+        raise ValueError("the optimizer was built on another mesh")
 
     def train_step(state: TrainState, batch, lr: float, *,
                    do_subspace_update: bool = False,
@@ -285,6 +320,12 @@ def make_train_step(bundle: ModelBundle, optimizer: GradientTransform, *,
                     t[..., :-1, :].mul_(s)
                     t[..., -1, :].mul_(s * s)
         with torch.no_grad():
+            specs = (optimizer.grad_specs(state.params)
+                     if optimizer.param_specs is not None else None)
+            if specs is not None:
+                # this rank's shard of each sharded leaf: a view
+                _over_specs(lambda g, sp: sharding.local_view(g, sp, mesh),
+                            grads, specs)
             # the update frees grads and taps leaf by leaf: the held
             # updates take the gradients' place
             updates, opt, diag = optimizer.update(
@@ -292,6 +333,10 @@ def make_train_step(bundle: ModelBundle, optimizer: GradientTransform, *,
                 do_subspace_update=do_subspace_update, taps=taps,
                 with_health=True, eta_scale=eta_scale)
             del grads, taps
+            if specs is not None:
+                # the whole update from every rank's shard, leaf by leaf
+                _over_specs(lambda u, sp: sharding.gather(u, sp, mesh),
+                            updates, specs)
             held = [u for u in tree_leaves(updates) if u is not None]
             if inject == health_lib.INJECT_LOSS_SPIKE:
                 for u in held:   # a bf16 u is scaled in fp32, rounded once
@@ -307,8 +352,10 @@ def make_train_step(bundle: ModelBundle, optimizer: GradientTransform, *,
                     usq = usq + torch.linalg.vector_norm(
                         u, dtype=torch.float32) ** 2
                 del held
-                report = health_lib.report_to_host(health_lib.make_report(
-                    loss, gnorm, torch.sqrt(usq), diag))
+                report = health_lib.report_to_host(health_lib.agree_over(
+                    health_lib.make_report(loss, gnorm, torch.sqrt(usq),
+                                           diag),
+                    None if mesh is None else mesh.world))
             if report.ok:
                 apply_updates(state.params, updates)
                 state = TrainState(params=state.params, opt=opt)

@@ -1,11 +1,14 @@
-"""Training driver: SubTrack++ on one GPU, with the fault-tolerant runtime.
+"""Training driver: SubTrack++ on one GPU or a mesh of them, with the
+fault-tolerant runtime.
 
     PYTHONPATH=src python -m repro_torch.launch.train \\
         --arch llama-1b --optimizer subtrack --use-kernels [--grad-fused] \\
         --steps 4 --update-interval 2 --warmup 2 --batch 4 --seq 512 \\
         [--checkpoint-dir D] [--inject nan-grad@3,loss-spike@9]
+    PYTHONPATH=src torchrun --nproc-per-node N -m repro_torch.launch.train \\
+        --arch llama-1b --use-kernels --mesh host [--hotpath-layout row]
 
-Counterpart of ``repro.launch.train`` on one device: the warm start
+Counterpart of ``repro.launch.train``: the warm start
 installs every subspace from the step-0 gradients (Alg. 1 line 1), then
 each step runs the plain or the tracking train step, with the JAX
 package's rule ``do_update = k and step > 0 and step % k == 0``.  With
@@ -53,10 +56,22 @@ step it judged.  Where the JAX driver rolls back it discards the step it
 had already dispatched, and with it any injection of that step; here
 that step was never run, so its injection fires on the replay.
 
+``--mesh host`` runs the (1, N) mesh over every rank ``torchrun``
+started (``--mesh-devices`` 0 or N), each rank on its own card: the
+process group is NCCL on CUDA and gloo when ``--device cpu`` asks for the
+CPU (a plain ``python -m`` start is a world of one).  Every rank takes
+the same batch and runs the forward and backward whole; with
+``--use-kernels`` each low-rank leaf's optimizer step runs the
+StepProgram of its ``--hotpath-layout`` (auto, column, row, row-rs, or
+off for none) on this rank's shards, and the step gathers the updates
+(``launch/steps.py``).  Only rank 0 prints the step lines.
+
 The driver runs on CUDA unless ``--device cpu`` asks for the CPU; with no
-card and no such request it raises.  Not ported yet, and raising:
-``--mesh`` other than the one-device default and ``--inject dev-loss``
-(mesh failover, with the multi-GPU slice).
+card and no such request it raises.  Not ported yet, and raising with
+what they wait for: ``--inject dev-loss`` and ``--step-timeout`` (mesh
+failover), ``--checkpoint-dir`` on a mesh of more than one rank (the
+sharded restore), and ``--mesh prod`` / ``multipod`` on a world of
+other than 256 / 512 ranks.
 """
 
 from __future__ import annotations
@@ -84,6 +99,7 @@ from repro_torch.core.subtrack import LowRankConfig, tree_leaves
 from repro_torch.data.pipeline import (DataConfig, SyntheticLMDataset,
                                        batch_for_model, corrupt_tokens,
                                        fetch_batch, validate_batch)
+from repro_torch.distributed import sharding
 from repro_torch.kernels import ops
 from repro_torch.launch.serve import resolve_device
 from repro_torch.launch.steps import (TrainState, checkpoint_descriptors,
@@ -135,7 +151,7 @@ class HealthSentinel:
     back to the newest known-good checkpoint with lr backoff for a
     cooldown window.  A healthy step resets the counter; more than
     ``max_rollbacks`` rollbacks abort the run.  (The JAX driver's
-    mesh-lost verdict comes with the multi-GPU slice.)"""
+    mesh-lost verdict waits for failover.)"""
 
     OK, SKIP, REFRESH, ROLLBACK, ABORT = \
         "ok", "skip", "refresh", "rollback", "abort"
@@ -264,7 +280,25 @@ def _parse_args(argv) -> argparse.Namespace:
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu; no silent fallback")
     ap.add_argument("--mesh", default="smoke",
-                    help="only the one-device default is ported")
+                    choices=["smoke", "host", "prod", "multipod"],
+                    help="smoke: one rank; host: (1, N) over the ranks "
+                         "torchrun started; prod / multipod: the 16x16 / "
+                         "2x16x16 meshes (a world of 256 / 512 ranks)")
+    ap.add_argument("--mesh-devices", type=int, default=0,
+                    help="with --mesh host: 0 or the world size (a mesh "
+                         "over part of the world waits for failover)")
+    ap.add_argument("--hotpath-layout", default="auto",
+                    choices=["auto", "column", "row", "row-rs", "off"],
+                    help="the sharded optimizer layout under a mesh: auto "
+                         "picks column or row per leaf by the modeled "
+                         "per-rank bytes (repro_torch.kernels.traffic); "
+                         "column / row restrict to one regime (row still "
+                         "picks its state flavour); row-rs forces the "
+                         "reduce-scatter flavour; off keeps every leaf "
+                         "replicated")
+    ap.add_argument("--step-timeout", type=float, default=0.0,
+                    help="a deadline (s) on each step (not yet ported: "
+                         "it waits for mesh failover; 0 = off)")
     ap.add_argument("--accum", type=int, default=1)
     ap.add_argument("--grad-fused", action="store_true",
                     help="plain steps take the grad-fused backward")
@@ -294,10 +328,49 @@ def _parse_args(argv) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def _reject_unported(args: argparse.Namespace) -> None:
-    if args.mesh != "smoke":
-        raise NotImplementedError("--mesh is not yet ported to "
-                                  "repro_torch.launch.train")
+def _reject_unported(args: argparse.Namespace, mesh=None) -> None:
+    if args.step_timeout:
+        raise NotImplementedError("--step-timeout is not yet ported to "
+                                  "repro_torch.launch.train (it waits for "
+                                  "mesh failover)")
+    if args.checkpoint_dir and mesh is not None and mesh.size > 1:
+        raise NotImplementedError(
+            "--checkpoint-dir on a mesh of more than one rank is not yet "
+            "ported to repro_torch.launch.train (it waits for the sharded "
+            "restore, restore_targets)")
+
+
+def open_mesh(args: argparse.Namespace):
+    """The run's MeshContext (None for ``--mesh smoke``) and whether this
+    call initialised the default process group (the caller then destroys
+    it).  Under ``torchrun`` the world comes from its environment; a
+    plain start is a world of one.  NCCL on CUDA, gloo on the CPU."""
+    from repro_torch.launch import mesh as mesh_lib
+
+    if args.mesh == "smoke":
+        return None, False
+    owned = False
+    if not torch.distributed.is_initialized():
+        device = resolve_device(args.device)
+        if device.type == "cuda" and "LOCAL_RANK" in os.environ:
+            torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
+        backend = "nccl" if device.type == "cuda" else "gloo"
+        if "WORLD_SIZE" in os.environ:
+            torch.distributed.init_process_group(backend)
+        else:
+            torch.distributed.init_process_group(
+                backend, store=torch.distributed.HashStore(), rank=0,
+                world_size=1)
+        owned = True
+    try:
+        if args.mesh == "host":
+            return mesh_lib.host_context(args.mesh_devices or None), owned
+        return mesh_lib.make_context(multi_pod=args.mesh == "multipod"), \
+            owned
+    except BaseException:
+        if owned:
+            torch.distributed.destroy_process_group()
+        raise
 
 
 @dataclass
@@ -372,7 +445,7 @@ def run(cfg, params, batch_at: Callable, *, optimizer, steps: int,
         lr_at: Callable[[int], float], remat: str = "full",
         log_every: int = 10, opt_state=None, grad_fused: bool = False,
         accum: int = 1, start_step: int = 0,
-        runtime: Runtime | None = None) -> dict:
+        runtime: Runtime | None = None, mesh=None) -> dict:
     """Warm start from batch 0, then train steps ``start_step`` ..
     ``steps - 1`` on the device the params live on.  ``batch_at(step)``
     returns a validated batch dict of token tensors (moved to the device
@@ -385,7 +458,10 @@ def run(cfg, params, batch_at: Callable, *, optimizer, steps: int,
     > 1 (the driver then says so and takes the plain backward, as the JAX
     driver does).  A dense baseline (``adamw``, ``badam``) has no warm
     start and no tracking step.  ``runtime`` carries the injections,
-    sentinel, watchdog and checkpoints (none by default).
+    sentinel, watchdog and checkpoints (none by default).  ``mesh`` (a
+    :class:`~repro_torch.distributed.context.MeshContext`, the
+    optimizer's by default) runs the step on its ranks together
+    (``launch/steps.py``); only its rank 0 prints the step lines.
 
     Returns the history (one record per step taken, with its loss, grad
     norm, lr, wall time ending in a device sync, and the ``quarantined``
@@ -403,9 +479,11 @@ def run(cfg, params, batch_at: Callable, *, optimizer, steps: int,
               "on (taps are not additive across microbatches) — falling "
               "back to the plain backward", flush=True)
         grad_fused = False
+    mesh = mesh if mesh is not None else optimizer.mesh
     train_step = make_train_step(bundle, optimizer, accum=accum, remat=remat,
-                                 grad_fused=grad_fused)
+                                 grad_fused=grad_fused, mesh=mesh)
     k = getattr(optimizer.config, "update_interval", 0)
+    chatty = mesh is None or mesh.rank == 0
 
     def on_device(batch):
         return {key: v.to(device) for key, v in batch.items()}
@@ -424,8 +502,9 @@ def run(cfg, params, batch_at: Callable, *, optimizer, steps: int,
         warm_loss = float(warm_loss)
         _sync(device)
         warm_s = time.perf_counter() - t0
-        print(f"[train] warm-started subspaces from step-0 gradients (loss "
-              f"{warm_loss:.4f}, {warm_s:.2f}s)", flush=True)
+        if chatty:
+            print(f"[train] warm-started subspaces from step-0 gradients "
+                  f"(loss {warm_loss:.4f}, {warm_s:.2f}s)", flush=True)
 
     sentinel, ckpt = rt.sentinel, rt.ckpt
     history: list[dict] = []
@@ -532,7 +611,8 @@ def run(cfg, params, batch_at: Callable, *, optimizer, steps: int,
                "theta_clamped": bool(metrics["theta_clamped"]), "dt": dt}
         history.append(rec)
         rt.watchdog.observe(step, dt)
-        if step % log_every == 0 or step == steps - 1 or rec["quarantined"]:
+        if chatty and (step % log_every == 0 or step == steps - 1
+                       or rec["quarantined"]):
             print(f"[train] step {step:5d}  loss {rec['loss']:8.4f}  lr "
                   f"{lr:.2e}  {dt:6.2f}s"
                   f"{'  [subspace update]' if do_update else ''}"
@@ -580,27 +660,55 @@ def run(cfg, params, batch_at: Callable, *, optimizer, steps: int,
             "warm_start_s": warm_s, "state": state, "preempted": preempted}
 
 
-def prepare(args: argparse.Namespace):
+def prepare(args: argparse.Namespace, mesh=None, params=None):
     """The CLI's run from its parsed flags: (config, rank, optimizer,
     batch_at, device); ``batch_at(step, mutate=None)`` validates each
-    batch on the host and returns None for one to step over."""
-    _reject_unported(args)
+    batch on the host and returns None for one to step over.  Under a
+    ``mesh`` the low-rank optimizer is built on it, with the hot-path
+    layout ``--hotpath-layout`` picks for ``params`` (whole, as every
+    rank holds them)."""
+    _reject_unported(args, mesh)
+    if (args.mesh != "smoke") != (mesh is not None):
+        raise ValueError(f"--mesh {args.mesh} runs on the MeshContext "
+                         f"open_mesh builds; got {mesh}")
     device = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=args.smoke)
     rank = args.rank or PAPER_RANKS.get(args.arch, default_rank(cfg.d_model))
     baseline = args.optimizer in ("adamw", "badam")
+    layout = None
     if not baseline:
         opt_kw = dict(rank=rank, update_interval=args.update_interval,
                       eta=args.eta, weight_decay=args.weight_decay,
                       use_kernels=args.use_kernels)
+        if mesh is not None:
+            # every rank shares rank 0's warm start; the sharded layout
+            # needs the kernels (the JAX driver's rule)
+            opt_kw.update(mesh=mesh)
+            if args.use_kernels and mesh.size > 1 \
+                    and args.hotpath_layout != "off":
+                layout = args.hotpath_layout
+                regimes = (("column", "row") if layout == "auto"
+                           else (layout,))
+                row_state = ("reduce-scatter" if layout == "row-rs"
+                             else "auto")
+                if layout == "row-rs":
+                    opt_kw.update(row_state=row_state)
+                opt_kw.update(param_specs=sharding.hotpath_param_specs(
+                    params, mesh, rank, regimes=regimes,
+                    row_state=row_state))
     else:
         opt_kw = ({"weight_decay": args.weight_decay}
                   if args.weight_decay else {})
     optimizer = get_optimizer(args.optimizer, **opt_kw)
-    if args.use_kernels and not baseline:
-        print("[train] optimizer hot path: fused kernels (project_colnorms "
-              "-> adam_lowrank_norms -> fused_update)", flush=True)
-    if args.grad_fused and not baseline and args.accum == 1:
+    if args.use_kernels and not baseline and (mesh is None
+                                              or mesh.rank == 0):
+        where = (f"sharded over {mesh.size} ranks, layout {layout}"
+                 if layout else "replicated")
+        print(f"[train] optimizer hot path: fused kernels [{where}] "
+              "(project_colnorms -> adam_lowrank_norms -> fused_update)",
+              flush=True)
+    if args.grad_fused and not baseline and args.accum == 1 and (
+            mesh is None or mesh.rank == 0):
         print("[train] grad-fused backward: taggable leaves emit "
               "[A; colnorms] from the weight-gradient epilogue; plain "
               "optimizer steps skip their projection read of G", flush=True)
@@ -651,26 +759,36 @@ def train(argv=None) -> dict:
     rollbacks, events and stragglers) and, under ``state``, the final
     train state (not written to ``--metrics-out``)."""
     args = _parse_args(argv)
-    cfg, rank, optimizer, batch_at, device = prepare(args)
-    rt = Runtime.from_args(args)
-    t_start = time.time()
-    prev_handlers = _install_preempt_handlers(rt)
+    _reject_unported(args)
+    mesh, owned = open_mesh(args)
     try:
+        device = resolve_device(args.device)
+        cfg = get_config(args.arch, smoke=args.smoke)
         params = build_model(cfg).init(
             torch.Generator(device=device).manual_seed(args.seed))
-        opt_state, start_step = None, 0
-        if rt.ckpt is not None:
-            params, opt_state, start_step = _resume(args, rt, optimizer,
-                                                    params)
-        ops.reset_launch_counts()
-        out = run(cfg, params, batch_at, optimizer=optimizer,
-                  steps=args.steps,
-                  lr_at=cosine_with_warmup(args.lr, args.steps, args.warmup),
-                  remat=args.remat, log_every=args.log_every,
-                  opt_state=opt_state, grad_fused=args.grad_fused,
-                  accum=args.accum, start_step=start_step, runtime=rt)
+        cfg, rank, optimizer, batch_at, device = prepare(args, mesh, params)
+        rt = Runtime.from_args(args)
+        t_start = time.time()
+        prev_handlers = _install_preempt_handlers(rt)
+        try:
+            opt_state, start_step = None, 0
+            if rt.ckpt is not None:
+                params, opt_state, start_step = _resume(args, rt, optimizer,
+                                                        params)
+            ops.reset_launch_counts()
+            out = run(cfg, params, batch_at, optimizer=optimizer,
+                      steps=args.steps,
+                      lr_at=cosine_with_warmup(args.lr, args.steps,
+                                               args.warmup),
+                      remat=args.remat, log_every=args.log_every,
+                      opt_state=opt_state, grad_fused=args.grad_fused,
+                      accum=args.accum, start_step=start_step, runtime=rt,
+                      mesh=mesh)
+        finally:
+            _restore_preempt_handlers(prev_handlers)
     finally:
-        _restore_preempt_handlers(prev_handlers)
+        if owned:
+            torch.distributed.destroy_process_group()
     launches = ops.launch_counts()
     history = out["history"]
     taken = [h for h in history if h["loss"] is not None]
@@ -697,6 +815,8 @@ def train(argv=None) -> dict:
         "preempted": out["preempted"],
         "history": history,
     }
+    if mesh is not None and mesh.rank != 0:
+        return dict(summary, state=out["state"])     # rank 0 reports
     if args.metrics_out:
         Path(args.metrics_out).parent.mkdir(parents=True, exist_ok=True)
         Path(args.metrics_out).write_text(json.dumps(summary, indent=2))

@@ -40,8 +40,30 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
                          capture_output=True, text=True, timeout=120)
     assert run.returncode == 0, run.stderr
     n_modules, leaked = run.stdout.split(" ", 1)
-    assert int(n_modules) >= 44
+    assert int(n_modules) >= 48
     assert leaked.strip() == "[]"
+
+
+_IMPORT_MESH = """
+import importlib, sys
+for name in ("repro_torch.distributed.context",
+             "repro_torch.distributed.sharding",
+             "repro_torch.kernels.traffic", "repro_torch.launch.mesh",
+             "repro_torch.core.program"):
+    importlib.import_module(name)
+print(sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro")))
+"""
+
+
+def test_multi_gpu_modules_load_no_jax_and_no_repro():
+    """The mesh context, the sharded layouts, the traffic model's copy,
+    the mesh constructors and the StepProgram IR, imported on their own."""
+    run = subprocess.run([sys.executable, "-c", _IMPORT_MESH],
+                         env={**os.environ, "PYTHONPATH": str(SRC)},
+                         capture_output=True, text=True, timeout=120)
+    assert run.returncode == 0, run.stderr
+    assert run.stdout.strip() == "[]"
 
 
 def test_serve_raises_without_cuda_unless_cpu_is_asked_for(monkeypatch):
@@ -139,9 +161,12 @@ def test_ported_flags_run_on_the_asked_device(monkeypatch, entry, argv):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["--mesh", "host"], "--mesh"),
+    (["--mesh", "prod"], "--mesh prod needs a world of 256"),
     (["--inject", "dev-loss@3"], "--inject"),
     (["--arch", "gemma2-27b"], "not yet ported"),
+    (["--mesh", "multipod"], "--mesh multipod needs a world of 512"),
+    (["--mesh", "host", "--mesh-devices", "2"], "--mesh-devices"),
+    (["--step-timeout", "30"], "--step-timeout"),
 ])
 def test_train_parts_not_ported_yet_raise(argv, match):
     with pytest.raises(NotImplementedError, match=match):
