@@ -5,8 +5,9 @@
 
 Phases (run in this order, except that 13-15 and 17-19, the kernel checks
 of the llama-1b slice and of the last three kernels, run right after phase
-10, before the long training runs, 23 right after phase 11, and 20-22
-right after phase 16); any failure raises and the script exits non-zero:
+10, before the long training runs, 23 right after phase 11, and 24 and
+then 20-22 right after phase 16); any failure raises and the script exits
+non-zero:
 
 1. print the card's name and power limit as nvidia-smi gives them;
 2. build every CUDA kernel of the ported paths from ``src/repro_torch/csrc``
@@ -207,9 +208,38 @@ right after phase 16); any failure raises and the script exits non-zero:
    ``torchrun --nproc-per-node 1 -m repro_torch.launch.train --mesh
    host`` and through ``--mesh smoke``: the same losses and launches; the
    phase's time printed;
-24. print the kernels line (project, project_colnorms and the front end
+24. the decoder family's variants, gemma2-27b (local/global windows,
+   softcaps, sandwich norms, GeGLU, tied and scaled embeddings),
+   minicpm3-4b (MLA) and qwen2-vl-2b (M-RoPE, QKV bias, the vision stub):
+   (a) hold project_colnorms, tangent, project, adam_lowrank_norms and
+   fused_update at gemma2's embedding (4608, 256000, r 512, its G a
+   transposed view) and w_gate stack (4608, 36864, r 512) x 2, the front
+   end at minicpm3's (768, 2560 / 3840, r 512) x 2 and qwen2-vl's
+   embedding (1536, 152064, r 256), and grad_tap at gemma2's w_gate with
+   b 5120, bf16 G, against their plain versions (``OPT_REL``,
+   ``FRONT_REL``, ``TAP_REL``), each timed beside its bound and its plain
+   version, and time the warm start's SVD of the embedding (QR to its R
+   factor first: gesvd refuses the whole matrix); (b) train each fp32
+   smoke config 4 steps (rank 32, interval 2) through ``run`` on CUDA and
+   on the CPU from the same params, warm state and batches, plain and
+   grad-fused: losses within ``SMOKE_LOSS_ATOL``, exact launch counts
+   from the plans (``_plan_launches``); (c) each config at full width and
+   ``VARIANT_LAYERS`` layers (the cut printed; gemma2 one local and one
+   global layer, 2.31 B params) through ``run``, 4 steps at interval 2,
+   default rank, kernels on, eta pinned: gemma2 batch 1 x 5120 (past its
+   4096 window), minicpm3 2 x 512, qwen2-vl 2 x 2048: finite losses,
+   exact launch counts from the plans, warm start, step times, tok/s and
+   peak printed; (d) serve each from its trained weights through
+   ``run_dense``, 2 requests of the prompt length above + 16 tokens, then
+   teacher-force 16 tokens after the prompt and hold the decode logits
+   against the full forward's on the card with the JAX package's
+   criteria (``tests/test_models.py``: argmax agreement >= 0.9, p90
+   |delta| < 0.12 scale + 0.12); tok/s, TTFT and the phase's time
+   printed;
+25. print the kernels line (project, project_colnorms and the front end
    with their fp32 routes' times as ``fp32_ms``; tangent_gram's launches
-   those of phase 23's row tracking step), then ``{"ok": true,
+   those of phase 23's row tracking step; each kernel's phase-24 shapes
+   and its launches in phase 24's three runs), then ``{"ok": true,
    "device": {...}}`` last.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -3078,6 +3108,482 @@ def phase_runtime_1b(trained_1b: dict) -> None:
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# The decoder family's variants: gemma2-27b, minicpm3-4b, qwen2-vl-2b
+# ---------------------------------------------------------------------------
+
+VARIANT_ARCHS = ("gemma2-27b", "minicpm3-4b", "qwen2-vl-2b")
+VARIANT_LAYERS = 2        # full width, depth cut (gemma2: one local, one global)
+VARIANT_K = 2             # update interval: plain 0, 1, 3; tracking 2
+VARIANT_STEPS = 4
+VARIANT_ETA = 10.0        # the paper's, as phases 11 and 16
+VARIANT_RUNS = {          # arch -> (train batch, train seq, serve prompt)
+    "gemma2-27b": (1, 5120, 5120),   # past the 4096 window on local layers
+    "minicpm3-4b": (2, 512, 512),
+    "qwen2-vl-2b": (2, 2048, 2048),  # at least its 1024 vision tokens
+}
+VARIANT_GEN = 16          # decode steps a served request takes
+VARIANT_AGREE = 0.9       # tests/test_models.py: argmax agreement
+VARIANT_P90 = 0.12        # ... and p90 |delta| < 0.12 scale + 0.12
+# (label, m, n, r, matrices, G a transposed view): the slice's new shapes
+VARIANT_OPT_SHAPES = (
+    ("gemma2 embed", 4608, 256000, 512, 1, True),
+    ("gemma2 w_gate", 4608, 36864, 512, 2, False),
+)
+VARIANT_FRONT_SHAPES = (
+    ("minicpm3 w_dq", 768, 2560, 512, 2, True),
+    ("minicpm3 w_uq", 768, 3840, 512, 2, False),
+    ("qwen2-vl embed", 1536, 152064, 256, 1, True),
+)
+VARIANT_TAP = ("gemma2 w_gate", 5120, 4608, 36864, 512)   # (b, m, n, r)
+
+
+def _variant_inputs(m, n, r, b, transposed, seed):
+    """``_opt_inputs`` for ``b`` matrices in bf16, drawn a matrix at a
+    time (a (4608, 256000) fp32 draw is 4.7 GB)."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rn(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+
+    G = torch.empty((b, n, m) if transposed else (b, m, n),
+                    dtype=torch.bfloat16, device="cuda")
+    for i in range(b):
+        G[i] = rn(*G.shape[1:])
+    return dict(S=torch.linalg.qr(rn(b, m, r))[0].contiguous(),
+                G=G.mT if transposed else G, M=0.1 * rn(b, r, n),
+                V=0.01 * rn(b, r, n).abs(), phi=rn(b, n).abs(),
+                clip=torch.tensor([0.9, 0.25], device="cuda")[:b])
+
+
+def _variant_bound(name, m, n, r, b) -> tuple[float, str]:
+    """(bound ms, bound_by) of one call at (m, n, r) x b with bf16 G: the
+    bytes it must move at the memory rate against its operations at each
+    type's peak (``_tc_work``; phases 8 and 14 write these out)."""
+    g = 2
+    nbytes = {
+        "project": b * (4 * m * r + g * m * n + 4 * r * n),
+        "project_colnorms": b * (4 * m * r + g * m * n + 4 * r * n + 4 * n),
+        "tangent": b * (g * m * n + 4 * r * n + 8 * m * r),
+        "adam_lowrank_norms": b * (24 * r * n + 8 * n),
+        "fused_update": b * (2 * g * m * n + 4 * m * r + 8 * r * n + 4 * n
+                             + 12),
+        "project_tangent_colnorms": b * (4 * m * r + g * m * n + 4 * r * n
+                                         + 4 * n + 4 * m * r),
+    }[name]
+    tc = _tc_work(name, m, n, r, b)
+    t_ops = ((sum(p * f for p, f in tc[0]) / BF16_FLOPS
+              + tc[1] / FP32_FLOPS) * 1e3 if tc
+             else b * 16 * r * n / FP32_FLOPS * 1e3)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+def phase_variant_kernels() -> dict:
+    """Phase 24 (a): the kernels the three variants run, at the shapes no
+    earlier phase gave them, against their plain versions (``OPT_REL``,
+    ``FRONT_REL``, ``TAP_REL``) and timed beside their bounds and plain
+    versions; and the embedding's warm-start SVD alone."""
+    from repro_torch.core.subspace import init_subspace_svd
+    from repro_torch.kernels import grassmann as gk
+    from repro_torch.kernels import ref
+
+    out: dict = {}
+
+    def record(name, label, kern, plain, parts, rel, m, n, r, b, iters):
+        got = kern()
+        torch.cuda.synchronize()
+        want = plain()
+        line = []
+        err = 0.0
+        for part, g_, w_ in parts(got, want):
+            abs_err, e = _opt_error(g_, w_)
+            if e > rel[part]:
+                raise AssertionError(f"{name} at {label} ({m}, {n}, r {r}) "
+                                     f"x{b} {part}: error {e:.3e} of the "
+                                     f"largest entry > {rel[part]:g}")
+            err = max(err, abs_err)
+            line.append(f"{part} {abs_err:.2e} ({e:.1e})")
+        del got, want
+        route = getattr(getattr(gk, name), "route", None)
+        ms = _time_ms(kern, iters=iters, repeats=3)
+        plain_ms = _time_ms(plain, iters=1, repeats=3)
+        bound, by = _variant_bound(name, m, n, r, b)
+        out.setdefault(name, {})[label] = {
+            "shape": [m, n, r, b], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound, "bound_by": by, "max_abs_err": err,
+            "route": route}
+        print(f"[variants] {name} {label} ({m}, {n}, r {r}) x{b} bf16 G: "
+              f"max abs err (of largest) {', '.join(line)}; kernel "
+              f"{ms:.4f} ms (CUDA events), bound {bound:.4f} ms ({by}), "
+              f"plain {plain_ms:.4f} ms, route {route}", flush=True)
+
+    for i, (label, m, n, r, b, tr) in enumerate(VARIANT_OPT_SHAPES):
+        x = _variant_inputs(m, n, r, b, tr, SEED + i)
+        S, G, M, V, phi, clip = (x[k] for k in ("S", "G", "M", "V", "phi",
+                                                "clip"))
+        A, _ = ref.project_colnorms_ref(S, G)
+        Gto = ref.adam_lowrank_norms_ref(A, M, V, 3, 0.9, 0.999, 1e-8)[2]
+        calls = {
+            "project_colnorms": (lambda: gk.project_colnorms(S, G),
+                                 lambda: ref.project_colnorms_ref(S, G)),
+            "tangent": (lambda: gk.tangent(G, A, S),
+                        lambda: ref.tangent_ref(G, A, S)),
+            "project": (lambda: gk.project(S, G),
+                        lambda: ref.project_ref(S, G)),
+            "adam_lowrank_norms": (
+                lambda: gk.adam_lowrank_norms(A, M, V, 3),
+                lambda: ref.adam_lowrank_norms_ref(A, M, V, 3, 0.9, 0.999,
+                                                   1e-8)),
+            "fused_update": (
+                lambda: gk.fused_update(G, S, A, Gto, phi, 0.01, clip,
+                                        out_dtype=G.dtype),
+                lambda: ref.fused_update_ref(G, S, A, Gto, phi, 0.01, clip,
+                                             out_dtype=G.dtype)),
+        }
+        for name, (kern, plain) in calls.items():
+            record(name, label, kern, plain,
+                   lambda g, w, name=name: [(name, g, w)], OPT_REL, m, n, r,
+                   b, iters=3)
+        del x, S, G, M, V, phi, clip, A, Gto, calls
+        gc.collect()
+        torch.cuda.empty_cache()
+    for i, (label, m, n, r, b, tr) in enumerate(VARIANT_FRONT_SHAPES):
+        x = _variant_inputs(m, n, r, b, tr, SEED + 10 + i)
+        S, G = x["S"], x["G"]
+        record("project_tangent_colnorms", label,
+               lambda: gk.project_tangent_colnorms(S, G),
+               lambda: ref.project_tangent_colnorms_ref(S, G),
+               lambda g, w: zip(("A", "gsq", "T"), g, w), FRONT_REL,
+               m, n, r, b, iters=5)
+        del x, S, G
+    label, tb, tm, tn, tr_ = VARIANT_TAP
+    x, dy, S = _tap_inputs(tb, tm, tn, tr_, torch.bfloat16, SEED)
+    got = gk.grad_tap(x, dy, S, out_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    want = ref.grad_tap_ref(x, dy, S)
+    err = 0.0
+    for part, g_, w_ in zip(("dW", "A", "gsq"), (got[0], got[1][:-1],
+                                                 got[1][-1]), want):
+        abs_err, e = _opt_error(g_, w_)
+        if e > TAP_REL:
+            raise AssertionError(f"grad_tap at {label}: {part} {e:.3e}")
+        err = max(err, abs_err)
+    del got, want
+    ms = _time_ms(lambda: gk.grad_tap(x, dy, S, out_dtype=torch.bfloat16),
+                  iters=3, repeats=3)
+    plain_ms = _time_ms(lambda: ref.grad_tap_ref(x, dy, S), iters=1,
+                        repeats=3)
+    nbytes = (2 * tb * tm + 2 * tb * tn + 4 * tm * tr_ + 2 * tm * tn
+              + 4 * tr_ * tn + 4 * tn)
+    t_ops = ((2 * tb * tm * tn + TAP_PASSES * (2 * tb * tm * tr_
+                                               + 2 * tb * tr_ * tn))
+             / BF16_FLOPS + 2 * tm * tn / FP32_FLOPS) * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    out["grad_tap"] = {label: {
+        "shape": [tm, tn, tr_, tb], "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops),
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "max_abs_err": err, "route": gk.grad_tap.route}}
+    print(f"[variants] grad_tap {label} ({tm}, {tn}, b {tb}, r {tr_}) bf16: "
+          f"max abs err {err:.2e}; kernel {ms:.4f} ms, bound "
+          f"{max(t_bytes, t_ops):.4f} ms, plain {plain_ms:.4f} ms, route "
+          f"{gk.grad_tap.route}", flush=True)
+    del x, dy, S
+    # the warm start's largest SVD: gemma2's embedding, (4608, 256000),
+    # which gesvd refuses whole: its R^T (4608, 4608) first (subspace.py)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    G = torch.randn((4608, 256000), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    S = init_subspace_svd(G, 512)
+    torch.cuda.synchronize()
+    out["svd_embed_s"] = time.perf_counter() - t0
+    orth = (S.mT @ S - torch.eye(512, device="cuda")).abs().max().item()
+    print(f"[variants] warm-start SVD of gemma2's embedding gradient shape "
+          f"(4608, 256000), bf16 G (QR of G^T to R, then gesvd of R^T): "
+          f"{out['svd_embed_s']:.2f} s, max |S^T S - I| {orth:.1e}",
+          flush=True)
+    del G, S
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _plan_launches(cfg, params, rank, steps, tracking, tapped=False) -> dict:
+    """Exact launch counts of ``steps`` train steps (``tracking`` of them
+    tracking steps), from each leaf's plan: a low-rank leaf launches
+    adam_lowrank_norms and fused_update on every step; project_colnorms on
+    a plain step, or grad_tap once per layer (once for lm_head) where
+    ``tapped`` and the leaf is a tap site; on a tracking step the front
+    end (project_tangent_colnorms at m <= MAX_FRONT_M, else
+    project_colnorms + tangent) and project."""
+    from repro_torch.core.plan import make_plans
+    from repro_torch.kernels import grassmann as gk
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import _tap_paths
+
+    want = {name: 0 for name in ops.launch_counts()}
+    plain = steps - tracking
+    sites = {path: cfg.n_layers if path[0] == "layers" else 1
+             for path in _tap_paths(cfg)} if tapped else {}
+    for path, plan in _leaf_paths(make_plans(params, rank)):
+        if plan.mode != "lowrank":
+            continue
+        if path in sites:
+            want["grad_tap"] += sites[path] * plain
+        else:
+            want["project_colnorms"] += plain
+        want["adam_lowrank_norms"] += steps
+        want["fused_update"] += steps
+        want["project"] += tracking
+        if plan.m <= gk.MAX_FRONT_M:
+            want["project_tangent_colnorms"] += tracking
+        else:
+            want["project_colnorms"] += tracking
+            want["tangent"] += tracking
+    return want
+
+
+def phase_variant_smoke() -> None:
+    """Phase 24 (b): each variant's fp32 smoke config on CUDA and on the
+    CPU from the same params, warm-started state and batches, through
+    ``run``, plain and grad-fused (4 steps, tracking at 2, rank 32, eta
+    2e-5): losses within ``SMOKE_LOSS_ATOL``, exact launch counts from
+    the plans on CUDA, none on the CPU."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.api import get_optimizer
+    from repro_torch.core.subtrack import tree_map
+    from repro_torch.data.pipeline import (DataConfig, SyntheticLMDataset,
+                                           batch_for_model)
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import TrainState, make_warm_start
+    from repro_torch.launch.train import run
+    from repro_torch.models.api import build_model
+    from repro_torch.optim.schedules import cosine_with_warmup
+
+    steps, k, rank = VARIANT_STEPS, VARIANT_K, 32
+    tracking = sum(1 for s in range(steps) if s and s % k == 0)
+    for arch in VARIANT_ARCHS:
+        cfg = get_config(arch, smoke=True).with_(dtype="float32")
+        bundle = build_model(cfg)
+        opt = get_optimizer("subtrack", rank=rank, update_interval=k,
+                            eta=2e-5, use_kernels=True)
+        data = SyntheticLMDataset(DataConfig(vocab_size=cfg.vocab_size,
+                                             seq_len=128, global_batch=2,
+                                             seed=SEED))
+        batches = [batch_for_model(cfg, None, data, s) for s in range(steps)]
+        params = bundle.init(torch.Generator().manual_seed(SEED))
+        warm, _ = make_warm_start(bundle, opt)(
+            TrainState(params=params, opt=opt.init(params)), batches[0])
+
+        def go(device, grad_fused):
+            ops.reset_launch_counts()
+            out = run(cfg, tree_map(lambda t: t.to(device, copy=True),
+                                    params),
+                      lambda s: batches[s], optimizer=opt, steps=steps,
+                      lr_at=cosine_with_warmup(1e-3, steps, 2),
+                      log_every=steps, opt_state=_state_to(warm.opt, device),
+                      grad_fused=grad_fused)
+            return [h["loss"] for h in out["history"]], ops.launch_counts()
+
+        losses = {}
+        for grad_fused in (False, True):
+            cuda_losses, cuda_counts = go("cuda", grad_fused)
+            cpu_losses, cpu_counts = go("cpu", grad_fused)
+            losses[grad_fused] = cuda_losses
+            diff = max(abs(a - b) for a, b in zip(cuda_losses, cpu_losses))
+            name = f"{arch} smoke {'grad-fused' if grad_fused else 'plain'}"
+            if not diff <= SMOKE_LOSS_ATOL:
+                raise AssertionError(f"{name}: CUDA {cuda_losses} vs CPU "
+                                     f"{cpu_losses} (max diff {diff:.3e})")
+            want = _plan_launches(cfg, params, rank, steps, tracking,
+                                  tapped=grad_fused)
+            if cuda_counts != want or any(cpu_counts.values()):
+                raise AssertionError(f"{name} launches: CUDA {cuda_counts} "
+                                     f"(want {want}), CPU {cpu_counts}")
+            print(f"[variants] {name}, {steps} steps: losses CUDA vs CPU max "
+                  f"diff {diff:.2e} (budget {SMOKE_LOSS_ATOL:g}); CUDA "
+                  f"launches {({k_: v for k_, v in cuda_counts.items() if v})}",
+                  flush=True)
+        diff = max(abs(a - b) for a, b in zip(losses[True], losses[False]))
+        if not diff <= SMOKE_LOSS_ATOL:
+            raise AssertionError(f"{arch} smoke on CUDA: grad-fused "
+                                 f"{losses[True]} vs plain {losses[False]}")
+
+
+def _divisor_block(T: int, block: int) -> int:
+    """The largest divisor of T that is at most ``block``: the forward's
+    KV blocks must tile the sequence (only the summation order moves);
+    P + 16 at the three prompts gives 856, 528 and 688."""
+    return max(d for d in range(1, min(block, T) + 1) if T % d == 0)
+
+
+def phase_variant_full() -> dict:
+    """Phase 24 (c, d): each variant at full width and ``VARIANT_LAYERS``
+    layers: 4 SubTrack++ steps through ``run`` (kernels on, default rank,
+    eta pinned), then its trained weights served through ``run_dense`` and
+    teacher-forced against the full forward (the JAX package's
+    decode-consistency criteria).  Returns launches and times per arch."""
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.api import get_optimizer
+    from repro_torch.data.pipeline import (DataConfig, SyntheticLMDataset,
+                                           batch_for_model, validate_batch)
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import (AdmissionQueue, Request,
+                                          _prefill_inputs, run_dense)
+    from repro_torch.launch.steps import default_rank
+    from repro_torch.launch.train import run
+    from repro_torch.models import transformer as ttf
+    from repro_torch.models.api import build_model
+    from repro_torch.optim.schedules import cosine_with_warmup
+
+    t_phase = time.perf_counter()
+    out = {}
+    steps, k = VARIANT_STEPS, VARIANT_K
+    for arch in VARIANT_ARCHS:
+        full = get_config(arch)
+        cfg = full.with_(n_layers=VARIANT_LAYERS)
+        batch, seq, P = VARIANT_RUNS[arch]
+        rank = default_rank(cfg.d_model)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        bundle = build_model(cfg)
+        params = bundle.init(torch.Generator(device="cuda").manual_seed(SEED))
+        n_params = sum(t.numel() for _, t in _leaf_paths(params))
+        print(f"[variants] {arch} cut to size: {full.n_layers} -> "
+              f"{cfg.n_layers} layers at full width (d {cfg.d_model}, heads "
+              f"{cfg.n_heads}/{cfg.n_kv_heads}, d_ff {cfg.d_ff}, vocab "
+              f"{cfg.padded_vocab}): {n_params / 1e9:.2f} B params; rank "
+              f"{rank}, batch {batch} x {seq}, eta {VARIANT_ETA:g}",
+              flush=True)
+        opt = get_optimizer("subtrack", rank=rank, update_interval=k,
+                            eta=VARIANT_ETA, use_kernels=True)
+        data = SyntheticLMDataset(DataConfig(vocab_size=cfg.vocab_size,
+                                             seq_len=seq, global_batch=batch,
+                                             seed=SEED))
+
+        def batch_at(step, mutate=None):
+            b = batch_for_model(cfg, None, data, step)
+            validate_batch(b, cfg.vocab_size)
+            return b
+
+        want = _plan_launches(cfg, params, rank, steps,
+                              sum(1 for s in range(steps) if s and s % k == 0))
+        ops.reset_launch_counts()
+        res = run(cfg, params, batch_at, optimizer=opt, steps=steps,
+                  lr_at=cosine_with_warmup(1e-3, steps, 2), log_every=1)
+        launches = ops.launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        hist = res["history"]
+        if not all(h["loss"] is not None and math.isfinite(h["loss"])
+                   and not h["quarantined"] for h in hist):
+            raise AssertionError(f"{arch}: history {hist}")
+        if [h["step"] for h in hist if h["subspace_update"]] != [2]:
+            raise AssertionError(f"{arch}: tracking steps wrong: {hist}")
+        if launches != want:
+            raise AssertionError(f"{arch} launches {launches}, want {want}")
+        plain_s = [h["dt"] for h in hist if not h["subspace_update"]]
+        track_s = [h["dt"] for h in hist if h["subspace_update"]][0]
+        tok_s = batch * seq / (sum(plain_s[1:]) / len(plain_s[1:]))
+        rec = {"launches": launches, "warm_start_s": res["warm_start_s"],
+               "plain_s": plain_s, "tracking_s": track_s, "tok_s": tok_s,
+               "train_peak_gib": peak / 2**30,
+               "losses": [h["loss"] for h in hist]}
+        print(f"[variants] {arch} train: warm start {res['warm_start_s']:.2f}"
+              f" s (loss {res['warm_loss']:.4f}); losses {rec['losses']}; "
+              f"plain steps {[round(t, 3) for t in plain_s]} s (step 0 cold),"
+              f" tracking {track_s:.3f} s; {tok_s:.1f} tok/s on warm plain "
+              f"steps; peak {peak / 2**30:.2f} GiB; launches "
+              f"{({k_: v for k_, v in launches.items() if v})}", flush=True)
+        params = res.pop("state").params       # drop the optimizer state
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        # (d) two requests through the dense engine, then teacher-forced
+        stream = SyntheticLMDataset(DataConfig(
+            vocab_size=cfg.vocab_size, seq_len=P + VARIANT_GEN,
+            global_batch=2, seed=SEED + 1)).global_batch_at(0)["tokens"]
+        queue = AdmissionQueue()
+        for i in range(2):
+            queue.submit(Request(rid=i, prompt=stream[i, :P].numpy(),
+                                 max_new=VARIANT_GEN, t_submit=time.time()))
+        ops.reset_launch_counts()
+        served = run_dense(cfg, bundle, params, queue, batch=2, prompt_len=P)
+        if served["requests"] != 2 or any(
+                len(v) != VARIANT_GEN for v in served["outputs"].values()) \
+                or any(ops.launch_counts().values()):
+            raise AssertionError(f"{arch} serve: {served}")
+        with torch.no_grad():
+            toks = stream.cuda()
+            # prefill P, then teacher-force the stream's next VARIANT_GEN
+            # tokens: logits at positions P-1 .. P+GEN-1 against the full
+            # forward over P + GEN tokens (tests/test_models.py's check)
+            T = P + VARIANT_GEN
+            logits, cache = bundle.prefill(
+                params, _prefill_inputs(cfg, stream[:, :P].numpy(), "cuda"),
+                T)
+            got = [logits.float().cpu()]
+            for i in range(VARIANT_GEN):
+                logits, cache = bundle.decode_step(params, cache,
+                                                   toks[:, P + i])
+                got.append(logits.float().cpu())
+            del cache, logits
+            fwd = _prefill_inputs(cfg, stream.numpy(), "cuda")
+            fcfg = cfg.with_(kv_block=_divisor_block(T, cfg.kv_block))
+            full_logits, _ = ttf.decoder_forward(
+                params, fwd.pop("tokens"), fcfg, fwd, remat="none")
+            want_l = full_logits[:, P - 1:].float().transpose(0, 1).cpu()
+            del full_logits, fwd
+        got_l = torch.stack(got).numpy()
+        want_l = want_l.numpy()
+        agree = float((got_l.argmax(-1) == want_l.argmax(-1)).mean())
+        p90 = float(np.percentile(np.abs(got_l - want_l), 90))
+        scale = float(np.percentile(np.abs(want_l), 90)) + 1e-3
+        if not (agree >= VARIANT_AGREE
+                and p90 < VARIANT_P90 * scale + VARIANT_P90):
+            raise AssertionError(f"{arch} decode vs forward: agreement "
+                                 f"{agree:.3f}, p90 {p90:.4f} (scale "
+                                 f"{scale:.3f})")
+        rec.update(serve_tok_s=served["tok_per_s"],
+                   ttft_p50_s=served["ttft_p50_s"],
+                   decode_step_ms=served["decode_step_ms_mean"],
+                   serve_peak_gib=served["peak_memory_bytes"] / 2**30,
+                   agree=agree, p90=p90, scale=scale)
+        print(f"[variants] {arch} serve (dense, 2 x {P} + {VARIANT_GEN}): "
+              f"{served['tok_per_s']:.1f} tok/s, TTFT p50 "
+              f"{served['ttft_p50_s'] * 1e3:.1f} ms, decode step "
+              f"{served['decode_step_ms_mean']:.2f} ms, peak "
+              f"{rec['serve_peak_gib']:.2f} GiB; teacher-forced decode vs "
+              f"full forward: argmax agreement {agree:.3f} (>= "
+              f"{VARIANT_AGREE}), p90 |delta| {p90:.4f} < "
+              f"{VARIANT_P90 * scale + VARIANT_P90:.4f}", flush=True)
+        out[arch] = rec
+        del params, got, got_l, want_l, toks
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"[variants] phase 24 (c, d): {time.perf_counter() - t_phase:.1f} "
+          "s", flush=True)
+    return out
+
+
+def phase_decoder_variants() -> dict:
+    """Phase 24: the decoder family's variants (a-d)."""
+    t0 = time.perf_counter()
+    kernels = phase_variant_kernels()
+    phase_variant_smoke()
+    runs = phase_variant_full()
+    print(f"[variants] phase 24: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return {"kernels": kernels, "runs": runs}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -3110,6 +3616,7 @@ def main() -> int:
     mesh = phase_mesh_programs(trained)
     fused = phase_train_7b_grad_fused(trained)
     trained_1b = phase_train_1b()
+    variants = phase_decoder_variants()
     phase_serve_dense(served)
     fp32_routes = phase_time_fp32_routes()
     phase_train_1b_options(trained_1b)
@@ -3198,9 +3705,15 @@ def main() -> int:
                                    "design_bound_ms", "library_ms",
                                    "no_softcap_ms")}})
     for entry in kernels:
-        if entry["name"] in fp32_routes:   # the routes --accum puts on a path
-            entry["fp32_ms"] = fp32_routes[entry["name"]]["ms"]
-            entry["fp32_bound_ms"] = fp32_routes[entry["name"]]["bound_ms"]
+        name = entry["name"]
+        if name in variants["kernels"]:    # phase 24 (a): the new shapes
+            entry["variant_shapes"] = variants["kernels"][name]
+        entry["variant_launches"] = {       # phase 24 (c): the three runs
+            arch: run_["launches"][name]
+            for arch, run_ in variants["runs"].items()}
+        if name in fp32_routes:   # the routes --accum puts on a path
+            entry["fp32_ms"] = fp32_routes[name]["ms"]
+            entry["fp32_bound_ms"] = fp32_routes[name]["bound_ms"]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

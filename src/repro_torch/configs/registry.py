@@ -1,15 +1,27 @@
 """Config registry: ``--arch <id>`` resolution for the port's launchers.
 
 Holds the paper's Llama pre-training ladder (Table 10) and the assigned
-decoder configs whose serving path is ported: ``qwen1.5-4b`` (QKV bias)
-and ``stablelm-12b`` (GQA kv=8, 25% partial rotary, head dim 160).  The
-numbers are those of ``repro.configs.registry`` and its config modules.
-Any other arch id raises "not yet ported".
+decoder configs the port's decoder builds: ``qwen1.5-4b`` (QKV bias),
+``stablelm-12b`` (GQA kv=8, 25% partial rotary, head dim 160), and, as
+config modules of their own (copies of ``repro.configs``'), ``gemma2-27b``
+(local/global windows, softcaps, sandwich norms, GeGLU, tied and scaled
+embeddings), ``minicpm3-4b`` (MLA) and ``qwen2-vl-2b`` (M-RoPE, QKV bias,
+the vision stub).  The numbers are those of ``repro.configs.registry``
+and its config modules.  Any other arch id raises "not yet ported".
 """
 
 from __future__ import annotations
 
+import importlib
+
 from repro_torch.models.config import ModelConfig, reduce_for_smoke
+
+# assigned architecture id -> module (exact configs from the assignment)
+_ARCH_MODULES = {
+    "gemma2-27b": "repro_torch.configs.gemma2_27b",
+    "minicpm3-4b": "repro_torch.configs.minicpm3_4b",
+    "qwen2-vl-2b": "repro_torch.configs.qwen2_vl_2b",
+}
 
 
 def _llama(name, layers, d, heads, ff) -> ModelConfig:
@@ -55,13 +67,16 @@ _ASSIGNED = {
 
 
 def arch_names() -> list[str]:
-    return sorted(list(_ASSIGNED) + list(_PAPER_MODELS))
+    return sorted(list(_ASSIGNED) + list(_ARCH_MODULES) + list(_PAPER_MODELS))
 
 
 def get_config(name: str, smoke: bool = False) -> ModelConfig:
     """Resolve an architecture id; ``smoke=True`` returns the reduced
     same-family config used by CPU smoke tests."""
-    cfg = _ASSIGNED.get(name) or _PAPER_MODELS.get(name)
+    if name in _ARCH_MODULES:
+        cfg = importlib.import_module(_ARCH_MODULES[name]).CONFIG
+    else:
+        cfg = _ASSIGNED.get(name) or _PAPER_MODELS.get(name)
     if cfg is None:
         raise NotImplementedError(
             f"arch {name!r} is not yet ported to repro_torch; "

@@ -42,6 +42,13 @@ class Rank1Triple(NamedTuple):
 # ---------------------------------------------------------------------------
 
 
+# cuSOLVER's gesvd refuses gemma2-27b's (4608, 256000) embedding gradient
+# (CUSOLVER_STATUS_INVALID_VALUE from its workspace query) while it takes
+# llama-7b's and qwen2-vl's vocabulary matrices (at most 2.4e8 elements):
+# matrices of at least this many elements reduce to their R factor first
+GESVD_MAX_ELEMENTS = 1 << 30
+
+
 def init_subspace_svd(G: torch.Tensor, rank: int) -> torch.Tensor:
     """S_0 = U[:, :r] of the thin SVD of the first gradient (Eq. 1).
     Singular-vector signs may differ from ``jnp.linalg.svd``'s: compare
@@ -51,10 +58,26 @@ def init_subspace_svd(G: torch.Tensor, rank: int) -> torch.Tensor:
     (Jacobi) driver leaves U orthonormal only to ~2e-3, and the faster
     ``gesvda`` fails to converge on a rank-deficient gradient, which every
     gradient of a batch with fewer tokens than m is (``chip_smoke.py``
-    times and checks the drivers on the card; numbers in PERF.md)."""
-    driver = "gesvd" if G.device.type == "cuda" else None
-    U, _, _ = torch.linalg.svd(G.float(), full_matrices=False, driver=driver)
+    times and checks the drivers on the card; numbers in PERF.md).  A
+    wide matrix of ``GESVD_MAX_ELEMENTS`` or more, which gesvd refuses,
+    first takes the R factor of G^T = Q R (R is m x m): G = R^T Q^T, so
+    G's left singular vectors are R^T's, and gesvd factors R^T.  LAPACK's
+    gesvd takes the same QR-first path for such shapes."""
+    G = G.float()
+    driver = None
+    if G.device.type == "cuda":
+        driver = "gesvd"
+        m, n = G.shape[-2:]
+        if n > m and m * n >= GESVD_MAX_ELEMENTS:
+            G = r_factor_t(G)
+    U, _, _ = torch.linalg.svd(G, full_matrices=False, driver=driver)
     return U[..., :rank].contiguous()
+
+
+def r_factor_t(G: torch.Tensor) -> torch.Tensor:
+    """R^T (..., m, m) of the thin QR G^T = Q R of a wide G (..., m, n):
+    it has G's left singular vectors and singular values."""
+    return torch.linalg.qr(G.mT, mode="r")[1].mT
 
 
 def init_subspace_randomized(G: torch.Tensor, rank: int, *, seed: int = 0,

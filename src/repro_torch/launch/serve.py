@@ -146,9 +146,15 @@ def run_dense(cfg, bundle, params, queue: AdmissionQueue, *,
     ``prompt_len``; free slots are zero rows); the wave then decodes until
     its longest request is done, not to a fixed step count, and slots
     whose request is done (or that were padding) emit nothing.  Each
-    decode step ends in one device sync, the sampled tokens' read.
+    decode step ends in one device sync, the sampled tokens' read.  As
+    in the JAX driver, a vision config's prefill gets zero vision
+    embeddings (so a prompt must hold at least ``vision_tokens`` tokens)
+    and an mrope config's text positions on all three streams.
     """
     device = params["embed"].device
+    if prompt_len < cfg.vision_tokens:
+        raise ValueError(f"{cfg.name}: a prompt of {prompt_len} tokens "
+                         f"cannot hold {cfg.vision_tokens} vision tokens")
     max_new_cap = max((r.max_new for r in queue.pending), default=1)
     max_len = prompt_len + max_new_cap + 8
     done: list[Request] = []
@@ -172,7 +178,7 @@ def run_dense(cfg, bundle, params, queue: AdmissionQueue, *,
         for i, r in enumerate(wave):
             toks[i] = r.prompt
         logits, cache = bundle.prefill(
-            params, {"tokens": torch.as_tensor(toks).to(device)}, max_len)
+            params, _prefill_inputs(cfg, toks, device), max_len)
         tok = sample(logits)
         now = time.time()
         for i, r in enumerate(wave):
@@ -202,6 +208,22 @@ def run_dense(cfg, bundle, params, queue: AdmissionQueue, *,
     out["peak_memory_bytes"] = (torch.cuda.max_memory_allocated(device)
                                 if device.type == "cuda" else None)
     return out
+
+
+def _prefill_inputs(cfg, toks: np.ndarray, device) -> dict:
+    """The dense prefill's batch: the tokens, zero vision embeddings
+    (bf16) for a vision config, and t = h = w text positions for an mrope
+    config."""
+    B, S = toks.shape
+    batch = {"tokens": torch.as_tensor(toks).to(device)}
+    if cfg.vision_tokens:
+        batch["vision_embeds"] = torch.zeros(
+            (B, cfg.vision_tokens, cfg.d_model), dtype=torch.bfloat16,
+            device=device)
+    if cfg.mrope:
+        pos = torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
+        batch["mrope_positions"] = torch.stack([pos] * 3, dim=1)
+    return batch
 
 
 def run_paged(cfg, bundle, params, queue: AdmissionQueue, *,

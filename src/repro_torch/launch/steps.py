@@ -164,13 +164,21 @@ def accumulated_grads(bundle: ModelBundle, params, batch, remat: str,
 # Grad-fused tap collection
 # ---------------------------------------------------------------------------
 #
-# The taggable matmul sites of the decoder (repro_torch.models.transformer):
-# the per-layer attention and MLP projections plus the untied lm_head.  (The
-# JAX package drops the attention sites of MLA and the MLP sites of MoE
-# configs; the port's decoder runs neither.)
-TAP_PATHS = ([("layers", "attn", k) for k in ("wq", "wk", "wv", "wo")]
-             + [("layers", "mlp", k) for k in ("w_gate", "w_up", "w_down")]
-             + [("lm_head",)])
+# The taggable matmul sites of the decoder family
+# (repro_torch.models.transformer): the per-layer attention and MLP
+# projections plus the untied lm_head.  MLA attention and MoE blocks have
+# no taggable dense path: their sites are absent, and so is a tied
+# config's lm_head leaf (``_site_get`` finds none), as in the JAX package.
+
+
+def _tap_paths(cfg) -> list[tuple[str, ...]]:
+    paths: list[tuple[str, ...]] = []
+    if getattr(cfg, "attn_type", None) != "mla":
+        paths += [("layers", "attn", k) for k in ("wq", "wk", "wv", "wo")]
+    if getattr(cfg, "moe", None) is None:
+        paths += [("layers", "mlp", k) for k in ("w_gate", "w_up", "w_down")]
+    paths.append(("lm_head",))
+    return paths
 
 
 def _site_get(tree, path):
@@ -204,7 +212,7 @@ def tapped_grads(bundle: ModelBundle, state: TrainState, batch,
     ``gscale`` seeds the backward, so the taps scale with the
     gradients."""
     sites = []
-    for path in TAP_PATHS:
+    for path in _tap_paths(bundle.cfg):
         p = _site_get(state.params, path)
         st = _site_get(state.opt.inner, path)
         if p is None or not isinstance(st, MatrixOptState):

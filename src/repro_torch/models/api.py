@@ -4,7 +4,10 @@ serving).
 Counterpart of ``repro.models.api``.  So far only the decoder family's
 ``init``, ``loss``, ``loss_taps``, its dense serving fields (``prefill``,
 ``decode_step``, ``init_cache``) and its three paged fields are ported;
-other families raise.
+other families raise.  As in the JAX package, prefill passes every batch
+entry but the tokens to the model (``vision_embeds``,
+``mrope_positions``), and an mrope config's decode step rotates the new
+token by ``cache.length`` on all three position streams.
 """
 
 from __future__ import annotations
@@ -73,15 +76,18 @@ def _decoder_bundle(cfg: ModelConfig) -> ModelBundle:
         return transformer.decoder_loss(params, batch, cfg, remat, taps)
 
     def prefill(params, batch, max_len):
-        extras = sorted(k for k in batch if k != "tokens")
-        if extras:
-            raise NotImplementedError(f"prefill inputs {extras} are not yet "
-                                      "ported to repro_torch")
+        extras = {k: v for k, v in batch.items() if k != "tokens"}
         return transformer.decoder_prefill(params, batch["tokens"], cfg,
-                                           max_len)
+                                           max_len, extras)
 
     def decode_step(params, cache, token):
-        return transformer.decoder_decode_step(params, cache, token, cfg)
+        extras = {}
+        if cfg.mrope:
+            extras["mrope_positions"] = torch.full(
+                (token.shape[0], 3, 1), cache.length, dtype=torch.int32,
+                device=token.device)
+        return transformer.decoder_decode_step(params, cache, token, cfg,
+                                               extras)
 
     def init_cache(batch, max_len, device=None):
         return transformer.init_decoder_cache(cfg, batch, max_len,

@@ -1,12 +1,15 @@
-"""Attention for serving and training: blocked online-softmax attention,
-single-token decode against a dense (possibly ring-buffered) KV cache, and
-the paged KV pool.
+"""Attention for serving and training: blocked online-softmax attention
+(causal, with an optional sliding window and logit softcap),
+single-token decode against a dense (possibly ring-buffered) KV cache,
+the paged KV pool, and MLA (multi-head latent attention: the latent
+cache, its prefill and its absorbed decode).
 
-Counterpart of ``repro.models.attention``.  ``blocked_attention`` and
-``decode_attention`` are plain PyTorch (neither is a Pallas kernel in the
-JAX package either): the same fp32 logits and softmax statistics, written
-with plain tensor ops rather than a library attention call.  The dense
-cache is written in place (the JAX helpers return new arrays).
+Counterpart of ``repro.models.attention``.  ``blocked_attention``,
+``decode_attention`` and the MLA functions are plain PyTorch (none is a
+Pallas kernel in the JAX package either): the same fp32 logits and
+softmax statistics, written with plain tensor ops rather than a library
+attention call.  The dense caches are written in place (the JAX helpers
+return new arrays).
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ NEG_INF = -1e30
 
 
 def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      window: int | None = None, softcap: float = 0.0,
                       q_offset: int = 0, kv_block: int = 1024
                       ) -> torch.Tensor:
     """Causal online-softmax attention over KV blocks; returns
@@ -28,7 +32,11 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q: (B, S, Hq, hd); k: (B, T, Hkv, hd); v: (B, T, Hkv, vd).  GQA folds
     query heads into (Hkv, G) so K/V are never repeated; query head
     ``h*G + g`` belongs to KV head ``h``.  ``q_offset`` is the absolute
-    position of q[0] (prefill continuation).  Logits and softmax
+    position of q[0] (prefill continuation).  ``window`` (None = full)
+    keeps keys with ``k_pos > q_pos - window``, the JAX package's
+    arithmetic mask (gemma2's global layers pass ``1 << 30``); ``softcap``
+    caps the scaled logits, ``cap * tanh(logits / cap)``, before the
+    mask.  Logits and softmax
     statistics are fp32; as in the JAX package the probabilities are
     rounded to v's dtype before the PV product.  The whole query length is
     one block (the paged prefill's only caller passes one chunk).
@@ -51,8 +59,12 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         kj = k[:, t0:t0 + kv_block].float()
         vj = v[:, t0:t0 + kv_block]
         logits = torch.einsum("bqkgh,bskh->bkgqs", qg, kj) * scale
+        if softcap:
+            logits = softcap * torch.tanh(logits / softcap)
         k_pos = torch.arange(t0, t0 + kv_block, device=q.device)
         mask = k_pos[None, :] <= q_pos[:, None]                    # (S, bk)
+        if window is not None:
+            mask &= k_pos[None, :] > q_pos[:, None] - window
         logits = torch.where(mask, logits, NEG_INF)
         m_new = torch.maximum(m, logits.amax(dim=-1))
         p = torch.exp(logits - m_new[..., None])
@@ -199,3 +211,78 @@ def init_paged_kv(n_layers: int, num_blocks: int, block_size: int,
     shape = (n_layers, num_blocks, block_size, n_kv, hd)
     return PagedKV(k=torch.zeros(shape, dtype=dtype, device=device),
                    v=torch.zeros(shape, dtype=dtype, device=device))
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention): MiniCPM3 / DeepSeek-V2 style
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class MLACache:
+    """The compressed cache: the latent c_kv and the shared rope keys,
+    (kv_rank + rope_dim) values per token instead of 2 * Hkv * hd.
+
+    c_kv: (L, B, T, kv_rank); k_rope: (L, B, T, rope_dim).  Slot i holds
+    position i."""
+
+    c_kv: torch.Tensor
+    k_rope: torch.Tensor
+
+
+def init_mla_cache(n_layers: int, batch: int, max_len: int, kv_rank: int,
+                   rope_dim: int, dtype=torch.bfloat16,
+                   device=None) -> MLACache:
+    return MLACache(
+        c_kv=torch.zeros((n_layers, batch, max_len, kv_rank), dtype=dtype,
+                         device=device),
+        k_rope=torch.zeros((n_layers, batch, max_len, rope_dim),
+                           dtype=dtype, device=device))
+
+
+def mla_prefill_attention(q_nope, q_rope, c_kv, k_rope, w_uk, w_uv, *,
+                          softcap: float = 0.0,
+                          kv_block: int = 1024) -> torch.Tensor:
+    """Prefill MLA: expand the latent into per-head K and V, then causal
+    :func:`blocked_attention` -> (B, S, H, dv).
+
+    q_nope: (B, S, H, dn); q_rope: (B, S, H, dr); c_kv: (B, T, kvr);
+    k_rope: (B, T, dr) (one rope key shared by every head); w_uk:
+    (kvr, H, dn); w_uv: (kvr, H, dv)."""
+    B, T = c_kv.shape[:2]
+    H = q_nope.shape[2]
+    k_nope = torch.einsum("btc,chd->bthd", c_kv, w_uk)           # (B,T,H,dn)
+    val = torch.einsum("btc,chd->bthd", c_kv, w_uv)              # (B,T,H,dv)
+    k_rope_h = k_rope[:, :, None, :].expand(B, T, H, k_rope.shape[-1])
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    k = torch.cat([k_nope, k_rope_h], dim=-1)
+    return blocked_attention(q, k, val, softcap=softcap, kv_block=kv_block)
+
+
+def mla_decode_attention(q_nope, q_rope, c_cache, kr_cache, w_uk, w_uv,
+                         pos: int, *, softcap: float = 0.0) -> torch.Tensor:
+    """Absorbed-matmul MLA decode -> (B, H, dv), in w_uv's dtype.
+
+    Scores and values are formed in the latent space,
+        score  = (q_nope W_uk)^T c + q_rope^T k_rope,
+        out_h  = (softmax(score) c) W_uv[h],
+    scaled by 1/sqrt(dn + dr), so each step reads kv_rank + rope_dim
+    values a cached token.  Slots past ``pos`` are masked.
+
+    q_nope: (B, H, dn); q_rope: (B, H, dr); c_cache: (B, T, kvr);
+    kr_cache: (B, T, dr)."""
+    dn, dr = q_nope.shape[-1], q_rope.shape[-1]
+    T = c_cache.shape[1]
+    scale = 1.0 / math.sqrt(dn + dr)
+    q_lat = torch.einsum("bhd,chd->bhc", q_nope, w_uk)           # (B,H,kvr)
+    s_lat = torch.einsum("bhc,btc->bht", q_lat.float(), c_cache.float())
+    s_rope = torch.einsum("bhr,btr->bht", q_rope.float(), kr_cache.float())
+    logits = (s_lat + s_rope) * scale
+    if softcap:
+        logits = softcap * torch.tanh(logits / softcap)
+    valid = torch.arange(T, device=c_cache.device) <= pos
+    logits = torch.where(valid, logits, NEG_INF)
+    w = torch.softmax(logits, dim=-1)
+    ctx = torch.einsum("bht,btc->bhc", w.to(c_cache.dtype).float(),
+                       c_cache.float())                           # (B,H,kvr)
+    return torch.einsum("bhc,chd->bhd", ctx.to(w_uv.dtype), w_uv)

@@ -1,5 +1,5 @@
-"""Shared building blocks: RMS norm, rotary embeddings, initializers and
-the loss.
+"""Shared building blocks: RMS norm, softcap and GELU, rotary embeddings
+(standard and M-RoPE), initializers and the loss.
 
 Counterpart of ``repro.models.common`` (the decoder's part of it, and
 the grad-fused ``tapped_matmul``).
@@ -113,7 +113,7 @@ def maybe_tapped_matmul(x: torch.Tensor, w: torch.Tensor,
 
 
 # ---------------------------------------------------------------------------
-# Norms
+# Norms / activations
 # ---------------------------------------------------------------------------
 
 
@@ -125,6 +125,19 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor,
     var = (x32 * x32).mean(dim=-1, keepdim=True)
     out = x32 * torch.rsqrt(var + eps)
     return (out * (1.0 + scale.float())).to(x.dtype)
+
+
+def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    """Gemma-2 logit soft-capping: cap * tanh(x / cap) in fp32, cast back
+    to x's dtype; the identity when ``cap`` is 0."""
+    if not cap:
+        return x
+    return (cap * torch.tanh(x.float() / cap)).to(x.dtype)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """The tanh form of GELU, as ``jax.nn.gelu``'s default."""
+    return torch.nn.functional.gelu(x, approximate="tanh")
 
 
 # ---------------------------------------------------------------------------
@@ -148,6 +161,31 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     inv = rope_freqs(hd, theta, x.device)                        # (hd/2,)
     angles = positions[..., None].float() * inv                  # (..., S, hd/2)
     cos = torch.cos(angles)[..., None, :]                        # (..., S, 1, hd/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+                sections: tuple[int, ...]) -> torch.Tensor:
+    """Qwen2-VL multimodal RoPE over 3-D (t, h, w) position ids.
+
+    x: (..., S, H, hd); positions: (..., 3, S).  The hd/2 frequency slots
+    are split into ``sections``, each rotated by its own position stream;
+    text tokens carry t = h = w, which is standard RoPE."""
+    hd = x.shape[-1]
+    half = hd // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope sections {sections} do not sum to {half}")
+    inv = rope_freqs(hd, theta, x.device)                        # (half,)
+    parts, start = [], 0
+    for i, sec in enumerate(sections):
+        pos_i = positions[..., i, :]                              # (..., S)
+        parts.append(pos_i[..., None].float() * inv[start:start + sec])
+        start += sec
+    angles = torch.cat(parts, dim=-1)                             # (..., S, half)
+    cos = torch.cos(angles)[..., None, :]
     sin = torch.sin(angles)[..., None, :]
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)

@@ -1,14 +1,19 @@
 """Decoder-only transformer: the training forward, the dense serving
 path and the paged serving path.
 
-Counterpart of ``repro.models.transformer`` for the plain GQA decoder with
-dense MLPs: init, the training forward and loss (``decoder_forward``,
-``decoder_loss``), the dense serving programs (``decoder_prefill`` into a
-per-slot cache, ``decoder_decode_step``), and the two paged programs (one
-prefill chunk of one prompt; one decode wave over a batch) and their
-blocks.  The parameter schema is the JAX package's: nested dicts with the
-layer stack on a leading axis, weights ``(in, out)``.  The layer loop is a
-Python loop over that axis where the JAX code scans.
+Counterpart of ``repro.models.transformer`` for the decoder family with
+dense MLPs: GQA attention (partial rotary, QKV bias, M-RoPE with the
+vision-embedding splice), MLA (the latent cache and its absorbed decode),
+gemma2's local/global sliding windows, logit softcaps, sandwich norms,
+GeGLU, and tied and scaled embeddings.  It holds init, the training
+forward and loss (``decoder_forward``, ``decoder_loss``), the dense
+serving programs (``decoder_prefill`` into a per-slot cache,
+``decoder_decode_step``), and the two paged programs (one prefill chunk
+of one prompt; one decode wave over a batch) and their blocks.  The
+parameter schema is the JAX package's: nested dicts with the layer stack
+on a leading axis, weights ``(in, out)``.  The layer loop is a Python
+loop over that axis where the JAX code scans.  MoE layers and the pure
+sliding-window ring cache are not ported yet and raise.
 
 Both caches are updated in place (the JAX programs return new ones).
 Torch indexing does not clamp as XLA's does, so every index that could
@@ -17,6 +22,7 @@ leave its table is routed explicitly.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass
 
 import torch
@@ -25,9 +31,10 @@ import torch.utils.checkpoint
 
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import attention as attn
-from repro_torch.models.common import (apply_rope, cross_entropy, dense_init,
-                                       embed_init, maybe_tapped_matmul,
-                                       rms_norm, shift_labels)
+from repro_torch.models.common import (apply_mrope, apply_rope,
+                                       cross_entropy, dense_init, embed_init,
+                                       gelu, maybe_tapped_matmul, rms_norm,
+                                       shift_labels, softcap)
 from repro_torch.models.config import ModelConfig
 
 
@@ -35,29 +42,67 @@ def torch_dtype(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
 
 
+def _require_ported(cfg: ModelConfig, what: str,
+                    serving: bool = False) -> None:
+    """Raise for the decoder features the port does not build yet: MoE
+    layers, and (``serving``) the pure sliding-window ring cache."""
+    why = None
+    if cfg.moe is not None:
+        why = "MoE layers not yet ported"
+    elif serving and _uses_ring(cfg):
+        why = "the pure sliding-window ring cache"
+    if why:
+        raise NotImplementedError(f"{what} {cfg.name} is not yet ported to "
+                                  f"repro_torch: {why}")
+
+
 # ---------------------------------------------------------------------------
 # Init
 # ---------------------------------------------------------------------------
 
 
-def init_decoder(gen: torch.Generator, cfg: ModelConfig) -> dict:
-    """Random init on the generator's device, layers stacked on axis 0."""
-    dtype = torch_dtype(cfg.dtype)
-    L, d, hd, ff = cfg.n_layers, cfg.d_model, cfg.hd, cfg.d_ff
+def _init_attn(dense, zeros, cfg: ModelConfig) -> dict:
+    L, d, hd = cfg.n_layers, cfg.d_model, cfg.hd
     Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
-
-    def zeros(*shape):
-        return torch.zeros(shape, dtype=dtype, device=gen.device)
-
-    def dense(*shape):
-        return dense_init(gen, shape, dtype=dtype)
-
+    if cfg.attn_type == "mla":
+        m = cfg.mla
+        dqk = m.qk_nope_head_dim + m.qk_rope_head_dim
+        return {
+            "w_dq": dense(L, d, m.q_lora_rank),
+            "q_norm": zeros(L, m.q_lora_rank),
+            "w_uq": dense(L, m.q_lora_rank, Hq * dqk),
+            "w_dkv": dense(L, d, m.kv_lora_rank),
+            "kv_norm": zeros(L, m.kv_lora_rank),
+            "w_kr": dense(L, d, m.qk_rope_head_dim),
+            # (kvr, H, d) per layer, fan-in kvr
+            "w_uk": dense(L, m.kv_lora_rank, Hq, m.qk_nope_head_dim,
+                          in_axis=1),
+            "w_uv": dense(L, m.kv_lora_rank, Hq, m.v_head_dim, in_axis=1),
+            "wo": dense(L, Hq * m.v_head_dim, d),
+        }
     a = {"wq": dense(L, d, Hq * hd), "wk": dense(L, d, Hkv * hd),
          "wv": dense(L, d, Hkv * hd), "wo": dense(L, Hq * hd, d)}
     if cfg.qkv_bias:
         a.update(bq=zeros(L, Hq * hd), bk=zeros(L, Hkv * hd),
                  bv=zeros(L, Hkv * hd))
-    return {
+    return a
+
+
+def init_decoder(gen: torch.Generator, cfg: ModelConfig) -> dict:
+    """Random init on the generator's device, layers stacked on axis 0.
+    Softcap configs carry the sandwich norms ``ln1_post`` / ``ln2_post``;
+    a tied config has no ``lm_head`` (the head is ``embed.T``)."""
+    dtype = torch_dtype(cfg.dtype)
+    L, d, ff = cfg.n_layers, cfg.d_model, cfg.d_ff
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=dtype, device=gen.device)
+
+    def dense(*shape, in_axis=-2):
+        return dense_init(gen, shape, in_axis=in_axis, dtype=dtype)
+
+    a = _init_attn(dense, zeros, cfg)
+    params = {
         "embed": embed_init(gen, (cfg.padded_vocab, d), dtype),
         "layers": {
             "ln1": zeros(L, d), "ln2": zeros(L, d), "attn": a,
@@ -65,8 +110,12 @@ def init_decoder(gen: torch.Generator, cfg: ModelConfig) -> dict:
                     "w_down": dense(L, ff, d)},
         },
         "final_norm": zeros(d),
-        "lm_head": dense(d, cfg.padded_vocab),
     }
+    if cfg.attn_softcap:   # gemma2's sandwich norms travel with softcap
+        params["layers"].update(ln1_post=zeros(L, d), ln2_post=zeros(L, d))
+    if not cfg.tie_embeddings:
+        params["lm_head"] = dense(d, cfg.padded_vocab)
+    return params
 
 
 def layer_params(params: dict, i: int) -> dict:
@@ -82,9 +131,32 @@ def layer_params(params: dict, i: int) -> dict:
 # ---------------------------------------------------------------------------
 
 
-def _rope_q_k(cfg: ModelConfig, q, k, positions):
-    """Apply (partial) rotary embeddings to q and k: the first
-    ``int(hd * rope_pct) // 2 * 2`` dims rotate, the rest pass through."""
+def _local_flags(cfg: ModelConfig) -> list[bool]:
+    """Which layers use the sliding window (gemma2: the even layers)."""
+    if cfg.local_global_period:
+        return [i % cfg.local_global_period == 0
+                for i in range(cfg.n_layers)]
+    return [False] * cfg.n_layers
+
+
+def _layer_window(cfg: ModelConfig, is_local: bool) -> int | None:
+    """A layer's window: under gemma2-style alternation the window or
+    ``1 << 30`` (unbounded) on global layers; the window for uniform
+    sliding-window attention; None for full attention."""
+    if cfg.local_global_period:
+        return cfg.sliding_window if is_local else 1 << 30
+    return cfg.sliding_window or None
+
+
+def _rope_q_k(cfg: ModelConfig, q, k, positions, extras):
+    """Apply rotary embeddings to q and k: M-RoPE over
+    ``extras["mrope_positions"]`` (B, 3, S) for mrope configs, else the
+    first ``int(hd * rope_pct) // 2 * 2`` dims rotate and the rest pass
+    through."""
+    if cfg.mrope:
+        pos3 = extras["mrope_positions"]
+        return (apply_mrope(q, pos3, cfg.rope_theta, cfg.mrope_sections),
+                apply_mrope(k, pos3, cfg.rope_theta, cfg.mrope_sections))
     hd = q.shape[-1]
     rot = int(hd * cfg.rope_pct) // 2 * 2                # even # of rotary dims
     if rot < hd:
@@ -97,7 +169,7 @@ def _rope_q_k(cfg: ModelConfig, q, k, positions):
             apply_rope(k, positions, cfg.rope_theta))
 
 
-def _qkv(h, pa, cfg: ModelConfig, positions, taps=None):
+def _qkv(h, pa, cfg: ModelConfig, positions, extras=None, taps=None):
     """Projections + bias + rotary: h (B, S, d) -> q (B, S, Hq, hd),
     k/v (B, S, Hkv, hd).  ``taps``: optional (S, seed) pairs by weight
     name (grad-fused training)."""
@@ -110,40 +182,130 @@ def _qkv(h, pa, cfg: ModelConfig, positions, taps=None):
     q = q.reshape(B, S, cfg.n_heads, cfg.hd)
     k = k.reshape(B, S, cfg.n_kv_heads, cfg.hd)
     v = v.reshape(B, S, cfg.n_kv_heads, cfg.hd)
-    q, k = _rope_q_k(cfg, q, k, positions)
+    q, k = _rope_q_k(cfg, q, k, positions, extras or {})
     return q, k, v
 
 
-def mlp_block(x, p, taps=None) -> torch.Tensor:
-    """Dense SwiGLU; ``taps`` as in :func:`_qkv`."""
+def gqa_block(x, p, cfg: ModelConfig, positions, window=None, extras=None,
+              taps=None):
+    """Causal GQA self-attention over the whole sequence -> ((B, S, d),
+    (k, v)).  ``blocked_attention`` takes every query at once; the JAX
+    package's query blocking changes no query's result.  ``taps`` as in
+    :func:`_qkv`."""
+    B, S, _ = x.shape
+    q, k, v = _qkv(x, p, cfg, positions, extras, taps)
+    out = attn.blocked_attention(q, k, v, window=window,
+                                 softcap=cfg.attn_softcap,
+                                 kv_block=cfg.kv_block)
+    return maybe_tapped_matmul(out.reshape(B, S, cfg.n_heads * cfg.hd),
+                               p["wo"], (taps or {}).get("wo")), (k, v)
+
+
+def _mla_q(h, p, cfg: ModelConfig, positions):
+    """MLA queries: (q_nope (B, S, H, dn), q_rope (B, S, H, dr)) through
+    the q_lora bottleneck, q_rope rotated."""
+    B, S, _ = h.shape
+    m = cfg.mla
+    dn = m.qk_nope_head_dim
+    cq = rms_norm(h @ p["w_dq"], p["q_norm"], cfg.norm_eps)
+    q = (cq @ p["w_uq"]).reshape(B, S, cfg.n_heads,
+                                 dn + m.qk_rope_head_dim)
+    return q[..., :dn], apply_rope(q[..., dn:], positions, cfg.rope_theta)
+
+
+def _mla_kv(h, p, cfg: ModelConfig, positions):
+    """MLA's cached entries: the normed latent c_kv (B, S, kvr) and the
+    shared rotated rope key (B, S, dr)."""
+    c_kv = rms_norm(h @ p["w_dkv"], p["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope((h @ p["w_kr"])[:, :, None, :], positions,
+                        cfg.rope_theta)[:, :, 0]
+    return c_kv, k_rope
+
+
+def mla_block(x, p, cfg: ModelConfig, positions):
+    """MLA self-attention over the whole sequence -> ((B, S, d),
+    (c_kv, k_rope)): the latent expanded into per-head K and V."""
+    B, S, _ = x.shape
+    q_nope, q_rope = _mla_q(x, p, cfg, positions)
+    c_kv, k_rope = _mla_kv(x, p, cfg, positions)
+    out = attn.mla_prefill_attention(
+        q_nope, q_rope, c_kv, k_rope, p["w_uk"], p["w_uv"],
+        softcap=cfg.attn_softcap, kv_block=cfg.kv_block)
+    out = out.reshape(B, S, cfg.n_heads * cfg.mla.v_head_dim)
+    return out @ p["wo"], (c_kv, k_rope)
+
+
+def mlp_block(x, p, cfg: ModelConfig, taps=None) -> torch.Tensor:
+    """Dense SwiGLU, or GeGLU (tanh GELU) for softcap (gemma2) configs;
+    ``taps`` as in :func:`_qkv`."""
     taps = taps or {}
+    act = gelu if cfg.attn_softcap else F.silu
 
     def mm(h, w):
         return maybe_tapped_matmul(h, p[w], taps.get(w))
 
-    return mm(F.silu(mm(x, "w_gate")) * mm(x, "w_up"), "w_down")
+    return mm(act(mm(x, "w_gate")) * mm(x, "w_up"), "w_down")
 
 
-def _logits(params, x, tap=None) -> torch.Tensor:
-    """Logits over the PADDED vocabulary (greedy argmax takes that width)."""
-    return maybe_tapped_matmul(x, params["lm_head"], tap)
+def _residual(x, a, p, cfg: ModelConfig, mlp_taps=None) -> torch.Tensor:
+    """The rest of a layer after its attention output ``a``: x + a, then
+    the MLP half, each branch through its sandwich norm where the layer
+    has one (``ln1_post``, ``ln2_post``)."""
+    if "ln1_post" in p:
+        a = rms_norm(a, p["ln1_post"], cfg.norm_eps)
+    x = x + a
+    f = mlp_block(rms_norm(x, p["ln2"], cfg.norm_eps), p["mlp"], cfg,
+                  mlp_taps)
+    if "ln2_post" in p:
+        f = rms_norm(f, p["ln2_post"], cfg.norm_eps)
+    return x + f
+
+
+def _layer(x, p, cfg: ModelConfig, positions, window, extras, taps=None):
+    """One whole-sequence layer -> (x, its fresh cache entries)."""
+    h = rms_norm(x, p["ln1"], cfg.norm_eps)
+    taps = taps or {}
+    if cfg.attn_type == "mla":
+        a, kv = mla_block(h, p["attn"], cfg, positions)
+    else:
+        a, kv = gqa_block(h, p["attn"], cfg, positions, window, extras,
+                          taps.get("attn"))
+    return _residual(x, a, p, cfg, taps.get("mlp")), kv
+
+
+def _embed(params, tokens, cfg: ModelConfig, extras) -> torch.Tensor:
+    """Token embeddings (B, S, d): scaled by sqrt(d_model) rounded to the
+    params' dtype first (as ``jnp.asarray(math.sqrt(d), x.dtype)``: in
+    bf16 sqrt(4608) = 67.88 becomes 68.0), then the vision stub's
+    ``extras["vision_embeds"]`` (B, nv, d) over positions 0..nv-1."""
+    x = params["embed"][tokens]
+    if cfg.emb_scale:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
+                             device=x.device)
+    if cfg.vision_tokens and "vision_embeds" in extras:
+        ve = extras["vision_embeds"].to(x.dtype)
+        nv = ve.shape[1]
+        if nv > x.shape[1]:
+            raise ValueError(f"{nv} vision embeddings do not fit a "
+                             f"sequence of {x.shape[1]} tokens")
+        x = torch.cat([ve, x[:, nv:]], dim=1)
+    return x
+
+
+def _logits(params, x, cfg: ModelConfig, tap=None) -> torch.Tensor:
+    """Logits over the PADDED vocabulary (greedy argmax takes that width):
+    ``embed.T`` when tied (not a taggable leaf), then the final softcap."""
+    head = params.get("lm_head")
+    if head is None:
+        logits = x @ params["embed"].mT
+    else:
+        logits = maybe_tapped_matmul(x, head, tap)
+    return softcap(logits, cfg.final_softcap)
 
 
 # ---------------------------------------------------------------------------
 # Training forward (full sequence, under autograd)
 # ---------------------------------------------------------------------------
-
-
-def gqa_block(x, p, cfg: ModelConfig, positions, taps=None) -> torch.Tensor:
-    """Causal GQA self-attention over the whole sequence -> (B, S, d).
-    ``blocked_attention`` takes every query at once; the JAX package's
-    query blocking changes no query's result.  ``taps`` as in
-    :func:`_qkv`."""
-    B, S, _ = x.shape
-    q, k, v = _qkv(x, p, cfg, positions, taps)
-    out = attn.blocked_attention(q, k, v, kv_block=cfg.kv_block)
-    return maybe_tapped_matmul(out.reshape(B, S, cfg.n_heads * cfg.hd),
-                               p["wo"], (taps or {}).get("wo"))
 
 
 def _unstack_layers(tree) -> list[dict]:
@@ -185,16 +347,17 @@ def _dots_context():
 
 
 def decoder_forward(params, tokens: torch.Tensor, cfg: ModelConfig,
-                    remat: str = "full", taps=None
+                    extras=None, remat: str = "full", taps=None
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """Full-sequence forward -> (logits (B, S, Vp), aux loss ()).
 
-    ``remat="full"`` recomputes each layer in the backward
-    (``torch.utils.checkpoint``, non-reentrant), as the JAX package's
-    ``jax.checkpoint`` around the scanned block; ``"dots"`` keeps the
-    outputs of the layer's projections and recomputes the rest (a
-    selective checkpoint, :data:`DOTS_SAVED_OPS`); ``"none"`` keeps every
-    activation.  Only the plain GQA decoder with dense MLPs is ported.
+    ``extras``: the batch's other entries (``vision_embeds``,
+    ``mrope_positions``).  ``remat="full"`` recomputes each layer in the
+    backward (``torch.utils.checkpoint``, non-reentrant), as the JAX
+    package's ``jax.checkpoint`` around the scanned block; ``"dots"``
+    keeps the outputs of the layer's projections and recomputes the rest
+    (a selective checkpoint, :data:`DOTS_SAVED_OPS`); ``"none"`` keeps
+    every activation.
 
     ``taps`` (optional) mirrors the taggable part of ``params``:
     ``{"layers": {"attn": {"wq": (S, seed), ...}, "mlp": {...}},
@@ -202,48 +365,46 @@ def decoder_forward(params, tokens: torch.Tensor, cfg: ModelConfig,
     matmuls run through :func:`repro_torch.models.common.tapped_matmul`,
     whose backward emits the SubTrack projection statistics as the seeds'
     gradients.  Without taps the model is the plain one."""
-    ok, why = paged_supported(cfg)
-    if not ok:
-        raise NotImplementedError(f"training {cfg.name} is not yet ported "
-                                  f"to repro_torch: {why}")
+    _require_ported(cfg, "training")
     if remat not in ("full", "dots", "none"):
         raise NotImplementedError(f"remat={remat!r} is not yet ported to "
                                   "repro_torch (full, dots, none)")
+    extras = extras or {}
     B, S = tokens.shape
     positions = torch.arange(S, device=tokens.device)[None, :]
 
-    def block(x, p, lt):
-        h = rms_norm(x, p["ln1"], cfg.norm_eps)
-        x = x + gqa_block(h, p["attn"], cfg, positions, lt.get("attn"))
-        return x + mlp_block(rms_norm(x, p["ln2"], cfg.norm_eps), p["mlp"],
-                             lt.get("mlp"))
+    def block(x, p, lt, window):
+        return _layer(x, p, cfg, positions, window, extras, lt)[0]
 
-    x = params["embed"][tokens]
+    x = _embed(params, tokens, cfg, extras)
     taps = taps or {}
     per_layer = _unstack_layers(params["layers"])
     layer_taps = _unstack_taps(taps.get("layers", {}), len(per_layer))
-    for p, lt in zip(per_layer, layer_taps):
+    for p, lt, local in zip(per_layer, layer_taps, _local_flags(cfg)):
+        window = _layer_window(cfg, local)
         if remat == "full":
-            x = torch.utils.checkpoint.checkpoint(block, x, p, lt,
+            x = torch.utils.checkpoint.checkpoint(block, x, p, lt, window,
                                                   use_reentrant=False)
         elif remat == "dots":
-            x = torch.utils.checkpoint.checkpoint(block, x, p, lt,
+            x = torch.utils.checkpoint.checkpoint(block, x, p, lt, window,
                                                   use_reentrant=False,
                                                   context_fn=_dots_context)
         else:
-            x = block(x, p, lt)
+            x = block(x, p, lt, window)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return (_logits(params, x, taps.get("lm_head")),
+    return (_logits(params, x, cfg, taps.get("lm_head")),
             torch.zeros((), device=x.device))
 
 
 def decoder_loss(params, batch: dict, cfg: ModelConfig,
                  remat: str = "full", taps=None):
     """(loss, {"ce_loss", "aux_loss"}): next-token cross entropy over the
-    real vocabulary, the last position masked.  ``taps`` as in
+    real vocabulary, the last position masked.  The batch's entries other
+    than ``tokens`` are the forward's extras; ``taps`` as in
     :func:`decoder_forward`."""
     tokens = batch["tokens"]
-    logits, aux = decoder_forward(params, tokens, cfg, remat, taps)
+    extras = {k: v for k, v in batch.items() if k != "tokens"}
+    logits, aux = decoder_forward(params, tokens, cfg, extras, remat, taps)
     labels, mask = shift_labels(tokens)
     loss = cross_entropy(logits, labels, mask, cfg.vocab_size)
     return loss + aux, {"ce_loss": loss, "aux_loss": aux}
@@ -256,11 +417,12 @@ def decoder_loss(params, batch: dict, cfg: ModelConfig,
 
 @dataclass
 class DecoderCache:
-    """The dense serving cache.  ``kv`` is written in place by every
-    program; ``length``, the number of valid positions, is a host int, so
-    a decode step never reads it back from the device."""
+    """The dense serving cache.  ``kv`` (a KVCache, or an MLACache for
+    MLA configs) is written in place by every program; ``length``, the
+    number of valid positions, is a host int, so a decode step never
+    reads it back from the device."""
 
-    kv: attn.KVCache
+    kv: attn.KVCache | attn.MLACache
     length: int
 
 
@@ -272,20 +434,26 @@ def _cache_len(cfg: ModelConfig, max_len: int) -> int:
     return max_len
 
 
-def _require_dense_ported(cfg: ModelConfig) -> None:
-    ok, why = paged_supported(cfg)
-    if not ok:
-        raise NotImplementedError(f"dense serving of {cfg.name} is not yet "
-                                  f"ported to repro_torch: {why}")
+def _uses_ring(cfg: ModelConfig) -> bool:
+    """Pure sliding-window configs serve from a ring buffer (not ported)."""
+    return bool(cfg.sliding_window and not cfg.local_global_period)
+
+
+def _init_cache(cfg: ModelConfig, batch: int, T: int, dtype, device):
+    if cfg.attn_type == "mla":
+        return attn.init_mla_cache(cfg.n_layers, batch, T,
+                                   cfg.mla.kv_lora_rank,
+                                   cfg.mla.qk_rope_head_dim, dtype, device)
+    return attn.init_kv_cache(cfg.n_layers, batch, T, cfg.n_kv_heads,
+                              cfg.hd, dtype, device)
 
 
 def init_decoder_cache(cfg: ModelConfig, batch: int, max_len: int,
                        dtype=torch.bfloat16, device=None) -> DecoderCache:
     """An empty cache of ``_cache_len`` slots (bf16 by default, as the JAX
-    package's)."""
-    _require_dense_ported(cfg)
-    kv = attn.init_kv_cache(cfg.n_layers, batch, _cache_len(cfg, max_len),
-                            cfg.n_kv_heads, cfg.hd, dtype, device)
+    package's): K/V and position tags, or MLA's latent and rope keys."""
+    _require_ported(cfg, "dense serving of", serving=True)
+    kv = _init_cache(cfg, batch, _cache_len(cfg, max_len), dtype, device)
     return DecoderCache(kv=kv, length=0)
 
 
@@ -310,61 +478,85 @@ def _fit_cache(arr: torch.Tensor, T: int, S: int) -> torch.Tensor:
 
 
 def decoder_prefill(params, tokens: torch.Tensor, cfg: ModelConfig,
-                    max_len: int) -> tuple[torch.Tensor, DecoderCache]:
+                    max_len: int, extras=None
+                    ) -> tuple[torch.Tensor, DecoderCache]:
     """Prefill S tokens of a batch -> (last-position logits (B, Vp), the
-    populated cache).  The cache holds K/V in the activation dtype, as
-    the JAX program's does."""
-    _require_dense_ported(cfg)
+    populated cache).  ``extras`` as in :func:`decoder_forward`.  The
+    cache holds K/V (MLA: the latent and the rope keys) in the activation
+    dtype, as the JAX program's does."""
+    _require_ported(cfg, "dense serving of", serving=True)
+    extras = extras or {}
     B, S = tokens.shape
     T = _cache_len(cfg, max_len)
     dev = tokens.device
     positions = torch.arange(S, device=dev)[None, :]
-    x = params["embed"][tokens]
-    kv = attn.init_kv_cache(cfg.n_layers, B, T, cfg.n_kv_heads, cfg.hd,
-                            x.dtype, dev)
-    for i in range(cfg.n_layers):
-        p = layer_params(params, i)
-        h = rms_norm(x, p["ln1"], cfg.norm_eps)
-        q, k, v = _qkv(h, p["attn"], cfg, positions)
-        kv.k[i] = _fit_cache(k, T, S)
-        kv.v[i] = _fit_cache(v, T, S)
-        out = attn.blocked_attention(q, k, v, kv_block=cfg.kv_block)
-        x = x + out.reshape(B, S, cfg.n_heads * cfg.hd) @ p["attn"]["wo"]
-        x = x + mlp_block(rms_norm(x, p["ln2"], cfg.norm_eps), p["mlp"])
-    # slot i holds absolute position i (the ring matters only once S > T)
-    kv.positions.copy_(_prefill_positions(S, T, dev).expand(cfg.n_layers,
-                                                            T))
+    x = _embed(params, tokens, cfg, extras)
+    kv = _init_cache(cfg, B, T, x.dtype, dev)
+    dst = ((kv.c_kv, kv.k_rope) if cfg.attn_type == "mla"
+           else (kv.k, kv.v))
+    for i, local in enumerate(_local_flags(cfg)):
+        x, fresh = _layer(x, layer_params(params, i), cfg, positions,
+                          _layer_window(cfg, local), extras)
+        for buf, arr in zip(dst, fresh):
+            buf[i] = _fit_cache(arr, T, S)
+    if cfg.attn_type != "mla":
+        # slot i holds absolute position i (the ring matters only once S > T)
+        kv.positions.copy_(_prefill_positions(S, T, dev).expand(
+            cfg.n_layers, T))
     x = rms_norm(x[:, -1:], params["final_norm"], cfg.norm_eps)
-    return _logits(params, x)[:, 0], DecoderCache(kv=kv, length=S)
+    return _logits(params, x, cfg)[:, 0], DecoderCache(kv=kv, length=S)
+
+
+def _mla_decode(h, pa, cfg: ModelConfig, kv: attn.MLACache, i: int,
+                positions, pos: int) -> torch.Tensor:
+    """Layer ``i``'s MLA decode: write the token's latent and rope key at
+    ``pos`` (past the cache, into its last slot, as XLA's clamped
+    ``dynamic_update_slice``) and attend in the latent space."""
+    B = h.shape[0]
+    q_nope, q_rope = _mla_q(h, pa, cfg, positions)
+    c_new, kr_new = _mla_kv(h, pa, cfg, positions)
+    c_c, kr_c = kv.c_kv[i], kv.k_rope[i]
+    slot = min(pos, c_c.shape[1] - 1)
+    c_c[:, slot] = c_new[:, 0].to(c_c.dtype)
+    kr_c[:, slot] = kr_new[:, 0].to(kr_c.dtype)
+    out = attn.mla_decode_attention(q_nope[:, 0], q_rope[:, 0], c_c, kr_c,
+                                    pa["w_uk"], pa["w_uv"], pos,
+                                    softcap=cfg.attn_softcap)
+    return out.reshape(B, 1, -1) @ pa["wo"]
 
 
 def decoder_decode_step(params, cache: DecoderCache, token: torch.Tensor,
-                        cfg: ModelConfig
+                        cfg: ModelConfig, extras=None
                         ) -> tuple[torch.Tensor, DecoderCache]:
     """One decode step: token (B,) at position ``cache.length``.  Writes the
-    token's K/V into the cache in place and returns (logits (B, Vp), the
-    cache one position longer).  Sliding-window and softcap configs (a
-    ring cache, per-layer windows) raise until the port's decoder builds
-    them; ``attn.decode_attention`` and ``attn.cache_write`` already take
-    ring tags, a window and a softcap."""
-    _require_dense_ported(cfg)
+    token's cache entries in place and returns (logits (B, Vp), the cache
+    one position longer).  ``extras``: ``mrope_positions`` (B, 3, 1) for
+    mrope configs.  Local layers attend over their window of the full
+    cache."""
+    _require_ported(cfg, "dense serving of", serving=True)
+    extras = extras or {}
     B = token.shape[0]
     pos = cache.length
     kv = cache.kv
     positions = torch.full((B, 1), pos, device=token.device)
-    x = params["embed"][token][:, None, :]                         # (B, 1, d)
-    for i in range(cfg.n_layers):
+    x = _embed(params, token[:, None], cfg, {})                    # (B, 1, d)
+    for i, local in enumerate(_local_flags(cfg)):
         p = layer_params(params, i)
         h = rms_norm(x, p["ln1"], cfg.norm_eps)
-        q, k, v = _qkv(h, p["attn"], cfg, positions)
-        attn.cache_write(kv.k[i], kv.v[i], kv.positions[i], k, v, pos,
-                         ring=False)
-        out = attn.decode_attention(q[:, 0], kv.k[i], kv.v[i], pos,
-                                    cache_positions=kv.positions[i])
-        x = x + out.reshape(B, 1, cfg.n_heads * cfg.hd) @ p["attn"]["wo"]
-        x = x + mlp_block(rms_norm(x, p["ln2"], cfg.norm_eps), p["mlp"])
+        if cfg.attn_type == "mla":
+            a = _mla_decode(h, p["attn"], cfg, kv, i, positions, pos)
+        else:
+            q, k, v = _qkv(h, p["attn"], cfg, positions, extras)
+            attn.cache_write(kv.k[i], kv.v[i], kv.positions[i], k, v, pos,
+                             ring=False)
+            out = attn.decode_attention(
+                q[:, 0], kv.k[i], kv.v[i], pos,
+                cache_positions=kv.positions[i],
+                window=_layer_window(cfg, local), softcap=cfg.attn_softcap)
+            a = out.reshape(B, 1, cfg.n_heads * cfg.hd) @ p["attn"]["wo"]
+        x = _residual(x, a, p, cfg)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _logits(params, x)[:, 0], DecoderCache(kv=kv, length=pos + 1)
+    return _logits(params, x, cfg)[:, 0], DecoderCache(kv=kv, length=pos + 1)
 
 
 # ---------------------------------------------------------------------------
@@ -373,12 +565,15 @@ def decoder_decode_step(params, cache: DecoderCache, token: torch.Tensor,
 
 
 def paged_supported(cfg: ModelConfig) -> tuple[bool, str]:
-    """Whether the paged serving path can run this config: the plain GQA
-    decoder with dense MLPs (partial rotary and QKV bias included)."""
+    """Whether the paged serving path can run this config: the JAX
+    package's answer (the plain GQA decoder, partial rotary and QKV bias
+    included; features that change the attention pattern or the cache
+    contents go to the dense path), and no MoE layers, which the port does
+    not build yet."""
     if cfg.family != "decoder":
         return False, f"family {cfg.family!r} has no paged cache layout"
     if cfg.attn_type == "mla":
-        return False, "MLA latent cache not yet paged"
+        return False, "MLA latent cache not yet paged (ROADMAP follow-up)"
     if cfg.mrope or cfg.vision_tokens:
         return False, "multimodal position handling not paged"
     if cfg.sliding_window or cfg.local_global_period:
@@ -387,8 +582,6 @@ def paged_supported(cfg: ModelConfig) -> tuple[bool, str]:
         return False, "logit softcap not fused into the paged kernel"
     if cfg.moe is not None:
         return False, "MoE layers not yet ported"
-    if cfg.tie_embeddings or cfg.emb_scale:
-        return False, "tied or scaled embeddings not yet ported"
     return True, ""
 
 
@@ -436,7 +629,7 @@ def decoder_prefill_chunk_paged(params, pool: attn.PagedKV,
                       torch.zeros_like(word))
     off = p_abs % bs
     positions = p_abs[None, :]                                   # (1, c)
-    x = params["embed"][tokens]                                   # (1, c, d)
+    x = _embed(params, tokens, cfg, {})                           # (1, c, d)
     for i in range(cfg.n_layers):
         p = layer_params(params, i)
         kp, vp = pool.k[i], pool.v[i]
@@ -449,10 +642,10 @@ def decoder_prefill_chunk_paged(params, pool: attn.PagedKV,
         # kv_block=bs; only the summation order differs
         out = attn.blocked_attention(q, kg, vg, q_offset=ctx_len,
                                      kv_block=W * bs)
-        x = x + out.reshape(1, c, cfg.n_heads * cfg.hd) @ p["attn"]["wo"]
-        x = x + mlp_block(rms_norm(x, p["ln2"], cfg.norm_eps), p["mlp"])
+        x = _residual(x, out.reshape(1, c, cfg.n_heads * cfg.hd)
+                      @ p["attn"]["wo"], p, cfg)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _logits(params, x)
+    return _logits(params, x, cfg)
 
 
 def decoder_decode_step_paged(params, pool: attn.PagedKV,
@@ -481,7 +674,7 @@ def decoder_decode_step_paged(params, pool: attn.PagedKV,
     off = torch.where(live, lengths % bs, 0).long()
     attend = torch.where(live, lengths + 1, 0).int()               # (B,)
     positions = lengths[:, None]                                   # (B, 1)
-    x = params["embed"][token][:, None, :]                         # (B, 1, d)
+    x = _embed(params, token[:, None], cfg, {})                    # (B, 1, d)
     for i in range(cfg.n_layers):
         p = layer_params(params, i)
         kp, vp = pool.k[i], pool.v[i]
@@ -490,7 +683,7 @@ def decoder_decode_step_paged(params, pool: attn.PagedKV,
         _paged_scatter(kp, vp, k[:, 0], v[:, 0], blk, off)
         out = kernel_ops.paged_attention(q[:, 0].contiguous(), kp, vp,
                                          tables, attend)
-        x = x + out.reshape(B, 1, cfg.n_heads * cfg.hd) @ p["attn"]["wo"]
-        x = x + mlp_block(rms_norm(x, p["ln2"], cfg.norm_eps), p["mlp"])
+        x = _residual(x, out.reshape(B, 1, cfg.n_heads * cfg.hd)
+                      @ p["attn"]["wo"], p, cfg)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return _logits(params, x)[:, 0]
+    return _logits(params, x, cfg)[:, 0]

@@ -157,15 +157,16 @@ def test_prefill_and_decode_steps_match_jax():
     max_len = 16
     with mesh_context(smoke_context()):
         jb = jax_build_model(jcfg)
-        params_np = _perturb(jax.tree.map(np.asarray,
-                                          jb.init(jax.random.PRNGKey(0))),
-                             np.random.default_rng(1))
+        params_np = _perturb(jax.tree.map(
+            np.asarray, jax.jit(jb.init)(jax.random.PRNGKey(0))),
+            np.random.default_rng(1))
         jp = jax.tree.map(jnp.asarray, params_np)
-        jlogits, jcache = jb.prefill(jp, {"tokens": jnp.asarray(tokens)},
-                                     max_len)
+        jlogits, jcache = jax.jit(lambda p, b: jb.prefill(p, b, max_len))(
+            jp, {"tokens": jnp.asarray(tokens)})
         want = [(jlogits, jcache)]
+        decode = jax.jit(jb.decode_step)
         for tok in steps:
-            jlogits, jcache = jb.decode_step(jp, jcache, jnp.asarray(tok))
+            jlogits, jcache = decode(jp, jcache, jnp.asarray(tok))
             want.append((jlogits, jcache))
         want = [(np.asarray(lg), jax.tree.map(np.asarray, c))
                 for lg, c in want]
@@ -189,7 +190,9 @@ def test_prefill_and_decode_steps_match_jax():
         _close(v, wc.kv.v)
         np.testing.assert_array_equal(tags.numpy(), wc.kv.positions)
         assert length == int(wc.length) == 9 + i
-    with pytest.raises(NotImplementedError, match="prefill inputs"):
-        tb.prefill(tp, {"tokens": torch.tensor(tokens),
-                        "vision_embeds": torch.zeros(2, 1, tcfg.d_model)},
-                   max_len)
+    # the batch's other entries reach the model, which ignores vision
+    # embeddings unless the config has vision tokens (as the JAX package's)
+    logits_v, _ = tb.prefill(tp, {"tokens": torch.tensor(tokens),
+                                  "vision_embeds": torch.ones(
+                                      2, 1, tcfg.d_model)}, max_len)
+    _close(logits_v, want[0][0])

@@ -33,7 +33,6 @@ from repro.configs.registry import get_config as jax_get_config
 from repro.core.api import get_optimizer as jax_get_optimizer
 from repro.data.pipeline import DataConfig as JDataConfig
 from repro.data.pipeline import SyntheticLMDataset as JDataset
-from repro.data.pipeline import batch_for_model as jax_batch_for_model
 from repro.distributed.context import mesh_context
 from repro.kernels import grassmann as jgrassmann
 from repro.kernels import ref as jref
@@ -49,7 +48,7 @@ from repro_torch.core.subtrack import tree_leaves
 from repro_torch.interop import opt_state_from_jax, params_from_jax
 from repro_torch.kernels import ops, ref
 from repro_torch.launch import train as ttrain
-from repro_torch.launch.steps import (TAP_PATHS, TrainState, _site_get,
+from repro_torch.launch.steps import (TrainState, _site_get, _tap_paths,
                                       _site_set, make_train_step,
                                       value_and_grad)
 from repro_torch.models.api import build_model
@@ -164,9 +163,10 @@ def setup():
         jparams = jbundle.init(jax.random.PRNGKey(0))
         data = JDataset(JDataConfig(vocab_size=jcfg.vocab_size, seq_len=SEQ,
                                     global_batch=BATCH, seed=0))
-        batches = [np.asarray(jax_batch_for_model(jcfg, None, data, s)
-                              ["tokens"]) for s in range(6)]
-        jstate = JTrainState(params=jparams, opt=jopt.init(jparams))
+        # batch_for_model's tokens for a decoder, drawn under one jit
+        tokens_at = jax.jit(lambda s: data.global_batch_at(s)["tokens"])
+        batches = [np.asarray(tokens_at(s)) for s in range(6)]
+        jstate = JTrainState(params=jparams, opt=jax.jit(jopt.init)(jparams))
         jstate, _ = jax.jit(jax_make_warm_start(jbundle, jopt))(
             jstate, {"tokens": jnp.asarray(batches[0])})
         yield dict(jcfg=jcfg, tcfg=tcfg, jbundle=jbundle, jopt=jopt,
@@ -190,7 +190,7 @@ def test_decoder_loss_taps_match_jax(setup):
     jstate, batch = setup["jstate"], setup["batches"][1]
     with mesh_context(smoke_context()):
         jsites = []
-        for path in TAP_PATHS:
+        for path in _tap_paths(setup["tcfg"]):
             st = _site_get(jstate.opt.inner, path)
             if hasattr(st, "S"):
                 jsites.append((path, st.S, st.M.shape[-1]))

@@ -40,7 +40,7 @@ def test_importing_every_module_loads_no_jax_and_no_repro():
                          capture_output=True, text=True, timeout=120)
     assert run.returncode == 0, run.stderr
     n_modules, leaked = run.stdout.split(" ", 1)
-    assert int(n_modules) >= 48
+    assert int(n_modules) >= 51
     assert leaked.strip() == "[]"
 
 
@@ -87,8 +87,8 @@ def test_serve_parts_not_ported_yet_raise(argv, match):
 def test_serve_falls_back_to_dense_as_the_jax_driver_does(monkeypatch,
                                                           capsys):
     """A config the paged engine refuses goes to the dense engine with the
-    JAX driver's line; the port's decoder cannot build a sliding-window
-    config yet, so the dense engine then says so."""
+    JAX driver's line; the port's dense engine has no ring cache for a
+    pure sliding-window config yet, so it then says so."""
     get = tserve.get_config
     monkeypatch.setattr(tserve, "get_config", lambda *a, **kw: get(
         *a, **kw).with_(sliding_window=4))
@@ -163,7 +163,7 @@ def test_ported_flags_run_on_the_asked_device(monkeypatch, entry, argv):
 @pytest.mark.parametrize("argv,match", [
     (["--mesh", "prod"], "--mesh prod needs a world of 256"),
     (["--inject", "dev-loss@3"], "--inject"),
-    (["--arch", "gemma2-27b"], "not yet ported"),
+    (["--arch", "mixtral-8x22b"], "not yet ported"),
     (["--mesh", "multipod"], "--mesh multipod needs a world of 512"),
     (["--mesh", "host", "--mesh-devices", "2"], "--mesh-devices"),
     (["--step-timeout", "30"], "--step-timeout"),

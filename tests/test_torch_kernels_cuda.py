@@ -1103,3 +1103,22 @@ def test_new_kernels_reject_what_they_do_not_take(cuda):
     with pytest.raises(ValueError, match="head dim"):
         fk.flash_attention(*_flash_case(1, 8, 8, 1, 1, 257, torch.float32,
                                         cuda))
+
+
+@pytest.mark.cuda
+def test_wide_warm_start_takes_the_r_factor_route(cuda, monkeypatch):
+    """The warm start's QR-first route (taken where gesvd refuses the
+    whole gradient, at ``GESVD_MAX_ELEMENTS``) gives the basis gesvd gives
+    on the whole matrix: projectors at 1e-4, S orthonormal at 1e-4."""
+    from repro_torch.core import subspace
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    G = torch.randn((2, 256, 6000), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    want = subspace.init_subspace_svd(G, 64)
+    monkeypatch.setattr(subspace, "GESVD_MAX_ELEMENTS", 256 * 6000)
+    got = subspace.init_subspace_svd(G, 64)
+    eye = torch.eye(64, device="cuda")
+    assert (got.mT @ got - eye).abs().max().item() < 1e-4
+    torch.testing.assert_close(got @ got.mT, want @ want.mT, atol=1e-4,
+                               rtol=0)

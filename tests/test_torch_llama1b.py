@@ -28,7 +28,6 @@ from repro.core.api import get_optimizer as jax_get_optimizer
 from repro.core.plan import make_plans as jax_make_plans
 from repro.data.pipeline import DataConfig as JDataConfig
 from repro.data.pipeline import SyntheticLMDataset as JDataset
-from repro.data.pipeline import batch_for_model as jax_batch_for_model
 from repro.distributed.context import mesh_context
 from repro.launch import serve as jserve
 from repro.launch.mesh import smoke_context
@@ -98,7 +97,7 @@ def small():
     with mesh_context(smoke_context()):
         jbundle = jax_build_model(jcfg)
         params_np = jax.tree.map(np.asarray,
-                                 jbundle.init(jax.random.PRNGKey(0)))
+                                 jax.jit(jbundle.init)(jax.random.PRNGKey(0)))
         yield jcfg, jbundle, params_np, tcfg
 
 
@@ -109,11 +108,12 @@ def test_small_odd_head_dim_decoder_trains_like_jax(small):
     with mesh_context(smoke_context()):
         data = JDataset(JDataConfig(vocab_size=jcfg.vocab_size, seq_len=SEQ,
                                     global_batch=BATCH, seed=0))
-        batches = [np.asarray(jax_batch_for_model(jcfg, None, data, s)
-                              ["tokens"]) for s in range(STEPS)]
+        # batch_for_model's tokens for a decoder, drawn under one jit
+        tokens_at = jax.jit(lambda s: data.global_batch_at(s)["tokens"])
+        batches = [np.asarray(tokens_at(s)) for s in range(STEPS)]
         jopt = jax_get_optimizer("subtrack", **kw)
         jparams = jax.tree.map(jnp.asarray, params_np)
-        jstate = JTrainState(params=jparams, opt=jopt.init(jparams))
+        jstate = JTrainState(params=jparams, opt=jax.jit(jopt.init)(jparams))
         jstate, _ = jax.jit(jax_make_warm_start(jbundle, jopt))(
             jstate, {"tokens": jnp.asarray(batches[0])})
         jwarm_opt = jax.tree.map(np.asarray, jstate.opt)

@@ -176,7 +176,7 @@ def test_optimizer_update_matches_jax(kernels, wd):
     params0 = _tmap(lambda a: 0.1 * a, _tree(np.random.default_rng(7)))
     jparams = _tmap(jnp.asarray, params0)
     tparams = _tmap(torch.tensor, params0)
-    jstate = jopt.warm_start(jopt.init(jparams), _tmap(jnp.asarray,
+    jstate = jopt.warm_start(jax.jit(jopt.init)(jparams), _tmap(jnp.asarray,
                                                        _grads(0)))
     tstate = opt_state_from_jax(jax.tree.map(np.asarray, jstate))
     assert topt.state_bytes(tparams) == jopt.state_bytes(jparams)
@@ -244,7 +244,7 @@ def test_warm_start_matches_jax_by_projector():
     topt = get_optimizer("subtrack", rank=RANK)
     params0 = _tree(np.random.default_rng(7))
     g0 = _grads(0)
-    jst = jopt.warm_start(jopt.init(_tmap(jnp.asarray, params0)),
+    jst = jopt.warm_start(jax.jit(jopt.init)(_tmap(jnp.asarray, params0)),
                           _tmap(jnp.asarray, g0))
     tst = topt.warm_start(topt.init(_tmap(torch.tensor, params0)),
                           _tmap(torch.tensor, g0))
@@ -312,7 +312,7 @@ def test_grass_method_matches_jax(kernels):
     params0 = _tmap(lambda a: 0.1 * a, _tree(np.random.default_rng(7)))
     jparams = _tmap(jnp.asarray, params0)
     tparams = _tmap(torch.tensor, params0)
-    jstate = jopt.warm_start(jopt.init(jparams), _tmap(jnp.asarray,
+    jstate = jopt.warm_start(jax.jit(jopt.init)(jparams), _tmap(jnp.asarray,
                                                        _grads(0)))
     tstate = topt.warm_start(topt.init(tparams), _tmap(torch.tensor,
                                                        _grads(0)))

@@ -34,7 +34,6 @@ from repro.configs.registry import get_config as jax_get_config
 from repro.core.api import get_optimizer as jax_get_optimizer
 from repro.data.pipeline import DataConfig as JDataConfig
 from repro.data.pipeline import SyntheticLMDataset as JDataset
-from repro.data.pipeline import batch_for_model as jax_batch_for_model
 from repro.distributed.context import mesh_context
 from repro.launch.mesh import smoke_context
 from repro.launch.steps import TrainState as JTrainState
@@ -48,7 +47,7 @@ from repro_torch.core.subtrack import tree_leaves
 from repro_torch.interop import opt_state_from_jax, params_from_jax
 from repro_torch.kernels import ops
 from repro_torch.launch import train as ttrain
-from repro_torch.launch.steps import (TAP_PATHS, TrainState, _site_get,
+from repro_torch.launch.steps import (TrainState, _site_get, _tap_paths,
                                       _site_set, make_train_step,
                                       make_warm_start, value_and_grad)
 from repro_torch.models.api import build_model
@@ -71,11 +70,12 @@ def setup():
     with mesh_context(smoke_context()):
         jbundle = jax_build_model(jcfg)
         params_np = jax.tree.map(np.asarray,
-                                 jbundle.init(jax.random.PRNGKey(0)))
+                                 jax.jit(jbundle.init)(jax.random.PRNGKey(0)))
         data = JDataset(JDataConfig(vocab_size=jcfg.vocab_size, seq_len=SEQ,
                                     global_batch=BATCH, seed=0))
-        batches = [np.asarray(jax_batch_for_model(jcfg, None, data, s)
-                              ["tokens"]) for s in range(STEPS)]
+        # batch_for_model's tokens for a decoder, drawn under one jit
+        tokens_at = jax.jit(lambda s: data.global_batch_at(s)["tokens"])
+        batches = [np.asarray(tokens_at(s)) for s in range(STEPS)]
         yield jcfg, jbundle, params_np, tcfg, batches
 
 
@@ -88,7 +88,7 @@ def jax_warm(setup):
         jopt = jax_get_optimizer("subtrack", **SLICE_KW)
         jparams = jax.tree.map(jnp.asarray, params_np)
         jstate, jwarm = jax.jit(jax_make_warm_start(jbundle, jopt))(
-            JTrainState(params=jparams, opt=jopt.init(jparams)),
+            JTrainState(params=jparams, opt=jax.jit(jopt.init)(jparams)),
             {"tokens": jnp.asarray(batches[0])})
     return jax.tree.map(np.asarray, jstate.opt), float(jwarm)
 
@@ -103,9 +103,9 @@ def jax_loss_grads(setup):
     default remat; no remat policy changes a value)."""
     _, jbundle, params_np, _, batches = setup
     with mesh_context(smoke_context()):
-        (jloss, _), jgrads = jax.value_and_grad(
+        (jloss, _), jgrads = jax.jit(jax.value_and_grad(
             lambda p: jbundle.loss(p, {"tokens": jnp.asarray(batches[1])}),
-            has_aux=True)(jax.tree.map(jnp.asarray, params_np))
+            has_aux=True))(jax.tree.map(jnp.asarray, params_np))
     return float(jloss), jax.tree.map(np.asarray, jgrads)
 
 
@@ -180,7 +180,7 @@ def test_remat_dots_recomputes_no_projection(setup, arch, tapped):
         try:
             if tapped:
                 sites = [(path, _site_get(state.opt.inner, path))
-                         for path in TAP_PATHS]
+                         for path in _tap_paths(tcfg)]
                 seeds = [tap_seed(st.S.shape[-1], st.M.shape[-1],
                                   st.S.shape[:-2]).requires_grad_()
                          for _, st in sites]
