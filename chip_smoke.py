@@ -5,9 +5,9 @@
 
 Phases (run in this order, except that 13-15 and 17-19, the kernel checks
 of the llama-1b slice and of the last three kernels, run right after phase
-10, before the long training runs, 23 right after phase 11, and 24 and
-then 20-22 right after phase 16); any failure raises and the script exits
-non-zero:
+10, before the long training runs, 23 right after phase 11, and 24, 25
+and then 20-22 right after phase 16); any failure raises and the script
+exits non-zero:
 
 1. print the card's name and power limit as nvidia-smi gives them;
 2. build every CUDA kernel of the ported paths from ``src/repro_torch/csrc``
@@ -236,11 +236,38 @@ non-zero:
    criteria (``tests/test_models.py``: argmax agreement >= 0.9, p90
    |delta| < 0.12 scale + 0.12); tok/s, TTFT and the phase's time
    printed;
-25. print the kernels line (project, project_colnorms and the front end
+25. the Mixture-of-Experts configs, mixtral-8x22b (8 experts top-2, the
+   4096 window on every layer, served from the ring cache) and
+   llama4-maverick-400b-a17b (128 experts top-1 and a shared expert): the
+   optimizer kernels (project_colnorms, tangent, project,
+   adam_lowrank_norms, fused_update) at mixtral's expert stacks, 8 x
+   (6144, 16384, r 1024) for w_gate / w_up and w_down's transposed view,
+   bf16 G, against their plain versions (``OPT_REL``) and timed beside
+   their bounds; (a) each fp32 smoke config on CUDA against the CPU from
+   the same params: the loss and every gradient within ``MOE_GRAD_REL``,
+   4 steps through ``run`` plain and grad-fused (``SMOKE_LOSS_ATOL``,
+   exact launches from the plans), and mixtral's dense decode through a
+   ring cut to 16 slots against the full forward (``MOE_DECODE_REL``);
+   (b) mixtral at full width and ``MOE_LAYERS`` layer (the cut printed)
+   through ``run``, batch 1 x 6144, 4 steps at interval 2, default rank
+   1024, eta pinned: exact launches from the plans, warm start, step
+   times, tok/s, peak, the aux loss and the token slots dropped at
+   capacity; (c) its weights through ``run_dense``, one request of 4200 +
+   16 (past T = 4096: the ring's roll) and one of 512 + 16, then the long
+   one teacher-forced against the full forward with phase 24's criteria
+   where no choice of a position was dropped at capacity (the positions
+   left out printed); (d) llama4-maverick at full width and one layer
+   (36.8 GB bf16; its full depth's training does not fit the card, which
+   is printed) through the paged and the dense engine on one set of
+   weights: paged_attention launched once per layer per decode wave, the
+   same first token on both engines wherever neither prefill dropped the
+   prompt's last position, tok/s, TTFT, decode ms and peaks printed; and
+   paged_attention timed at maverick's decode shape beside its bound;
+26. print the kernels line (project, project_colnorms and the front end
    with their fp32 routes' times as ``fp32_ms``; tangent_gram's launches
-   those of phase 23's row tracking step; each kernel's phase-24 shapes
-   and its launches in phase 24's three runs), then ``{"ok": true,
-   "device": {...}}`` last.
+   those of phase 23's row tracking step; each kernel's phase-24 and
+   phase-25 shapes and its launches in those phases' runs), then
+   ``{"ok": true, "device": {...}}`` last.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
 non-zero and prints no result.
@@ -449,17 +476,16 @@ def phase_check_paged_attention() -> float:
     return err_7b
 
 
-def phase_time_paged_attention() -> dict:
-    """Kernel, plain version and the SDPA yardstick at the llama-7b decode
-    shape in bf16; the bound from this run's inputs."""
+def _paged_times(B, Hq, Hkv, hd, bs, L, label) -> dict:
+    """paged_attention, its plain version and the SDPA yardstick at one
+    decode shape in bf16 (every lane at length L); the bound from this
+    run's inputs.  Printed under ``label``."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels import paged_attention as pa
     from repro_torch.kernels import ref
     from repro_torch.kernels.paged_attention import paged_attention
 
-    from repro_torch.kernels import paged_attention as pa
-
-    B, Hq, Hkv, hd, bs, L = 8, 32, 32, 128, 16, 576
     dtype = torch.bfloat16
     args = _paged_case(B, Hq, Hkv, hd, bs, [L] * B, dtype, SEED)
     q, kp, vp, tables, lens = args
@@ -476,8 +502,14 @@ def phase_time_paged_attention() -> dict:
         return paged_attention(*args)
 
     def sdpa():
-        return F.scaled_dot_product_attention(q4, kg, vg)
+        return F.scaled_dot_product_attention(q4, kg, vg,
+                                              enable_gqa=Hq != Hkv)
 
+    got = kernel()
+    torch.cuda.synchronize()
+    want = ref.paged_attention_ref(*args)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    err = (got.float() - want.float()).abs().max().item()
     # at tens of microseconds a launch, an eager loop times the host: the
     # kernel and SDPA are timed alike, in a CUDA graph of 200 calls (the
     # table's method) and by the profiler's device time; eager for reference
@@ -485,9 +517,8 @@ def phase_time_paged_attention() -> dict:
     dev_ms, dev_lib = _profiler_ms(kernel, 200), _profiler_ms(sdpa, 200)
     eager_ms, eager_lib = _time_ms(kernel, 200), _time_ms(sdpa, 200)
     plain_ms = _time_ms(lambda: ref.paged_attention_ref(*args), iters=20)
-    torch.testing.assert_close(
-        F.scaled_dot_product_attention(q4, kg, vg)[:, :, 0].float(),
-        ref.paged_attention_ref(*args).float(), **TOL[dtype])
+    torch.testing.assert_close(sdpa()[:, :, 0].float(), want.float(),
+                               **TOL[dtype])
 
     # least time: each input read once, the output written once
     n_pos = int(lens.sum())
@@ -502,21 +533,35 @@ def phase_time_paged_attention() -> dict:
            "bound_ms": max(t_bytes, t_ops),
            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
            "bytes": nbytes, "splits": splits, "timing": "cuda graph",
-           "profiler_ms": dev_ms, "library_profiler_ms": dev_lib}
-    print(f"[time] paged_attention llama-7b decode bf16, {splits} splits: "
-          f"kernel {ms:.4f} ms (CUDA graph of 200; profiler device time "
-          f"{dev_ms:.4f}, eager loop {eager_ms:.4f}), bound "
-          f"{out['bound_ms']:.4f} ms ({out['bound_by']}, {nbytes / 1e6:.1f} "
-          f"MB), plain {plain_ms:.4f} ms (eager), sdpa over gathered K/V "
+           "profiler_ms": dev_ms, "library_profiler_ms": dev_lib,
+           "max_abs_err": err, "shape": [B, Hq, Hkv, hd, bs, L]}
+    print(f"[time] paged_attention {label} bf16 (B {B}, Hq {Hq} / Hkv "
+          f"{Hkv}, hd {hd}, length {L}), {splits} splits: kernel {ms:.4f} "
+          f"ms (CUDA graph of 200; profiler device time {dev_ms:.4f}, eager "
+          f"loop {eager_ms:.4f}), bound {out['bound_ms']:.4f} ms "
+          f"({out['bound_by']}, {nbytes / 1e6:.1f} MB), plain "
+          f"{plain_ms:.4f} ms (eager), sdpa over gathered K/V "
           f"{library_ms:.4f} ms (CUDA graph; profiler {dev_lib:.4f}, eager "
-          f"{eager_lib:.4f})", flush=True)
+          f"{eager_lib:.4f}); max abs err {err:.3e}", flush=True)
+    return out
+
+
+def phase_time_paged_attention() -> dict:
+    """Kernel, plain version and the SDPA yardstick at the llama-7b decode
+    shape in bf16; the bound from this run's inputs."""
+    from repro_torch.kernels.paged_attention import paged_attention
+
+    B, Hq, Hkv, hd, bs, L = 8, 32, 32, 128, 16, 576
+    out = _paged_times(B, Hq, Hkv, hd, bs, L, "llama-7b decode")
+    args = _paged_case(B, Hq, Hkv, hd, bs, [L] * B, torch.bfloat16, SEED)
     for forced in (1, 2, 4, 6):
         print(f"[time] paged_attention llama-7b decode bf16, {forced} splits "
               f"forced: {_graph_ms(lambda: paged_attention(*args, splits=forced), 200):.4f} ms "
               "(CUDA graph)", flush=True)
     # the same bytes with one KV head (B 256): each table block is 4 KB of
     # contiguous rows instead of 256-byte rows 8 KB apart
-    one = _paged_case(B * Hkv, 1, 1, hd, bs, [L] * B * Hkv, dtype, SEED)
+    one = _paged_case(B * Hkv, 1, 1, hd, bs, [L] * B * Hkv, torch.bfloat16,
+                      SEED)
     print(f"[time] paged_attention, the same bytes as (B 256, Hkv 1): "
           f"{_graph_ms(lambda: paged_attention(*one), 200):.4f} ms (CUDA "
           "graph)", flush=True)
@@ -3153,7 +3198,8 @@ def _variant_inputs(m, n, r, b, transposed, seed):
     return dict(S=torch.linalg.qr(rn(b, m, r))[0].contiguous(),
                 G=G.mT if transposed else G, M=0.1 * rn(b, r, n),
                 V=0.01 * rn(b, r, n).abs(), phi=rn(b, n).abs(),
-                clip=torch.tensor([0.9, 0.25], device="cuda")[:b])
+                clip=torch.tensor([0.9, 0.25], device="cuda").repeat(
+                    -(-b // 2))[:b])
 
 
 def _variant_bound(name, m, n, r, b) -> tuple[float, str]:
@@ -3180,47 +3226,50 @@ def _variant_bound(name, m, n, r, b) -> tuple[float, str]:
                                  else "operations")
 
 
-def phase_variant_kernels() -> dict:
-    """Phase 24 (a): the kernels the three variants run, at the shapes no
-    earlier phase gave them, against their plain versions (``OPT_REL``,
-    ``FRONT_REL``, ``TAP_REL``) and timed beside their bounds and plain
-    versions; and the embedding's warm-start SVD alone."""
-    from repro_torch.core.subspace import init_subspace_svd
+def _record_kernel(out, tag, name, label, kern, plain, parts, rel, m, n, r,
+                   b, iters) -> None:
+    """Check one kernel call against its plain version (each part within
+    ``rel[part]`` of its largest entry), then time both (CUDA events) and
+    put the times, the bound and the route in ``out[name][label]``."""
+    from repro_torch.kernels import grassmann as gk
+
+    got = kern()
+    torch.cuda.synchronize()
+    want = plain()
+    line = []
+    err = 0.0
+    for part, g_, w_ in parts(got, want):
+        abs_err, e = _opt_error(g_, w_)
+        if e > rel[part]:
+            raise AssertionError(f"{name} at {label} ({m}, {n}, r {r}) "
+                                 f"x{b} {part}: error {e:.3e} of the "
+                                 f"largest entry > {rel[part]:g}")
+        err = max(err, abs_err)
+        line.append(f"{part} {abs_err:.2e} ({e:.1e})")
+    del got, want
+    route = getattr(getattr(gk, name), "route", None)
+    ms = _time_ms(kern, iters=iters, repeats=3)
+    plain_ms = _time_ms(plain, iters=1, repeats=3)
+    bound, by = _variant_bound(name, m, n, r, b)
+    out.setdefault(name, {})[label] = {
+        "shape": [m, n, r, b], "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound, "bound_by": by, "max_abs_err": err,
+        "route": route}
+    print(f"[{tag}] {name} {label} ({m}, {n}, r {r}) x{b} bf16 G: "
+          f"max abs err (of largest) {', '.join(line)}; kernel "
+          f"{ms:.4f} ms (CUDA events), bound {bound:.4f} ms ({by}), "
+          f"plain {plain_ms:.4f} ms, route {route}", flush=True)
+
+
+def _time_opt_shapes(out, tag, shapes, seed0) -> None:
+    """The optimizer step's kernels (project_colnorms, tangent, project,
+    adam_lowrank_norms, fused_update) at each (label, m, n, r, matrices,
+    G a transposed view) of ``shapes``, through :func:`_record_kernel`."""
     from repro_torch.kernels import grassmann as gk
     from repro_torch.kernels import ref
 
-    out: dict = {}
-
-    def record(name, label, kern, plain, parts, rel, m, n, r, b, iters):
-        got = kern()
-        torch.cuda.synchronize()
-        want = plain()
-        line = []
-        err = 0.0
-        for part, g_, w_ in parts(got, want):
-            abs_err, e = _opt_error(g_, w_)
-            if e > rel[part]:
-                raise AssertionError(f"{name} at {label} ({m}, {n}, r {r}) "
-                                     f"x{b} {part}: error {e:.3e} of the "
-                                     f"largest entry > {rel[part]:g}")
-            err = max(err, abs_err)
-            line.append(f"{part} {abs_err:.2e} ({e:.1e})")
-        del got, want
-        route = getattr(getattr(gk, name), "route", None)
-        ms = _time_ms(kern, iters=iters, repeats=3)
-        plain_ms = _time_ms(plain, iters=1, repeats=3)
-        bound, by = _variant_bound(name, m, n, r, b)
-        out.setdefault(name, {})[label] = {
-            "shape": [m, n, r, b], "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound, "bound_by": by, "max_abs_err": err,
-            "route": route}
-        print(f"[variants] {name} {label} ({m}, {n}, r {r}) x{b} bf16 G: "
-              f"max abs err (of largest) {', '.join(line)}; kernel "
-              f"{ms:.4f} ms (CUDA events), bound {bound:.4f} ms ({by}), "
-              f"plain {plain_ms:.4f} ms, route {route}", flush=True)
-
-    for i, (label, m, n, r, b, tr) in enumerate(VARIANT_OPT_SHAPES):
-        x = _variant_inputs(m, n, r, b, tr, SEED + i)
+    for i, (label, m, n, r, b, tr) in enumerate(shapes):
+        x = _variant_inputs(m, n, r, b, tr, seed0 + i)
         S, G, M, V, phi, clip = (x[k] for k in ("S", "G", "M", "V", "phi",
                                                 "clip"))
         A, _ = ref.project_colnorms_ref(S, G)
@@ -3243,20 +3292,33 @@ def phase_variant_kernels() -> dict:
                                              out_dtype=G.dtype)),
         }
         for name, (kern, plain) in calls.items():
-            record(name, label, kern, plain,
-                   lambda g, w, name=name: [(name, g, w)], OPT_REL, m, n, r,
-                   b, iters=3)
+            _record_kernel(out, tag, name, label, kern, plain,
+                           lambda g, w, name=name: [(name, g, w)], OPT_REL,
+                           m, n, r, b, iters=3)
         del x, S, G, M, V, phi, clip, A, Gto, calls
         gc.collect()
         torch.cuda.empty_cache()
+
+
+def phase_variant_kernels() -> dict:
+    """Phase 24 (a): the kernels the three variants run, at the shapes no
+    earlier phase gave them, against their plain versions (``OPT_REL``,
+    ``FRONT_REL``, ``TAP_REL``) and timed beside their bounds and plain
+    versions; and the embedding's warm-start SVD alone."""
+    from repro_torch.core.subspace import init_subspace_svd
+    from repro_torch.kernels import grassmann as gk
+    from repro_torch.kernels import ref
+
+    out: dict = {}
+    _time_opt_shapes(out, "variants", VARIANT_OPT_SHAPES, SEED)
     for i, (label, m, n, r, b, tr) in enumerate(VARIANT_FRONT_SHAPES):
         x = _variant_inputs(m, n, r, b, tr, SEED + 10 + i)
         S, G = x["S"], x["G"]
-        record("project_tangent_colnorms", label,
-               lambda: gk.project_tangent_colnorms(S, G),
-               lambda: ref.project_tangent_colnorms_ref(S, G),
-               lambda g, w: zip(("A", "gsq", "T"), g, w), FRONT_REL,
-               m, n, r, b, iters=5)
+        _record_kernel(out, "variants", "project_tangent_colnorms", label,
+                       lambda: gk.project_tangent_colnorms(S, G),
+                       lambda: ref.project_tangent_colnorms_ref(S, G),
+                       lambda g, w: zip(("A", "gsq", "T"), g, w), FRONT_REL,
+                       m, n, r, b, iters=5)
         del x, S, G
     label, tb, tm, tn, tr_ = VARIANT_TAP
     x, dy, S = _tap_inputs(tb, tm, tn, tr_, torch.bfloat16, SEED)
@@ -3584,6 +3646,611 @@ def phase_decoder_variants() -> dict:
     return {"kernels": kernels, "runs": runs}
 
 
+# ---------------------------------------------------------------------------
+# Mixture of experts: mixtral-8x22b and llama4-maverick-400b-a17b
+# ---------------------------------------------------------------------------
+
+MOE_ARCHS = ("mixtral-8x22b", "llama4-maverick-400b-a17b")
+MOE_LAYERS = 1            # full width, depth cut
+MOE_GRAD_REL = 1e-4       # fp32 smoke gradients, CUDA vs CPU, of the largest
+MOE_DECODE_REL = 1e-4     # fp32 smoke ring decode vs the full forward
+# bf16: the MoE's input (the residual stream after attention), two
+# programs' attention against each other, of the largest entry: the bf16
+# budget of the port's CPU tests (tests/test_torch_decoder_variants.py)
+MOE_INPUT_REL = 2e-2
+# mixtral's smoke ring: window cut to 16, a prompt of 24, 8 decode steps
+MOE_SMOKE_RING = (16, 24, 8)
+MIXTRAL_TRAIN = (1, 6144)            # batch x seq: past the 4096 window
+MIXTRAL_SERVE = (4200, 16, 512)      # prompt > T = 4096, decoded, short
+# llama4-maverick serving: requests, batch, prompt, decoded, block, chunk
+MAVERICK_SERVE = (4, 4, 512, 16, 16, 128)
+# (label, m, n, r, matrices, G a transposed view): mixtral's expert stacks
+MOE_OPT_SHAPES = (
+    ("mixtral wg/wu", 6144, 16384, 1024, 8, False),
+    ("mixtral wd", 6144, 16384, 1024, 8, True),
+)
+
+
+class _MoEDrops:
+    """Records, while entered, each MoE layer call's keep mask (k, N) and
+    its input x (fp32) on the host: ``repro_torch.models.moe``'s
+    ``dispatch`` and ``moe_layer`` wrapped, so the layer itself runs
+    unchanged.  ``dropped(i)`` -> (N,) bool, the tokens of call i with a
+    choice over capacity.  With one layer, x is the residual stream after
+    the attention: everything a cache (ring or paged) feeds the MoE."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.calls, self.inputs = [], []
+        self._real = (moe.dispatch, moe.moe_layer)
+
+        def spy(ids, E, C):
+            row, keep = self._real[0](ids, E, C)
+            self.calls.append(keep.view(ids.shape[1], ids.shape[0]).cpu())
+            return row, keep
+
+        def layer(x, *args, **kwargs):
+            self.inputs.append(x.detach().float().cpu())
+            return self._real[1](x, *args, **kwargs)
+
+        moe.dispatch, moe.moe_layer = spy, layer
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+
+        moe.dispatch, moe.moe_layer = self._real
+
+    def dropped(self, i: int) -> torch.Tensor:
+        return ~self.calls[i].all(0)
+
+    def slots_dropped(self) -> int:
+        return int(sum(int((~keep).sum()) for keep in self.calls))
+
+
+def phase_moe_smoke() -> None:
+    """Phase 25 (a): each MoE arch's fp32 smoke config on CUDA and on the
+    CPU from the same params: the loss and every gradient (the router's
+    included) within ``MOE_GRAD_REL``; 4 steps through ``run`` (plain
+    and grad-fused, tracking at 2, rank 32) within ``SMOKE_LOSS_ATOL``
+    with exact launch counts from the plans; and mixtral's dense decode
+    through a ring cut to 16 slots (a prompt of 24, 8 steps) against the
+    full forward on the card."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.api import get_optimizer
+    from repro_torch.core.subtrack import tree_leaves, tree_map
+    from repro_torch.data.pipeline import (DataConfig, SyntheticLMDataset,
+                                           batch_for_model)
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import (TrainState, make_warm_start,
+                                          value_and_grad)
+    from repro_torch.launch.train import run
+    from repro_torch.models import transformer as ttf
+    from repro_torch.models.api import build_model
+    from repro_torch.optim.schedules import cosine_with_warmup
+
+    steps, k, rank = VARIANT_STEPS, VARIANT_K, 32
+    tracking = sum(1 for s in range(steps) if s and s % k == 0)
+    for arch in MOE_ARCHS:
+        cfg = get_config(arch, smoke=True).with_(dtype="float32")
+        bundle = build_model(cfg)
+        data = SyntheticLMDataset(DataConfig(vocab_size=cfg.vocab_size,
+                                             seq_len=128, global_batch=2,
+                                             seed=SEED))
+        batches = [batch_for_model(cfg, None, data, s) for s in range(steps)]
+        params = bundle.init(torch.Generator().manual_seed(SEED))
+        grads = {}
+        for device in ("cuda", "cpu"):
+            p = tree_map(lambda t: t.to(device, copy=True), params)
+            loss, metrics, g = value_and_grad(
+                bundle, p, {k_: v.to(device) for k_, v in batches[0].items()},
+                "full")
+            grads[device] = (float(loss), float(metrics["aux_loss"]),
+                             [t.cpu() for t in tree_leaves(g)])
+        (l_c, aux_c, g_c), (l_h, aux_h, g_h) = grads["cuda"], grads["cpu"]
+        g_err = max(((a - b).abs().max() / b.abs().max()).item()
+                    for a, b in zip(g_c, g_h))
+        if not (abs(l_c - l_h) <= 1e-5 * abs(l_h) and aux_h > 0
+                and abs(aux_c - aux_h) <= 1e-5 * aux_h
+                and g_err <= MOE_GRAD_REL):
+            raise AssertionError(f"{arch} smoke: loss CUDA {l_c} CPU {l_h}, "
+                                 f"aux {aux_c} / {aux_h}, gradients "
+                                 f"{g_err:.3e} of the largest")
+        print(f"[moe] {arch} smoke fp32: loss CUDA {l_c:.6f} vs CPU "
+              f"{l_h:.6f}, aux {aux_c:.6f} vs {aux_h:.6f}, {len(g_c)} "
+              f"gradients within {g_err:.2e} of their largest (budget "
+              f"{MOE_GRAD_REL:g})", flush=True)
+        opt = get_optimizer("subtrack", rank=rank, update_interval=k,
+                            eta=2e-5, use_kernels=True)
+        warm, _ = make_warm_start(bundle, opt)(
+            TrainState(params=params, opt=opt.init(params)), batches[0])
+
+        def go(device, grad_fused):
+            ops.reset_launch_counts()
+            out = run(cfg, tree_map(lambda t: t.to(device, copy=True),
+                                    params),
+                      lambda s: batches[s], optimizer=opt, steps=steps,
+                      lr_at=cosine_with_warmup(1e-3, steps, 2),
+                      log_every=steps, opt_state=_state_to(warm.opt, device),
+                      grad_fused=grad_fused)
+            return [h["loss"] for h in out["history"]], ops.launch_counts()
+
+        for grad_fused in (False, True):
+            cuda_losses, cuda_counts = go("cuda", grad_fused)
+            cpu_losses, cpu_counts = go("cpu", grad_fused)
+            diff = max(abs(a - b) for a, b in zip(cuda_losses, cpu_losses))
+            name = f"{arch} smoke {'grad-fused' if grad_fused else 'plain'}"
+            if not diff <= SMOKE_LOSS_ATOL:
+                raise AssertionError(f"{name}: CUDA {cuda_losses} vs CPU "
+                                     f"{cpu_losses} (max diff {diff:.3e})")
+            want = _plan_launches(cfg, params, rank, steps, tracking,
+                                  tapped=grad_fused)
+            if cuda_counts != want or any(cpu_counts.values()):
+                raise AssertionError(f"{name} launches: CUDA {cuda_counts} "
+                                     f"(want {want}), CPU {cpu_counts}")
+            print(f"[moe] {name}, {steps} steps: losses CUDA vs CPU max diff "
+                  f"{diff:.2e} (budget {SMOKE_LOSS_ATOL:g}); CUDA launches "
+                  f"{({k_: v for k_, v in cuda_counts.items() if v})}",
+                  flush=True)
+    # mixtral's ring: prefill past the window, decode past it again
+    window, P, gen = MOE_SMOKE_RING
+    cfg = get_config(MOE_ARCHS[0], smoke=True).with_(
+        dtype="float32", sliding_window=window)
+    bundle = build_model(cfg)
+    params = bundle.init(torch.Generator(device="cuda").manual_seed(SEED))
+    toks = SyntheticLMDataset(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=P + gen, global_batch=2,
+        seed=SEED + 3)).global_batch_at(0)["tokens"].cuda()
+    with torch.no_grad():
+        logits, cache = bundle.prefill(params, {"tokens": toks[:, :P]},
+                                       P + gen + 1)
+        got = [logits]
+        for i in range(gen):
+            logits, cache = bundle.decode_step(params, cache, toks[:, P + i])
+            got.append(logits)
+        T = cache.kv.k.shape[2]
+        full, _ = ttf.decoder_forward(params, toks, cfg, remat="none")
+        want = full[:, P - 1:]
+        got = torch.stack(got, dim=1)
+        rel = ((got - want).abs().max() / want.abs().max()).item()
+    if not (T == window and rel <= MOE_DECODE_REL):
+        raise AssertionError(f"mixtral smoke ring: {T} slots, decode vs "
+                             f"forward {rel:.3e} of the largest")
+    print(f"[moe] mixtral smoke fp32 dense decode through a ring of {T} "
+          f"slots (window {window}, prompt {P}, {gen} positions to "
+          f"{P + gen - 1}): logits within {rel:.2e} of the full forward's "
+          f"largest (budget {MOE_DECODE_REL:g})", flush=True)
+
+
+def _moe_param_count(cfg) -> int:
+    """The parameters of a decoder config with MoE MLPs, from its shapes."""
+    d, m = cfg.d_model, cfg.moe
+    attn_ = d * cfg.hd * (2 * cfg.n_heads + 2 * cfg.n_kv_heads)
+    mlp = d * m.n_experts + 3 * m.n_experts * d * m.d_ff \
+        + 3 * d * m.shared_d_ff * m.n_shared_experts
+    head = 0 if cfg.tie_embeddings else d * cfg.padded_vocab
+    return cfg.n_layers * (attn_ + mlp + 2 * d) + d * cfg.padded_vocab \
+        + head + d
+
+
+def _agreement(got, want, keep) -> tuple[float, float, float]:
+    """tests/test_models.py's criteria over the kept positions: argmax
+    agreement, p90 |delta| and its scale."""
+    import numpy as np
+
+    g, w = got[keep].numpy(), want[keep].numpy()
+    agree = float((g.argmax(-1) == w.argmax(-1)).mean())
+    p90 = float(np.percentile(np.abs(g - w), 90))
+    scale = float(np.percentile(np.abs(w), 90)) + 1e-3
+    return agree, p90, scale
+
+
+def phase_moe_mixtral() -> dict:
+    """Phase 25 (b, c): mixtral-8x22b at full width, ``MOE_LAYERS`` layer:
+    4 SubTrack++ steps through ``run`` (batch 1 x 6144, default rank,
+    kernels on, eta pinned), exact launch counts from the plans; the aux
+    loss and the token slots dropped at capacity on batch 0 after
+    training; then the seed's weights served through ``run_dense``: one
+    request of 4200 + 16 (the ring's roll and its prefill positions past
+    T = 4096) and one short one, and the long one teacher-forced against
+    the full forward where neither dropped a choice of the position (the
+    positions left out printed)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.api import get_optimizer
+    from repro_torch.data.pipeline import (DataConfig, SyntheticLMDataset,
+                                           batch_for_model, validate_batch)
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import AdmissionQueue, Request, run_dense
+    from repro_torch.launch.steps import default_rank
+    from repro_torch.launch.train import run
+    from repro_torch.models import transformer as ttf
+    from repro_torch.models.api import build_model
+    from repro_torch.optim.schedules import cosine_with_warmup
+
+    t_phase = time.perf_counter()
+    steps, k = VARIANT_STEPS, VARIANT_K
+    full = get_config(MOE_ARCHS[0])
+    cfg = full.with_(n_layers=MOE_LAYERS)
+    batch, seq = MIXTRAL_TRAIN
+    rank = default_rank(cfg.d_model)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    bundle = build_model(cfg)
+    params = bundle.init(torch.Generator(device="cuda").manual_seed(SEED))
+    n_params = sum(t.numel() for _, t in _leaf_paths(params))
+    print(f"[moe] mixtral-8x22b cut to size: {full.n_layers} -> "
+          f"{cfg.n_layers} layer at full width (d {cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads}, {cfg.moe.n_experts} experts top-"
+          f"{cfg.moe.top_k} of d_ff {cfg.moe.d_ff}, window "
+          f"{cfg.sliding_window}, vocab {cfg.padded_vocab}): "
+          f"{n_params / 1e9:.2f} B params; rank {rank}, batch {batch} x "
+          f"{seq}, eta {VARIANT_ETA:g}", flush=True)
+    opt = get_optimizer("subtrack", rank=rank, update_interval=k,
+                        eta=VARIANT_ETA, use_kernels=True)
+    data = SyntheticLMDataset(DataConfig(vocab_size=cfg.vocab_size,
+                                         seq_len=seq, global_batch=batch,
+                                         seed=SEED))
+
+    def batch_at(step, mutate=None):
+        b = batch_for_model(cfg, None, data, step)
+        validate_batch(b, cfg.vocab_size)
+        return b
+
+    want = _plan_launches(cfg, params, rank, steps,
+                          sum(1 for s in range(steps) if s and s % k == 0))
+    ops.reset_launch_counts()
+    res = run(cfg, params, batch_at, optimizer=opt, steps=steps,
+              lr_at=cosine_with_warmup(1e-3, steps, 2), log_every=1)
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hist = res["history"]
+    if not all(h["loss"] is not None and math.isfinite(h["loss"])
+               and not h["quarantined"] for h in hist):
+        raise AssertionError(f"mixtral: history {hist}")
+    if [h["step"] for h in hist if h["subspace_update"]] != [2]:
+        raise AssertionError(f"mixtral: tracking steps wrong: {hist}")
+    used = ("project", "project_colnorms", "tangent", "fused_update",
+            "adam_lowrank_norms")
+    if launches != want or not all(launches[n] for n in used):
+        raise AssertionError(f"mixtral launches {launches}, want {want}")
+    plain_s = [h["dt"] for h in hist if not h["subspace_update"]]
+    track_s = [h["dt"] for h in hist if h["subspace_update"]][0]
+    tok_s = batch * seq / (sum(plain_s[1:]) / len(plain_s[1:]))
+    params = res.pop("state").params       # drop the optimizer state
+    warm_s = res["warm_start_s"]
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    with torch.no_grad(), _MoEDrops() as drops:
+        b0 = {k_: v.cuda() for k_, v in batch_at(0).items()}
+        loss0, metrics = bundle.loss(params, b0, remat="none")
+    aux = float(metrics["aux_loss"])
+    slots = batch * seq * cfg.moe.top_k * cfg.n_layers
+    rec = {"launches": launches, "warm_start_s": warm_s,
+           "plain_s": plain_s, "tracking_s": track_s, "tok_s": tok_s,
+           "train_peak_gib": peak / 2**30,
+           "losses": [h["loss"] for h in hist], "aux_loss": aux,
+           "slots_dropped": drops.slots_dropped(), "slots": slots}
+    print(f"[moe] mixtral-8x22b train: warm start {warm_s:.2f} s; losses "
+          f"{rec['losses']}; plain steps {[round(t, 3) for t in plain_s]} s "
+          f"(step 0 cold), tracking {track_s:.3f} s; {tok_s:.1f} tok/s on "
+          f"warm plain steps; peak {peak / 2**30:.2f} GiB; batch 0 after "
+          f"training: aux loss {aux:.6f}, {rec['slots_dropped']} of {slots} "
+          f"token slots dropped at capacity (factor "
+          f"{cfg.moe.capacity_factor:g}); launches "
+          f"{({k_: v for k_, v in launches.items() if v})}", flush=True)
+    # (c) dense serving through the ring, from the seed's weights (as
+    # launch/serve.py draws them): four steps at lr 1e-3 move the router's
+    # logits by several units a step and routing collapses onto a few
+    # experts
+    del b0, loss0, metrics, params
+    P, gen, P_short = MIXTRAL_SERVE
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    params = bundle.init(torch.Generator(device="cuda").manual_seed(SEED))
+    stream = SyntheticLMDataset(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=P + gen, global_batch=1,
+        seed=SEED + 1)).global_batch_at(0)["tokens"]
+    short = SyntheticLMDataset(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=P_short, global_batch=1,
+        seed=SEED + 2)).global_batch_at(0)["tokens"]
+    # the prefill's KV blocks must tile the prompt, as the JAX package's
+    # (1024 does not divide 4200): only the summation order moves
+    served, blocks = {}, {}
+    ops.reset_launch_counts()
+    for name, prompt in (("long", stream[0, :P]), ("short", short[0])):
+        scfg = cfg.with_(kv_block=_divisor_block(len(prompt), cfg.kv_block))
+        sbundle = build_model(scfg)
+        blocks[name] = scfg.kv_block
+        queue = AdmissionQueue()
+        queue.submit(Request(rid=0, prompt=prompt.numpy(), max_new=gen,
+                             t_submit=time.time()))
+        served[name] = run_dense(scfg, sbundle, params, queue, batch=1,
+                                 prompt_len=len(prompt))
+        if served[name]["requests"] != 1 or len(
+                served[name]["outputs"][0]) != gen:
+            raise AssertionError(f"mixtral serve {name}: {served[name]}")
+    if any(ops.launch_counts().values()):
+        raise AssertionError(f"mixtral dense serving launched "
+                             f"{ops.launch_counts()}")
+    serve_peak = torch.cuda.max_memory_allocated()
+    sbundle = build_model(cfg.with_(kv_block=blocks["long"]))
+    with torch.no_grad():
+        toks = stream.cuda()
+        with _MoEDrops() as pre:
+            logits, cache = sbundle.prefill(params, {"tokens": toks[:, :P]},
+                                            P + gen)
+        got = [logits.float().cpu()]
+        with _MoEDrops() as dec:
+            for i in range(gen):
+                logits, cache = sbundle.decode_step(params, cache,
+                                                    toks[:, P + i])
+                got.append(logits.float().cpu())
+        T = cache.kv.k.shape[2]
+        del cache, logits
+        fcfg = cfg.with_(kv_block=_divisor_block(P + gen, cfg.kv_block))
+        with _MoEDrops() as fwd:
+            full_logits, _ = ttf.decoder_forward(params, toks, fcfg,
+                                                 remat="none")
+        want_l = full_logits[0, P - 1:].float().cpu()
+        del full_logits
+    got_l = torch.stack([g[0] for g in got])
+    # one layer: the MoE's input (the residual stream after the ring's
+    # attention) at every position, prefill's last and each decode step,
+    # against the forward's; a position's logits move only with its own
+    # MoE output, so the logits compare where neither the forward nor (at
+    # P - 1) the prefill dropped a choice of that position
+    h_got = torch.cat([pre.inputs[0][0, -1:]]
+                      + [x[0] for x in dec.inputs])
+    h_want = fwd.inputs[0][0, P - 1:]
+    h_rel = ((h_got - h_want).abs().max() / h_want.abs().max()).item()
+    keep = ~fwd.dropped(0)[P - 1:]
+    keep[0] = keep[0] & ~pre.dropped(0)[P - 1]
+    left_out = int((~keep).sum())
+    fwd_dropped = fwd.slots_dropped()
+    agree, p90, scale = (_agreement(got_l, want_l, keep) if int(keep.sum())
+                         else (math.nan, math.nan, math.nan))
+    if not (T == cfg.sliding_window and h_rel <= MOE_INPUT_REL
+            and (not int(keep.sum()) or (
+                agree >= VARIANT_AGREE
+                and p90 < VARIANT_P90 * scale + VARIANT_P90))):
+        raise AssertionError(f"mixtral ring decode vs forward: {T} slots, "
+                             f"MoE input {h_rel:.3e} of the largest, "
+                             f"{int(keep.sum())} logit positions compared, "
+                             f"agreement {agree:.3f}, p90 {p90:.4f} (scale "
+                             f"{scale:.3f})")
+    rec.update(serve={n: {"tok_s": s["tok_per_s"],
+                          "ttft_p50_s": s["ttft_p50_s"],
+                          "decode_step_ms": s["decode_step_ms_mean"]}
+                      for n, s in served.items()},
+               serve_peak_gib=serve_peak / 2**30, moe_input_rel=h_rel,
+               agree=agree, p90=p90, scale=scale,
+               positions_left_out=left_out,
+               forward_slots_dropped=fwd_dropped)
+    for (name, s), plen in zip(served.items(), (P, P_short)):
+        print(f"[moe] mixtral-8x22b serve (dense, ring of {T} slots, KV "
+              f"blocks of {blocks[name]}) {name} request, {plen} + {gen}: "
+              f"{s['tok_per_s']:.1f} "
+              f"tok/s, TTFT p50 "
+              f"{s['ttft_p50_s'] * 1e3:.1f} ms, decode step "
+              f"{s['decode_step_ms_mean']:.2f} ms", flush=True)
+    print(f"[moe] mixtral-8x22b ring decode (prefill {P} > {T}, then {gen} "
+          f"positions) vs full forward, weights from the seed: the MoE's "
+          f"input at all {gen + 1} positions within {h_rel:.2e} of the "
+          f"largest (budget {MOE_INPUT_REL:g}); logits at the "
+          f"{int(keep.sum())} positions where no choice was dropped: argmax "
+          f"agreement {agree:.3f} (>= {VARIANT_AGREE}), p90 |delta| "
+          f"{p90:.4f} (< {VARIANT_P90:g} scale + {VARIANT_P90:g}); "
+          f"{left_out} left out (a choice dropped at capacity in the "
+          f"forward or the prefill: the forward dropped {fwd_dropped} of "
+          f"{(P + gen) * cfg.moe.top_k} slots, the sequence's tail first); "
+          f"serve peak "
+          f"{serve_peak / 2**30:.2f} GiB; phase 25 (b, c) "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    del params, toks, got, got_l, want_l
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_moe_maverick() -> dict:
+    """Phase 25 (d): llama4-maverick at full width, ``MOE_LAYERS`` layer,
+    served through the paged engine and the dense engine on one set of
+    weights: exact paged_attention launches (one per layer per decode
+    wave); both engines' programs on the same tokens: the prefills' MoE
+    input at the prompt's last position, the dense engine's tokens
+    teacher-forced through both decode programs, and the same first
+    token wherever neither prefill dropped the prompt's last position at
+    capacity; and paged_attention at maverick's decode shape timed beside
+    its bound."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import (AdmissionQueue, Request, run_dense,
+                                          run_paged)
+    from repro_torch.models.api import build_model
+
+    t_phase = time.perf_counter()
+    full = get_config(MOE_ARCHS[1])
+    n_full = _moe_param_count(full)
+    print(f"[moe] llama4-maverick-400b-a17b at full depth: "
+          f"{n_full / 1e9:.1f} B params, {2 * n_full / 1e9:.1f} GB in bf16, "
+          f"as much again for bf16 gradients: training at full width does "
+          f"not fit one 80 GB card; it trains at smoke size only (a)",
+          flush=True)
+    cfg = full.with_(n_layers=MOE_LAYERS)
+    requests, batch, P, gen, bs, chunk = MAVERICK_SERVE
+    gc.collect()
+    torch.cuda.empty_cache()
+    bundle = build_model(cfg)
+    t0 = time.perf_counter()
+    params = bundle.init(torch.Generator(device="cuda").manual_seed(SEED))
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for _, t in _leaf_paths(params))
+    print(f"[moe] llama4-maverick cut to size: {full.n_layers} -> "
+          f"{cfg.n_layers} layer at full width (d {cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads}, {cfg.moe.n_experts} experts "
+          f"top-{cfg.moe.top_k} + {cfg.moe.n_shared_experts} shared of d_ff "
+          f"{cfg.moe.d_ff}, vocab {cfg.padded_vocab}): {n_params / 1e9:.2f} "
+          f"B params ({_moe_param_count(cfg) / 1e9:.2f} B by the shapes), "
+          f"{2 * n_params / 1e9:.1f} GB bf16, drawn in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    prompts = SyntheticLMDataset(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=P, global_batch=requests,
+        seed=SEED)).global_batch_at(0)["tokens"].numpy()
+    W = -(-(P + gen) // bs)
+
+    def queue():
+        q = AdmissionQueue()
+        for i in range(requests):
+            q.submit(Request(rid=i, prompt=prompts[i], max_new=gen,
+                             t_submit=time.time()))
+        return q
+
+    runs, counts = {}, {}
+    for engine in ("paged", "dense"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launch_counts()
+        if engine == "dense":
+            runs[engine] = run_dense(cfg, bundle, params, queue(),
+                                     batch=batch, prompt_len=P, seed=SEED)
+        else:
+            runs[engine] = run_paged(cfg, bundle, params, queue(),
+                                     batch=batch, block_size=bs,
+                                     pool_blocks=1 + batch * W,
+                                     max_context=P + gen,
+                                     prefill_chunk=chunk, seed=SEED)
+            runs[engine]["peak_memory_bytes"] = \
+                torch.cuda.max_memory_allocated()
+        counts[engine] = ops.launch_counts()
+    dense, paged = runs["dense"], runs["paged"]
+    for name, r in runs.items():
+        lens = sorted(len(t) for t in r["outputs"].values())
+        if r["requests"] != requests or lens != [gen] * requests:
+            raise AssertionError(f"maverick {name}: {r['requests']} "
+                                 f"requests, output lengths {lens}")
+    want_paged = {n: 0 for n in counts["paged"]}
+    want_paged["paged_attention"] = paged["decode_calls"] * cfg.n_layers
+    if counts["paged"] != want_paged or any(counts["dense"].values()):
+        raise AssertionError(f"maverick launches: paged {counts['paged']} "
+                             f"(want {want_paged}), dense {counts['dense']}")
+    # both engines' programs on the same tokens: the dense wave's prefill
+    # (B x P tokens, one capacity) and each request's paged chunks (their
+    # own), which dropped the prompt's last position; then the dense
+    # engine's tokens teacher-forced through both decode programs (a
+    # decode wave of B tokens never drops at C = 8), logits compared at
+    # every step
+    with torch.no_grad():
+        toks = torch.as_tensor(prompts, dtype=torch.int64, device="cuda")
+        forced = torch.tensor([dense["outputs"][i] for i in range(requests)],
+                              dtype=torch.int64, device="cuda")
+        with _MoEDrops() as dd:
+            _, cache = bundle.prefill(params, {"tokens": toks}, P + gen + 8)
+        dense_drop = dd.dropped(0).view(requests, P)[:, P - 1]
+        pool = bundle.init_paged_cache(1 + requests * W, bs, "cuda")
+        tables = (1 + torch.arange(requests * W, dtype=torch.int32,
+                                   device="cuda")).view(requests, W)
+        paged_drop, h_paged = [], []
+        for i in range(requests):
+            with _MoEDrops() as pd:
+                for c0 in range(0, P, chunk):
+                    bundle.paged_prefill_chunk(params, pool,
+                                               toks[i:i + 1, c0:c0 + chunk],
+                                               tables[i], c0)
+            paged_drop.append(bool(pd.dropped(len(pd.calls) - 1)
+                                   [(P - 1) % chunk]))
+            h_paged.append(pd.inputs[-1][0, (P - 1) % chunk])
+        h_dense = dd.inputs[0][:, P - 1]
+        h_rel = ((torch.stack(h_paged) - h_dense).abs().max()
+                 / h_dense.abs().max()).item()
+        live = torch.ones(requests, dtype=torch.bool, device="cuda")
+        got_d, got_p = [], []
+        for t in range(gen - 1):
+            lg, cache = bundle.decode_step(params, cache, forced[:, t])
+            got_d.append(lg.float().cpu())
+            lens = torch.full((requests,), P + t, dtype=torch.int32,
+                              device="cuda")
+            got_p.append(bundle.paged_decode_step(
+                params, pool, forced[:, t], lens, tables, live).float().cpu())
+        del pool, cache, toks, forced
+    got_d, got_p = torch.stack(got_d), torch.stack(got_p)
+    agree, p90, scale = _agreement(got_p, got_d, torch.ones(
+        got_d.shape[:-1], dtype=torch.bool))
+    compared = [i for i in range(requests)
+                if not (bool(dense_drop[i]) or paged_drop[i])]
+    firsts = [(dense["outputs"][i][0], paged["outputs"][i][0])
+              for i in compared]
+    if not (h_rel <= MOE_INPUT_REL and agree >= VARIANT_AGREE
+            and p90 < VARIANT_P90 * scale + VARIANT_P90) \
+            or any(a != b for a, b in firsts):
+        raise AssertionError(f"maverick dense vs paged: prefill MoE input at "
+                             f"the prompt's last position {h_rel:.3e} of the "
+                             f"largest; teacher-forced decode agreement "
+                             f"{agree:.3f}, p90 {p90:.4f} (scale "
+                             f"{scale:.3f}); first tokens over requests "
+                             f"{compared}: {firsts}")
+    prefix = [_prefix_len(dense["outputs"][i], paged["outputs"][i])
+              for i in range(requests)]
+    gib = 2**30
+    rec = {"paged_attention_launches": counts["paged"]["paged_attention"],
+           "decode_calls": paged["decode_calls"], "moe_input_rel": h_rel,
+           "decode_agree": agree, "decode_p90": p90,
+           "first_tokens_compared": len(compared)}
+    for name, r in runs.items():
+        step = r.get("decode_wave_ms_mean", r.get("decode_step_ms_mean"))
+        rec[name] = {"tok_s": r["tok_per_s"], "ttft_p50_s": r["ttft_p50_s"],
+                     "decode_ms": step,
+                     "peak_gib": r["peak_memory_bytes"] / gib}
+        print(f"[moe] llama4-maverick {name} engine, {requests} requests of "
+              f"{P} + {gen}, batch {batch}"
+              f"{f', chunk {chunk}, block {bs}' if name == 'paged' else ''}: "
+              f"{r['tok_per_s']:.1f} tok/s, TTFT p50 "
+              f"{r['ttft_p50_s'] * 1e3:.1f} ms, decode "
+              f"{'wave' if name == 'paged' else 'step'} {step:.2f} ms, peak "
+              f"{r['peak_memory_bytes'] / gib:.2f} GiB", flush=True)
+    print(f"[moe] llama4-maverick: paged_attention launched "
+          f"{rec['paged_attention_launches']} times = {paged['decode_calls']} "
+          f"decode waves x {cfg.n_layers} layer; the prefills' MoE input at "
+          f"the prompt's last position within {h_rel:.2e} of the largest "
+          f"(budget {MOE_INPUT_REL:g}); the dense engine's tokens "
+          f"teacher-forced through both decode programs, {gen - 1} steps x "
+          f"{requests} lanes: argmax agreement {agree:.3f} (>= "
+          f"{VARIANT_AGREE}), p90 |delta| {p90:.4f} < "
+          f"{VARIANT_P90 * scale + VARIANT_P90:.4f}; first tokens equal in "
+          f"{len(compared)} of {requests} requests ({requests - len(compared)}"
+          f" left out: the prompt's last position dropped at capacity in a "
+          f"prefill); greedy tokens agree on prefixes of {prefix} of {gen}",
+          flush=True)
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    # #12 at maverick's decode shape: Hq 40 / Hkv 8, hd 128, the wave's
+    # lanes at P + gen
+    rec["kernel"] = _paged_times(batch, cfg.n_heads, cfg.n_kv_heads, cfg.hd,
+                                 bs, P + gen, "llama4-maverick decode")
+    print(f"[moe] phase 25 (d): {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return rec
+
+
+def phase_moe() -> dict:
+    """Phase 25: the Mixture-of-Experts configs (a-d) and the optimizer
+    kernels at mixtral's expert stacks."""
+    t0 = time.perf_counter()
+    kernels: dict = {}
+    _time_opt_shapes(kernels, "moe", MOE_OPT_SHAPES, SEED + 20)
+    phase_moe_smoke()
+    mixtral = phase_moe_mixtral()
+    maverick = phase_moe_maverick()
+    print(f"[moe] phase 25: {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"kernels": kernels, "mixtral": mixtral, "maverick": maverick}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -3617,6 +4284,7 @@ def main() -> int:
     fused = phase_train_7b_grad_fused(trained)
     trained_1b = phase_train_1b()
     variants = phase_decoder_variants()
+    moe = phase_moe()
     phase_serve_dense(served)
     fp32_routes = phase_time_fp32_routes()
     phase_train_1b_options(trained_1b)
@@ -3711,6 +4379,15 @@ def main() -> int:
         entry["variant_launches"] = {       # phase 24 (c): the three runs
             arch: run_["launches"][name]
             for arch, run_ in variants["runs"].items()}
+        if name in moe["kernels"]:         # phase 25: the expert stacks
+            entry["moe_shapes"] = moe["kernels"][name]
+        entry["moe_launches"] = {           # phase 25 (b) and (d)
+            "mixtral-8x22b train": moe["mixtral"]["launches"][name],
+            "llama4-maverick-400b-a17b serve (paged)":
+                moe["maverick"]["paged_attention_launches"]
+                if name == "paged_attention" else 0}
+        if name == "paged_attention":      # phase 25 (d): maverick's decode
+            entry["maverick_decode"] = moe["maverick"]["kernel"]
         if name in fp32_routes:   # the routes --accum puts on a path
             entry["fp32_ms"] = fp32_routes[name]["ms"]
             entry["fp32_bound_ms"] = fp32_routes[name]["bound_ms"]

@@ -5,8 +5,10 @@ decoder configs the port's decoder builds: ``qwen1.5-4b`` (QKV bias),
 ``stablelm-12b`` (GQA kv=8, 25% partial rotary, head dim 160), and, as
 config modules of their own (copies of ``repro.configs``'), ``gemma2-27b``
 (local/global windows, softcaps, sandwich norms, GeGLU, tied and scaled
-embeddings), ``minicpm3-4b`` (MLA) and ``qwen2-vl-2b`` (M-RoPE, QKV bias,
-the vision stub).  The numbers are those of ``repro.configs.registry``
+embeddings), ``minicpm3-4b`` (MLA), ``qwen2-vl-2b`` (M-RoPE, QKV bias,
+the vision stub), ``mixtral-8x22b`` (8 experts top-2, a 4096 window on
+every layer) and ``llama4-maverick-400b-a17b`` (128 experts top-1 and a
+shared expert).  The numbers are those of ``repro.configs.registry``
 and its config modules.  Any other arch id raises "not yet ported".
 """
 
@@ -21,6 +23,8 @@ _ARCH_MODULES = {
     "gemma2-27b": "repro_torch.configs.gemma2_27b",
     "minicpm3-4b": "repro_torch.configs.minicpm3_4b",
     "qwen2-vl-2b": "repro_torch.configs.qwen2_vl_2b",
+    "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
+    "llama4-maverick-400b-a17b": "repro_torch.configs.llama4_maverick",
 }
 
 

@@ -56,6 +56,19 @@ class MeshContext:
     def dp(self) -> int:
         return math.prod(self.shape[a] for a in self.batch_axes)
 
+    def expert_layout(self, n_experts: int, d_ff: int) -> tuple[int, int, int]:
+        """(ep, experts_per_rank, ff_shard) of the MoE bank's physical
+        (tp, E_loc, d, f_loc) layout: ep = gcd(E, tp) expert groups of the
+        model axis, each tensor-sharding its experts' hidden dim tp/ep
+        ways.  Only tp = 1 is ported, where it is (1, E, d_ff); a larger
+        model axis waits for the tensor-parallel forward."""
+        if self.tp > 1:
+            raise NotImplementedError(
+                f"MoE layers over a model axis of {self.tp} ranks are not "
+                "yet ported to repro_torch (the tensor-parallel forward)")
+        ep = math.gcd(n_experts, self.tp)
+        return ep, n_experts // ep, d_ff
+
     def batch_spec(self, *rest) -> tuple:
         """Spec with the batch dim over all pure-DP axes."""
         return (self.batch_axes,) + rest

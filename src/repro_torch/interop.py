@@ -26,13 +26,15 @@ def _tensor(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
 
 def params_from_jax(params_np, cfg: ModelConfig, device="cpu") -> dict:
     """JAX decoder params (nested dicts of numpy arrays) -> port params in
-    ``cfg.dtype`` on ``device``."""
+    ``cfg.dtype`` on ``device``; an MoE router stays fp32, as the JAX
+    package draws it."""
     dtype = torch_dtype(cfg.dtype)
 
-    def conv(tree):
+    def conv(tree, key=None):
         if isinstance(tree, dict):
-            return {k: conv(v) for k, v in tree.items()}
-        return _tensor(tree, dtype, device)
+            return {k: conv(v, k) for k, v in tree.items()}
+        return _tensor(tree, torch.float32 if key == "router" else dtype,
+                       device)
 
     return conv(params_np)
 

@@ -25,11 +25,12 @@ import torch
 def dense_init(gen: torch.Generator, shape, in_axis: int = -2,
                dtype=torch.bfloat16) -> torch.Tensor:
     """Truncated-normal fan-in init (LLaMA-style 1/sqrt(fan_in)), drawn in
-    fp32 on the generator's device."""
+    fp32 on the generator's device and scaled in place (one fp32
+    transient the size of the leaf)."""
     std = 1.0 / math.sqrt(shape[in_axis])
     w = torch.empty(shape, dtype=torch.float32, device=gen.device)
     torch.nn.init.trunc_normal_(w, 0.0, 1.0, -3.0, 3.0, generator=gen)
-    return (w * std).to(dtype)
+    return w.mul_(std).to(dtype)
 
 
 def embed_init(gen: torch.Generator, shape,

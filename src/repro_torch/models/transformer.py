@@ -1,19 +1,20 @@
 """Decoder-only transformer: the training forward, the dense serving
 path and the paged serving path.
 
-Counterpart of ``repro.models.transformer`` for the decoder family with
-dense MLPs: GQA attention (partial rotary, QKV bias, M-RoPE with the
-vision-embedding splice), MLA (the latent cache and its absorbed decode),
-gemma2's local/global sliding windows, logit softcaps, sandwich norms,
-GeGLU, and tied and scaled embeddings.  It holds init, the training
+Counterpart of ``repro.models.transformer`` for the decoder family: GQA
+attention (partial rotary, QKV bias, M-RoPE with the vision-embedding
+splice), MLA (the latent cache and its absorbed decode), gemma2's
+local/global sliding windows, logit softcaps, sandwich norms, GeGLU, tied
+and scaled embeddings, MoE MLPs (:mod:`repro_torch.models.moe`, their aux
+loss summed over the layers), and the ring cache of pure sliding-window
+configs (mixtral) in dense serving.  It holds init, the training
 forward and loss (``decoder_forward``, ``decoder_loss``), the dense
 serving programs (``decoder_prefill`` into a per-slot cache,
 ``decoder_decode_step``), and the two paged programs (one prefill chunk
 of one prompt; one decode wave over a batch) and their blocks.  The
 parameter schema is the JAX package's: nested dicts with the layer stack
 on a leading axis, weights ``(in, out)``.  The layer loop is a Python
-loop over that axis where the JAX code scans.  MoE layers and the pure
-sliding-window ring cache are not ported yet and raise.
+loop over that axis where the JAX code scans.
 
 Both caches are updated in place (the JAX programs return new ones).
 Torch indexing does not clamp as XLA's does, so every index that could
@@ -31,6 +32,7 @@ import torch.utils.checkpoint
 
 from repro_torch.kernels import ops as kernel_ops
 from repro_torch.models import attention as attn
+from repro_torch.models import moe as moe_lib
 from repro_torch.models.common import (apply_mrope, apply_rope,
                                        cross_entropy, dense_init, embed_init,
                                        gelu, maybe_tapped_matmul, rms_norm,
@@ -40,20 +42,6 @@ from repro_torch.models.config import ModelConfig
 
 def torch_dtype(name: str) -> torch.dtype:
     return {"bfloat16": torch.bfloat16, "float32": torch.float32}[name]
-
-
-def _require_ported(cfg: ModelConfig, what: str,
-                    serving: bool = False) -> None:
-    """Raise for the decoder features the port does not build yet: MoE
-    layers, and (``serving``) the pure sliding-window ring cache."""
-    why = None
-    if cfg.moe is not None:
-        why = "MoE layers not yet ported"
-    elif serving and _uses_ring(cfg):
-        why = "the pure sliding-window ring cache"
-    if why:
-        raise NotImplementedError(f"{what} {cfg.name} is not yet ported to "
-                                  f"repro_torch: {why}")
 
 
 # ---------------------------------------------------------------------------
@@ -91,7 +79,9 @@ def _init_attn(dense, zeros, cfg: ModelConfig) -> dict:
 def init_decoder(gen: torch.Generator, cfg: ModelConfig) -> dict:
     """Random init on the generator's device, layers stacked on axis 0.
     Softcap configs carry the sandwich norms ``ln1_post`` / ``ln2_post``;
-    a tied config has no ``lm_head`` (the head is ``embed.T``)."""
+    a tied config has no ``lm_head`` (the head is ``embed.T``); an MoE
+    config's ``mlp`` is the router and expert bank (``init_moe_params``,
+    the bank (L, tp, E_loc, d, f_loc))."""
     dtype = torch_dtype(cfg.dtype)
     L, d, ff = cfg.n_layers, cfg.d_model, cfg.d_ff
 
@@ -102,13 +92,17 @@ def init_decoder(gen: torch.Generator, cfg: ModelConfig) -> dict:
         return dense_init(gen, shape, in_axis=in_axis, dtype=dtype)
 
     a = _init_attn(dense, zeros, cfg)
+    embed = embed_init(gen, (cfg.padded_vocab, d), dtype)
+    if cfg.moe is not None:
+        mlp = moe_lib.init_moe_params(gen, d, cfg.moe, dtype=dtype,
+                                      stack=(L,))
+    else:
+        mlp = {"w_gate": dense(L, d, ff), "w_up": dense(L, d, ff),
+               "w_down": dense(L, ff, d)}
     params = {
-        "embed": embed_init(gen, (cfg.padded_vocab, d), dtype),
-        "layers": {
-            "ln1": zeros(L, d), "ln2": zeros(L, d), "attn": a,
-            "mlp": {"w_gate": dense(L, d, ff), "w_up": dense(L, d, ff),
-                    "w_down": dense(L, ff, d)},
-        },
+        "embed": embed,
+        "layers": {"ln1": zeros(L, d), "ln2": zeros(L, d), "attn": a,
+                   "mlp": mlp},
         "final_norm": zeros(d),
     }
     if cfg.attn_softcap:   # gemma2's sandwich norms travel with softcap
@@ -235,34 +229,40 @@ def mla_block(x, p, cfg: ModelConfig, positions):
     return out @ p["wo"], (c_kv, k_rope)
 
 
-def mlp_block(x, p, cfg: ModelConfig, taps=None) -> torch.Tensor:
-    """Dense SwiGLU, or GeGLU (tanh GELU) for softcap (gemma2) configs;
-    ``taps`` as in :func:`_qkv`."""
+def mlp_block(x, p, cfg: ModelConfig, taps=None, serving: bool = False
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """-> (y, aux loss () fp32): the MoE layer for MoE configs (no tap
+    site), else dense SwiGLU, or GeGLU (tanh GELU) for softcap (gemma2)
+    configs, with a zero aux; ``taps`` as in :func:`_qkv`."""
+    if cfg.moe is not None:
+        return moe_lib.moe_layer(x, p, cfg.moe, serving=serving)
     taps = taps or {}
     act = gelu if cfg.attn_softcap else F.silu
 
     def mm(h, w):
         return maybe_tapped_matmul(h, p[w], taps.get(w))
 
-    return mm(act(mm(x, "w_gate")) * mm(x, "w_up"), "w_down")
+    return (mm(act(mm(x, "w_gate")) * mm(x, "w_up"), "w_down"),
+            torch.zeros((), device=x.device))
 
 
-def _residual(x, a, p, cfg: ModelConfig, mlp_taps=None) -> torch.Tensor:
+def _residual(x, a, p, cfg: ModelConfig, mlp_taps=None,
+              serving: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """The rest of a layer after its attention output ``a``: x + a, then
     the MLP half, each branch through its sandwich norm where the layer
-    has one (``ln1_post``, ``ln2_post``)."""
+    has one (``ln1_post``, ``ln2_post``) -> (x, the MLP's aux loss)."""
     if "ln1_post" in p:
         a = rms_norm(a, p["ln1_post"], cfg.norm_eps)
     x = x + a
-    f = mlp_block(rms_norm(x, p["ln2"], cfg.norm_eps), p["mlp"], cfg,
-                  mlp_taps)
+    f, aux = mlp_block(rms_norm(x, p["ln2"], cfg.norm_eps), p["mlp"], cfg,
+                       mlp_taps, serving)
     if "ln2_post" in p:
         f = rms_norm(f, p["ln2_post"], cfg.norm_eps)
-    return x + f
+    return x + f, aux
 
 
 def _layer(x, p, cfg: ModelConfig, positions, window, extras, taps=None):
-    """One whole-sequence layer -> (x, its fresh cache entries)."""
+    """One whole-sequence layer -> (x, its fresh cache entries, aux)."""
     h = rms_norm(x, p["ln1"], cfg.norm_eps)
     taps = taps or {}
     if cfg.attn_type == "mla":
@@ -270,7 +270,8 @@ def _layer(x, p, cfg: ModelConfig, positions, window, extras, taps=None):
     else:
         a, kv = gqa_block(h, p["attn"], cfg, positions, window, extras,
                           taps.get("attn"))
-    return _residual(x, a, p, cfg, taps.get("mlp")), kv
+    x, aux = _residual(x, a, p, cfg, taps.get("mlp"))
+    return x, kv, aux
 
 
 def _embed(params, tokens, cfg: ModelConfig, extras) -> torch.Tensor:
@@ -349,7 +350,8 @@ def _dots_context():
 def decoder_forward(params, tokens: torch.Tensor, cfg: ModelConfig,
                     extras=None, remat: str = "full", taps=None
                     ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Full-sequence forward -> (logits (B, S, Vp), aux loss ()).
+    """Full-sequence forward -> (logits (B, S, Vp), aux loss () fp32, the
+    MoE layers' summed over the stack; zero without MoE).
 
     ``extras``: the batch's other entries (``vision_embeds``,
     ``mrope_positions``).  ``remat="full"`` recomputes each layer in the
@@ -365,7 +367,6 @@ def decoder_forward(params, tokens: torch.Tensor, cfg: ModelConfig,
     matmuls run through :func:`repro_torch.models.common.tapped_matmul`,
     whose backward emits the SubTrack projection statistics as the seeds'
     gradients.  Without taps the model is the plain one."""
-    _require_ported(cfg, "training")
     if remat not in ("full", "dots", "none"):
         raise NotImplementedError(f"remat={remat!r} is not yet ported to "
                                   "repro_torch (full, dots, none)")
@@ -374,32 +375,35 @@ def decoder_forward(params, tokens: torch.Tensor, cfg: ModelConfig,
     positions = torch.arange(S, device=tokens.device)[None, :]
 
     def block(x, p, lt, window):
-        return _layer(x, p, cfg, positions, window, extras, lt)[0]
+        x, _, aux_l = _layer(x, p, cfg, positions, window, extras, lt)
+        return x, aux_l
 
     x = _embed(params, tokens, cfg, extras)
+    aux = torch.zeros((), device=x.device)
     taps = taps or {}
     per_layer = _unstack_layers(params["layers"])
     layer_taps = _unstack_taps(taps.get("layers", {}), len(per_layer))
     for p, lt, local in zip(per_layer, layer_taps, _local_flags(cfg)):
         window = _layer_window(cfg, local)
         if remat == "full":
-            x = torch.utils.checkpoint.checkpoint(block, x, p, lt, window,
-                                                  use_reentrant=False)
+            x, aux_l = torch.utils.checkpoint.checkpoint(
+                block, x, p, lt, window, use_reentrant=False)
         elif remat == "dots":
-            x = torch.utils.checkpoint.checkpoint(block, x, p, lt, window,
-                                                  use_reentrant=False,
-                                                  context_fn=_dots_context)
+            x, aux_l = torch.utils.checkpoint.checkpoint(
+                block, x, p, lt, window, use_reentrant=False,
+                context_fn=_dots_context)
         else:
-            x = block(x, p, lt, window)
+            x, aux_l = block(x, p, lt, window)
+        aux = aux + aux_l
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    return (_logits(params, x, cfg, taps.get("lm_head")),
-            torch.zeros((), device=x.device))
+    return _logits(params, x, cfg, taps.get("lm_head")), aux
 
 
 def decoder_loss(params, batch: dict, cfg: ModelConfig,
                  remat: str = "full", taps=None):
-    """(loss, {"ce_loss", "aux_loss"}): next-token cross entropy over the
-    real vocabulary, the last position masked.  The batch's entries other
+    """(ce + aux, {"ce_loss", "aux_loss"}): next-token cross entropy over
+    the real vocabulary, the last position masked, plus the forward's aux
+    loss (MoE load balance and z losses).  The batch's entries other
     than ``tokens`` are the forward's extras; ``taps`` as in
     :func:`decoder_forward`."""
     tokens = batch["tokens"]
@@ -429,13 +433,12 @@ class DecoderCache:
 def _cache_len(cfg: ModelConfig, max_len: int) -> int:
     """Ring-buffer length: pure sliding-window configs cap the cache at
     the window."""
-    if cfg.sliding_window and not cfg.local_global_period:
-        return min(max_len, cfg.sliding_window)
-    return max_len
+    return min(max_len, cfg.sliding_window) if _uses_ring(cfg) else max_len
 
 
 def _uses_ring(cfg: ModelConfig) -> bool:
-    """Pure sliding-window configs serve from a ring buffer (not ported)."""
+    """Pure sliding-window configs (mixtral) serve from a ring buffer:
+    decode writes position p into slot p % T."""
     return bool(cfg.sliding_window and not cfg.local_global_period)
 
 
@@ -452,7 +455,6 @@ def init_decoder_cache(cfg: ModelConfig, batch: int, max_len: int,
                        dtype=torch.bfloat16, device=None) -> DecoderCache:
     """An empty cache of ``_cache_len`` slots (bf16 by default, as the JAX
     package's): K/V and position tags, or MLA's latent and rope keys."""
-    _require_ported(cfg, "dense serving of", serving=True)
     kv = _init_cache(cfg, batch, _cache_len(cfg, max_len), dtype, device)
     return DecoderCache(kv=kv, length=0)
 
@@ -484,7 +486,6 @@ def decoder_prefill(params, tokens: torch.Tensor, cfg: ModelConfig,
     populated cache).  ``extras`` as in :func:`decoder_forward`.  The
     cache holds K/V (MLA: the latent and the rope keys) in the activation
     dtype, as the JAX program's does."""
-    _require_ported(cfg, "dense serving of", serving=True)
     extras = extras or {}
     B, S = tokens.shape
     T = _cache_len(cfg, max_len)
@@ -495,8 +496,8 @@ def decoder_prefill(params, tokens: torch.Tensor, cfg: ModelConfig,
     dst = ((kv.c_kv, kv.k_rope) if cfg.attn_type == "mla"
            else (kv.k, kv.v))
     for i, local in enumerate(_local_flags(cfg)):
-        x, fresh = _layer(x, layer_params(params, i), cfg, positions,
-                          _layer_window(cfg, local), extras)
+        x, fresh, _ = _layer(x, layer_params(params, i), cfg, positions,
+                             _layer_window(cfg, local), extras)
         for buf, arr in zip(dst, fresh):
             buf[i] = _fit_cache(arr, T, S)
     if cfg.attn_type != "mla":
@@ -532,8 +533,7 @@ def decoder_decode_step(params, cache: DecoderCache, token: torch.Tensor,
     token's cache entries in place and returns (logits (B, Vp), the cache
     one position longer).  ``extras``: ``mrope_positions`` (B, 3, 1) for
     mrope configs.  Local layers attend over their window of the full
-    cache."""
-    _require_ported(cfg, "dense serving of", serving=True)
+    cache; a pure sliding-window config writes its ring (slot pos % T)."""
     extras = extras or {}
     B = token.shape[0]
     pos = cache.length
@@ -548,13 +548,13 @@ def decoder_decode_step(params, cache: DecoderCache, token: torch.Tensor,
         else:
             q, k, v = _qkv(h, p["attn"], cfg, positions, extras)
             attn.cache_write(kv.k[i], kv.v[i], kv.positions[i], k, v, pos,
-                             ring=False)
+                             ring=_uses_ring(cfg))
             out = attn.decode_attention(
                 q[:, 0], kv.k[i], kv.v[i], pos,
                 cache_positions=kv.positions[i],
                 window=_layer_window(cfg, local), softcap=cfg.attn_softcap)
             a = out.reshape(B, 1, cfg.n_heads * cfg.hd) @ p["attn"]["wo"]
-        x = _residual(x, a, p, cfg)
+        x, _ = _residual(x, a, p, cfg, serving=True)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _logits(params, x, cfg)[:, 0], DecoderCache(kv=kv, length=pos + 1)
 
@@ -566,10 +566,9 @@ def decoder_decode_step(params, cache: DecoderCache, token: torch.Tensor,
 
 def paged_supported(cfg: ModelConfig) -> tuple[bool, str]:
     """Whether the paged serving path can run this config: the JAX
-    package's answer (the plain GQA decoder, partial rotary and QKV bias
-    included; features that change the attention pattern or the cache
-    contents go to the dense path), and no MoE layers, which the port does
-    not build yet."""
+    package's answer (the plain GQA decoder, partial rotary, QKV bias and
+    MoE MLPs included; features that change the attention pattern or the
+    cache contents go to the dense path)."""
     if cfg.family != "decoder":
         return False, f"family {cfg.family!r} has no paged cache layout"
     if cfg.attn_type == "mla":
@@ -580,8 +579,6 @@ def paged_supported(cfg: ModelConfig) -> tuple[bool, str]:
         return False, "sliding-window masks not paged"
     if cfg.attn_softcap:
         return False, "logit softcap not fused into the paged kernel"
-    if cfg.moe is not None:
-        return False, "MoE layers not yet ported"
     return True, ""
 
 
@@ -642,8 +639,8 @@ def decoder_prefill_chunk_paged(params, pool: attn.PagedKV,
         # kv_block=bs; only the summation order differs
         out = attn.blocked_attention(q, kg, vg, q_offset=ctx_len,
                                      kv_block=W * bs)
-        x = _residual(x, out.reshape(1, c, cfg.n_heads * cfg.hd)
-                      @ p["attn"]["wo"], p, cfg)
+        x, _ = _residual(x, out.reshape(1, c, cfg.n_heads * cfg.hd)
+                         @ p["attn"]["wo"], p, cfg, serving=True)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _logits(params, x, cfg)
 
@@ -683,7 +680,7 @@ def decoder_decode_step_paged(params, pool: attn.PagedKV,
         _paged_scatter(kp, vp, k[:, 0], v[:, 0], blk, off)
         out = kernel_ops.paged_attention(q[:, 0].contiguous(), kp, vp,
                                          tables, attend)
-        x = _residual(x, out.reshape(B, 1, cfg.n_heads * cfg.hd)
-                      @ p["attn"]["wo"], p, cfg)
+        x, _ = _residual(x, out.reshape(B, 1, cfg.n_heads * cfg.hd)
+                         @ p["attn"]["wo"], p, cfg, serving=True)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
     return _logits(params, x, cfg)[:, 0]

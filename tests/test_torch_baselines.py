@@ -21,6 +21,8 @@ from repro_torch.core.api import get_optimizer
 from repro_torch.core.subtrack import tree_leaves, tree_map
 from repro_torch.interop import opt_state_from_jax
 from repro_torch.launch.steps import apply_updates
+from torch_threads import one_thread  # noqa: F401
+
 
 STEPS = 4
 

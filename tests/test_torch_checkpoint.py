@@ -55,16 +55,7 @@ from repro_torch.core.lowrank_adam import MatrixOptState
 from repro_torch.core.program import StateDescriptor
 from repro_torch.launch.steps import TrainState, checkpoint_descriptors
 from repro_torch.models.api import build_model
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """These cases are small: one intra-op thread keeps them from
-    contending with the suite's other workers for every core."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_thread  # noqa: F401
 
 
 # ---------------------------------------------------------------------------

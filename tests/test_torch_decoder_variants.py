@@ -52,6 +52,8 @@ from repro_torch.models import attention as tattn
 from repro_torch.models import common as tcommon
 from repro_torch.models import transformer as ttf
 from repro_torch.models.api import build_model
+from torch_threads import one_thread  # noqa: F401
+
 
 TOL = 2e-5
 BF16_TOL = 2e-2

@@ -28,6 +28,8 @@ from repro_torch.interop import params_from_jax
 from repro_torch.models import attention as tattn
 from repro_torch.models import transformer as ttf
 from repro_torch.models.api import build_model
+from torch_threads import one_thread  # noqa: F401
+
 
 TOL = 2e-5
 
@@ -126,8 +128,15 @@ def test_cache_len_and_init_match_jax():
         assert tuple(t.shape) == j.shape
         np.testing.assert_array_equal(t.float().numpy(), j.astype(np.float32))
     assert tcache.kv.k.dtype == torch.bfloat16 and tcache.length == 0
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        ttf.init_decoder_cache(tcfg.with_(sliding_window=6), 2, 10)
+    # a pure sliding-window config's ring: the window's slots, all empty
+    jring = jtf.init_decoder_cache(jax_get_config("llama-100m", smoke=True)
+                                   .with_(sliding_window=6), 2, 10)
+    tring = ttf.init_decoder_cache(tcfg.with_(sliding_window=6), 2, 10)
+    for f in ("k", "v", "positions"):
+        j, t = np.asarray(getattr(jring.kv, f)), getattr(tring.kv, f)
+        assert tuple(t.shape) == j.shape and j.shape[2 if f != "positions"
+                                                     else 1] == 6
+        np.testing.assert_array_equal(t.float().numpy(), j.astype(np.float32))
 
 
 def _perturb(tree, rng):

@@ -27,6 +27,7 @@ import torch
 from repro.kernels import flash_attention as jflash
 from repro_torch.kernels import flash_attention as tflash
 from repro_torch.kernels import ops, ref
+from torch_threads import one_thread  # noqa: F401
 
 
 def _qkv(B, S, T, Hq, Hkv, hd, seed=0):

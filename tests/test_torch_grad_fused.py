@@ -53,6 +53,8 @@ from repro_torch.launch.steps import (TrainState, _site_get, _tap_paths,
                                       value_and_grad)
 from repro_torch.models.api import build_model
 from repro_torch.models.common import tap_seed, tapped_matmul
+from torch_threads import one_thread  # noqa: F401
+
 
 B, M, N, R = 64, 256, 512, 32
 RANK, K, ETA, SEQ, BATCH = 32, 4, 2e-5, 32, 4

@@ -24,6 +24,8 @@ import torch
 from repro.kernels import grassmann as pallas
 from repro.kernels import ref as jref
 from repro_torch.kernels import ops, ref
+from torch_threads import one_thread  # noqa: F401
+
 
 B, M_, N_ = 3, 256, 512
 

@@ -37,16 +37,7 @@ from repro_torch.launch import train as ttrain
 from repro_torch.launch.steps import (TrainState, make_train_step,
                                       make_warm_start)
 from repro_torch.models.api import build_model
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """These cases are small: one intra-op thread keeps them from
-    contending with the suite's other workers for every core."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_thread  # noqa: F401
 
 
 M, N, RANK = 64, 256, 16

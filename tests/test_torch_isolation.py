@@ -15,6 +15,8 @@ import torch
 from repro_torch.core.subtrack import tree_leaves
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import train as ttrain
+from torch_threads import one_thread  # noqa: F401
+
 
 SRC = Path(__file__).resolve().parent.parent / "src"
 
@@ -87,16 +89,16 @@ def test_serve_parts_not_ported_yet_raise(argv, match):
 def test_serve_falls_back_to_dense_as_the_jax_driver_does(monkeypatch,
                                                           capsys):
     """A config the paged engine refuses goes to the dense engine with the
-    JAX driver's line; the port's dense engine has no ring cache for a
-    pure sliding-window config yet, so it then says so."""
+    JAX package's fallback line; a pure sliding-window config then serves
+    from the dense engine's ring cache (window 4, past which the request
+    runs)."""
     get = tserve.get_config
     monkeypatch.setattr(tserve, "get_config", lambda *a, **kw: get(
         *a, **kw).with_(sliding_window=4))
-    with pytest.raises(NotImplementedError,
-                       match="dense serving .* not yet ported"):
-        tserve.serve(["--smoke", "--device", "cpu", "--requests", "1",
-                      "--gen", "1"])
+    out = tserve.serve(["--smoke", "--device", "cpu", "--requests", "1",
+                        "--prompt-len", "6", "--gen", "3"])
     assert "falling back to dense" in capsys.readouterr().out
+    assert out["engine"] == "dense" and out["tokens"] == 3
 
 
 def test_train_raises_without_cuda_unless_cpu_is_asked_for(monkeypatch):
@@ -163,7 +165,7 @@ def test_ported_flags_run_on_the_asked_device(monkeypatch, entry, argv):
 @pytest.mark.parametrize("argv,match", [
     (["--mesh", "prod"], "--mesh prod needs a world of 256"),
     (["--inject", "dev-loss@3"], "--inject"),
-    (["--arch", "mixtral-8x22b"], "not yet ported"),
+    (["--arch", "zamba2-7b"], "not yet ported"),
     (["--mesh", "multipod"], "--mesh multipod needs a world of 512"),
     (["--mesh", "host", "--mesh-devices", "2"], "--mesh-devices"),
     (["--step-timeout", "30"], "--step-timeout"),

@@ -45,6 +45,8 @@ from repro_torch.launch import serve as tserve
 from repro_torch.launch import train as ttrain
 from repro_torch.models.api import build_model
 from repro_torch.optim.schedules import cosine_with_warmup
+from torch_threads import one_thread  # noqa: F401
+
 
 SMALL = dict(n_layers=2, d_model=64, n_heads=3, n_kv_heads=3, d_ff=171,
              vocab_size=512, vocab_round=64, dtype="float32", q_block=32,

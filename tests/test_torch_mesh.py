@@ -53,15 +53,7 @@ from repro_torch.distributed import sharding
 from repro_torch.distributed.context import abstract_context
 from repro_torch.kernels import ops
 from repro_torch.launch.mesh import host_context
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """Several ranks share the worker: one intra-op thread each."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_thread  # noqa: F401
 
 
 class CountingGroup:

@@ -31,6 +31,8 @@ from repro_torch.core.api import get_optimizer
 from repro_torch.interop import opt_state_from_jax
 from repro_torch.kernels import ops as tops
 from repro_torch.launch.steps import apply_updates
+from torch_threads import one_thread  # noqa: F401
+
 
 ETA, RANK = 2e-5, 16
 

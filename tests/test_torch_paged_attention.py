@@ -29,6 +29,8 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.paged_attention import choose_splits
 from repro_torch.kernels.paged_attention import paged_attention as cuda_kernel
+from torch_threads import one_thread  # noqa: F401
+
 
 TOL = {"float32": dict(atol=2e-5, rtol=2e-5),
        "bfloat16": dict(atol=3e-2, rtol=5e-2)}

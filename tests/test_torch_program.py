@@ -35,6 +35,8 @@ from repro_torch.core import program as tprogram
 from repro_torch.core.subtrack import LowRankConfig
 from repro_torch.distributed import sharding as tsharding
 from repro_torch.distributed.context import abstract_context
+from torch_threads import one_thread  # noqa: F401
+
 
 SHAPES = [(256, 512, 8), (96, 200, 16), (512, 512, 64),
           (4096, 11008, 1024), (2048, 32000, 512)]

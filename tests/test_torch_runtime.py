@@ -24,7 +24,6 @@ import signal
 import jax
 import numpy as np
 import pytest
-import torch
 
 from repro.checkpoint import CheckpointManager as JCheckpointManager
 from repro.checkpoint import transpose as jxp
@@ -36,16 +35,7 @@ from repro.launch.steps import checkpoint_descriptors as jax_descriptors
 from repro.models.api import build_model as jax_build_model
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.launch.train import train
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """These cases are small: one intra-op thread keeps them from
-    contending with the suite's other workers for every core."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_thread  # noqa: F401
 
 
 ARGS = ["--arch", "llama-60m", "--smoke", "--batch", "4", "--seq", "32",

@@ -35,6 +35,8 @@ from repro_torch.launch import serve as tserve
 from repro_torch.models.api import build_model
 from repro_torch.serve.kv_cache import BlockAllocator
 from repro_torch.serve.sampling import sample_tokens
+from torch_threads import one_thread  # noqa: F401
+
 
 P, GEN, BS = 9, 5, 4
 

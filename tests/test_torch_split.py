@@ -44,6 +44,7 @@ import torch
 from repro.kernels import grassmann as jgrassmann
 from repro.kernels import ref as jref
 from repro_torch.kernels import ref
+from torch_threads import one_thread  # noqa: F401
 
 
 def _rel(got, want) -> float:

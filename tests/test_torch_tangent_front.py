@@ -30,6 +30,8 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.core import lowrank_adam as tla
 from repro_torch.kernels import ops, ref
+from torch_threads import one_thread  # noqa: F401
+
 
 B, M_, N_ = 3, 256, 512
 

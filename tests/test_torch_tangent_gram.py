@@ -37,6 +37,7 @@ from repro.kernels import grassmann as pallas
 from repro.kernels import ops as jops
 from repro_torch.core import subspace as tsub
 from repro_torch.kernels import ops, ref
+from torch_threads import one_thread  # noqa: F401
 
 
 def _t(a, dtype="float32"):

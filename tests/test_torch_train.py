@@ -54,6 +54,8 @@ from repro_torch.models.api import build_model
 from repro_torch.models.common import tap_seed
 from repro_torch.models.transformer import DOTS_SAVED_OPS
 from repro_torch.optim.schedules import cosine_with_warmup
+from torch_threads import one_thread  # noqa: F401
+
 
 STEPS, BATCH, SEQ, RANK, K, ETA = 12, 4, 64, 32, 4, 2e-5
 SLICE_KW = dict(rank=RANK, update_interval=K, eta=ETA, use_kernels=True)
