@@ -5,9 +5,9 @@
 
 Phases (run in this order, except that 13-15 and 17-19, the kernel checks
 of the llama-1b slice and of the last three kernels, run right after phase
-10, before the long training runs, 23 right after phase 11, and 24, 25
-and then 20-22 right after phase 16); any failure raises and the script
-exits non-zero:
+10, before the long training runs, 23 right after phase 11, and 24, 25,
+26 and then 20-22 right after phase 16); any failure raises and the
+script exits non-zero:
 
 1. print the card's name and power limit as nvidia-smi gives them;
 2. build every CUDA kernel of the ported paths from ``src/repro_torch/csrc``
@@ -80,16 +80,19 @@ exits non-zero:
    within ``SMOKE_LOSS_ATOL`` of each other (CUDA vs CPU, and grad-fused vs
    plain on CUDA); exact launch counts on CUDA, none on the CPU;
 11. time one SVD of a (4096, 4096) and a (4096, 11008) fp32 matrix per
-   cuSOLVER driver (the warm start runs 226 of them and uses gesvd), then
-   train llama-7b through ``repro_torch.launch.train.train`` (4 steps,
-   update interval 2: plain steps 0, 1, 3 and a tracking step at 2; rank
-   1024, remat full, batch 2 x 512): finite losses, 3 launches per
-   low-rank leaf per plain step and 5 per tracking step;
+   cuSOLVER routine (the warm start uses gesvd), then train llama-7b at
+   full width and ``LAYERS_7B`` = 16 of its 32 layers (114 warm-start
+   SVDs) through ``run``, what the CLI runs (phase 16 drives the CLI): 4
+   steps, update interval 2: plain steps 0, 1, 3 and a tracking step at
+   2; rank 1024, remat full, batch 2 x 512, the CLI's schedule and
+   batches: finite losses, launches from the plans (3 per low-rank leaf
+   per plain step and 5 per tracking step);
 12. continue from that run's state for 4 grad-fused llama-7b steps through
    ``run(..., grad_fused=True)`` (plain 0, 1, 3; tracking 2): finite
-   losses, per plain step 225 grad_tap calls (two kernels each; the count
-   is of calls), 1 project_colnorms, 9 adam_lowrank_norms and 9
-   fused_update, the plain path's 45 on the tracking step;
+   losses, launches from the plans: per plain step 113 grad_tap calls
+   (7 sites x 16 layers + lm_head; the count is of calls), 1
+   project_colnorms, 9 adam_lowrank_norms and 9 fused_update, the plain
+   path's 45 on the tracking step;
 13. hold the tracking front end ``project_tangent_colnorms`` and the unfused
    schedule's ``backproject`` and ``recovery`` against their plain versions
    at llama-1b's three canonical shapes (2040, 2048), (2048, 5461) and
@@ -256,17 +259,43 @@ exits non-zero:
    16 (past T = 4096: the ring's roll) and one of 512 + 16, then the long
    one teacher-forced against the full forward with phase 24's criteria
    where no choice of a position was dropped at capacity (the positions
-   left out printed); (d) llama4-maverick at full width and one layer
+   left out printed), and beside it the same weights and tokens at
+   capacity factor E / top_k (C = N: no slot drops, asserted) with the
+   ring decode's logits held against the full forward at every position;
+   (d) llama4-maverick at full width and one layer
    (36.8 GB bf16; its full depth's training does not fit the card, which
    is printed) through the paged and the dense engine on one set of
    weights: paged_attention launched once per layer per decode wave, the
    same first token on both engines wherever neither prefill dropped the
    prompt's last position, tok/s, TTFT, decode ms and peaks printed; and
    paged_attention timed at maverick's decode shape beside its bound;
-26. print the kernels line (project, project_colnorms and the front end
+26. zamba2-7b (81 Mamba2 layers with the SSD, a weight-shared attention
+   + MLP block after every 9): (a) project_colnorms, tangent, project,
+   adam_lowrank_norms and fused_update at its in_proj stack 18 x (3584,
+   14576, r 512) and out_proj's, stored (7168, 3584) and taken as its
+   transposed view, bf16 G, against their plain versions (``OPT_REL``),
+   timed beside their bounds, plain versions and phase 8's PyTorch
+   yardsticks; (b) the fp32 smoke config on CUDA against the CPU from
+   the same params: the loss and every gradient within
+   ``ZAMBA_SMOKE_REL``, 4 steps through ``run`` (``--grad-fused`` asked
+   for: the JAX package's fallback) within ``SMOKE_LOSS_ATOL`` with exact
+   launches from the plans, prefill within ``ZAMBA_SMOKE_REL`` and 3
+   decode steps, each from the CPU's cache, within it where the new conv
+   entries round to the same bf16 values, else ``ZAMBA_DECODE_REL``; (c)
+   full width and ``ZAMBA_LAYERS`` = 18 layers (2 groups, 1.86 B params)
+   through ``run``: 4 steps at interval 2, default rank 512, eta pinned,
+   batch 1 x 4096: finite, unquarantined, exact launches from the plans,
+   warm start (46 SVDs), step times, tok/s and peak printed; (d) its
+   trained weights through ``run_dense``: 2 requests of 2048 + 16 and 1
+   of 8192 + 16 (decode ms and the cache's bytes printed: the Mamba
+   states, the same at any length, and the shared K/V, which grow), the
+   2048 + 16 teacher-forced against ``zamba_forward`` (phase 24's
+   criteria) and the SSD states of prefill(2048) + 16 decode steps
+   against prefill(2064)'s (``ZAMBA_STATE_REL``);
+27. print the kernels line (project, project_colnorms and the front end
    with their fp32 routes' times as ``fp32_ms``; tangent_gram's launches
-   those of phase 23's row tracking step; each kernel's phase-24 and
-   phase-25 shapes and its launches in those phases' runs), then
+   those of phase 23's row tracking step; each kernel's phase-24, -25 and
+   -26 shapes and its launches in those phases' runs), then
    ``{"ok": true, "device": {...}}`` last.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -725,6 +754,9 @@ def _kernel_ms_by_name(fn, iters=3) -> dict:
 UPDATE_VARIANTS = [(True, False), (True, True), (False, False),
                    (False, True)]   # (recovery, decay); the first is timed
 RANK_7B = 1024
+# phases 11, 12 and 23 train llama-7b at full width and this many of its 32
+# layers (the warm start's SVDs, 7 per layer and 2, dominate the script)
+LAYERS_7B = 16
 TIMED = (4096, 11008)
 SMOKE_LOSS_ATOL = 1e-4   # fp32 smoke llama, 6 steps, CUDA vs CPU sum orders
 N_LOWRANK_LEAVES = 9     # wq wk wv wo w_gate w_up w_down embed lm_head
@@ -1331,44 +1363,73 @@ def phase_time_svd() -> None:
         del full, low, U
 
 
-def phase_train_7b() -> dict:
-    from repro_torch.kernels import ops
-    from repro_torch.launch.train import train
+def _cfg_7b():
+    """llama-7b at full width and ``LAYERS_7B`` of its layers."""
+    from repro_torch.configs.registry import get_config
 
-    steps, k = 4, 2
+    return get_config("llama-7b").with_(n_layers=LAYERS_7B)
+
+
+def phase_train_7b() -> dict:
+    """llama-7b at full width and ``LAYERS_7B`` layers through ``run``
+    (what the CLI runs; phase 16 drives the CLI itself): 4 steps at
+    update interval 2, rank 1024, eta 10, batch 2 x 512, remat full, the
+    CLI's schedule and batches; exact launches from the plans."""
+    from repro_torch.core.api import get_optimizer
+    from repro_torch.data.pipeline import (DataConfig, SyntheticLMDataset,
+                                           batch_for_model, validate_batch)
+    from repro_torch.kernels import ops
+    from repro_torch.launch.train import run
+    from repro_torch.models.api import build_model
+    from repro_torch.optim.schedules import cosine_with_warmup
+
+    steps, k, batch, seq = 4, 2, 2, 512
+    cfg = _cfg_7b()
     gc.collect()
     torch.cuda.empty_cache()          # the earlier phases' blocks
     torch.cuda.reset_peak_memory_stats()
+    params = build_model(cfg).init(
+        torch.Generator(device="cuda").manual_seed(SEED))
+    opt = get_optimizer("subtrack", rank=RANK_7B, update_interval=k,
+                        eta=10.0, use_kernels=True)
+    data = SyntheticLMDataset(DataConfig(vocab_size=cfg.vocab_size,
+                                         seq_len=seq, global_batch=batch,
+                                         seed=SEED))
+
+    def batch_at(step, mutate=None):
+        b = batch_for_model(cfg, None, data, step)
+        validate_batch(b, cfg.vocab_size)
+        return b
+
+    want = _plan_launches(cfg, params, RANK_7B, steps, 1)
     ops.reset_launch_counts()
-    out = train(["--arch", "llama-7b", "--optimizer", "subtrack",
-                 "--use-kernels", "--steps", str(steps), "--update-interval",
-                 str(k), "--warmup", "2", "--batch", "2", "--seq", "512",
-                 "--seed", str(SEED), "--log-every", "1"])
+    out = run(cfg, params, batch_at, optimizer=opt, steps=steps,
+              lr_at=cosine_with_warmup(1e-3, steps, 2), log_every=1)
+    del params
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     hist = out["history"]
-    if not all(h["loss"] is not None and math.isfinite(h["loss"])
-               for h in hist):
-        raise AssertionError(f"llama-7b: losses {out['losses']}")
+    losses = [h["loss"] for h in hist]
+    if not all(x is not None and math.isfinite(x) for x in losses):
+        raise AssertionError(f"llama-7b: losses {losses}")
     tracking = [h["step"] for h in hist if h["subspace_update"]]
     if tracking != [2]:
         raise AssertionError(f"llama-7b: tracking steps {tracking}")
-    n_plain = steps - 1
-    want = _launches_want(steps, 1)
-    if launches != want:
+    if launches != want or launches != _launches_want(steps, 1):
         raise AssertionError(f"llama-7b launches {launches}, want {want} "
                              f"(3 per leaf per plain step, 5 per tracking)")
     plain_s = [h["dt"] for h in hist if not h["subspace_update"]]
     track_s = [h["dt"] for h in hist if h["subspace_update"]][0]
-    tokens = out["tokens_per_step"]
-    print(f"[train] llama-7b bf16, rank {out['rank']}, batch 2 x 512: "
-          f"warm start {out['warm_start_s']:.2f}s (loss "
-          f"{out['warm_loss']:.4f}); losses {out['losses']}; plain steps "
+    print(f"[train] llama-7b bf16 cut to size: 32 -> {cfg.n_layers} layers "
+          f"at full width, rank {RANK_7B}, batch {batch} x {seq}: warm start "
+          f"{out['warm_start_s']:.2f}s ({7 * cfg.n_layers + 2} SVDs; loss "
+          f"{out['warm_loss']:.4f}); losses {losses}; plain steps "
           f"{[round(t, 3) for t in plain_s]} s (step 0 cold), tracking step "
-          f"{track_s:.3f} s; {tokens / (sum(plain_s[1:]) / len(plain_s[1:])):.1f}"
+          f"{track_s:.3f} s; "
+          f"{batch * seq / (sum(plain_s[1:]) / len(plain_s[1:])):.1f}"
           f" tok/s on warm plain steps; peak memory {peak / 2**30:.2f} GiB; "
           f"launches {launches}", flush=True)
-    return {"launches": launches, "plain_steps": n_plain,
+    return {"launches": launches, "plain_steps": steps - 1,
             "tracking_steps": 1, "plain_s": plain_s, "tracking_s": track_s,
             "state": out["state"]}
 
@@ -1377,11 +1438,10 @@ def phase_train_7b_grad_fused(trained: dict) -> dict:
     """Four more llama-7b steps with the grad-fused backward, through
     ``run`` (what the CLI runs with --grad-fused), from phase 10's own
     warm-started and trained state and the next batches of its stream:
-    plain steps 0, 1 and 3, tracking step 2.  Exact launches: per plain
-    step grad_tap 225 (7 sites x 32 layers + lm_head), project_colnorms 1
-    (embed), adam_lowrank_norms 9, fused_update 9; a tracking step takes
-    the plain backward and its 45 launches."""
-    from repro_torch.configs.registry import get_config
+    plain steps 0, 1 and 3, tracking step 2.  Exact launches from the
+    plans: per plain step grad_tap 113 (7 sites x 16 layers + lm_head),
+    project_colnorms 1 (embed), adam_lowrank_norms 9, fused_update 9; a
+    tracking step takes the plain backward and its 45 launches."""
     from repro_torch.core.api import get_optimizer
     from repro_torch.data.pipeline import (DataConfig, SyntheticLMDataset,
                                            fetch_batch)
@@ -1390,7 +1450,7 @@ def phase_train_7b_grad_fused(trained: dict) -> dict:
     from repro_torch.optim.schedules import cosine_with_warmup
 
     steps, k, done, batch, seq = 4, 2, 4, 2, 512
-    cfg = get_config("llama-7b")
+    cfg = _cfg_7b()
     opt = get_optimizer("subtrack", rank=RANK_7B, update_interval=k,
                         eta=10.0, use_kernels=True)
     data = SyntheticLMDataset(DataConfig(vocab_size=cfg.vocab_size,
@@ -1440,8 +1500,10 @@ def phase_train_7b_grad_fused(trained: dict) -> dict:
         raise AssertionError(f"llama-7b grad-fused: tracking steps {tracking}")
     if out["state"].opt.step != done + steps:
         raise AssertionError(f"optimizer step {out['state'].opt.step}")
-    want = _launches_want(steps, 1, 7 * cfg.n_layers + 1)
-    if launches != want:
+    want = _plan_launches(cfg, out["state"].params, RANK_7B, steps, 1,
+                          tapped=True)
+    if launches != want or launches != _launches_want(
+            steps, 1, 7 * cfg.n_layers + 1):
         raise AssertionError(f"llama-7b grad-fused launches {launches}, want "
                              f"{want}")
     plain_s = [h["dt"] for h in hist if not h["subspace_update"]]
@@ -1634,7 +1696,6 @@ def phase_mesh_programs(trained: dict) -> dict:
     through ``--mesh smoke``: the same losses."""
     import torch.distributed as dist
 
-    from repro_torch.configs.registry import get_config
     from repro_torch.core.api import get_optimizer
     from repro_torch.core.program import build_program
     from repro_torch.core import plan as plan_lib
@@ -1658,7 +1719,7 @@ def phase_mesh_programs(trained: dict) -> dict:
         if one.item() != 1.0:
             raise AssertionError(f"one-rank NCCL all-reduce gave {one}")
         ctx = host_context()
-        cfg = get_config("llama-7b")
+        cfg = _cfg_7b()
         state = trained["state"]
         params, opt_state = state.params, state.opt
         del state
@@ -3227,10 +3288,12 @@ def _variant_bound(name, m, n, r, b) -> tuple[float, str]:
 
 
 def _record_kernel(out, tag, name, label, kern, plain, parts, rel, m, n, r,
-                   b, iters) -> None:
+                   b, iters, library=None) -> None:
     """Check one kernel call against its plain version (each part within
-    ``rel[part]`` of its largest entry), then time both (CUDA events) and
-    put the times, the bound and the route in ``out[name][label]``."""
+    ``rel[part]`` of its largest entry), then time both (CUDA events), and
+    ``library`` (one PyTorch call for the same function, or None) beside
+    them, and put the times, the bound and the route in
+    ``out[name][label]``."""
     from repro_torch.kernels import grassmann as gk
 
     got = kern()
@@ -3250,21 +3313,26 @@ def _record_kernel(out, tag, name, label, kern, plain, parts, rel, m, n, r,
     route = getattr(getattr(gk, name), "route", None)
     ms = _time_ms(kern, iters=iters, repeats=3)
     plain_ms = _time_ms(plain, iters=1, repeats=3)
+    library_ms = (None if library is None
+                  else _time_ms(library, iters=1, repeats=3))
     bound, by = _variant_bound(name, m, n, r, b)
     out.setdefault(name, {})[label] = {
         "shape": [m, n, r, b], "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound, "bound_by": by, "max_abs_err": err,
-        "route": route}
+        "bound_ms": bound, "bound_by": by, "library_ms": library_ms,
+        "max_abs_err": err, "route": route}
+    lib = "" if library is None else f", library {library_ms:.4f} ms"
     print(f"[{tag}] {name} {label} ({m}, {n}, r {r}) x{b} bf16 G: "
           f"max abs err (of largest) {', '.join(line)}; kernel "
           f"{ms:.4f} ms (CUDA events), bound {bound:.4f} ms ({by}), "
-          f"plain {plain_ms:.4f} ms, route {route}", flush=True)
+          f"plain {plain_ms:.4f} ms{lib}, route {route}", flush=True)
 
 
-def _time_opt_shapes(out, tag, shapes, seed0) -> None:
+def _time_opt_shapes(out, tag, shapes, seed0, library=False) -> None:
     """The optimizer step's kernels (project_colnorms, tangent, project,
     adam_lowrank_norms, fused_update) at each (label, m, n, r, matrices,
-    G a transposed view) of ``shapes``, through :func:`_record_kernel`."""
+    G a transposed view) of ``shapes``, through :func:`_record_kernel`;
+    with ``library`` also phase 8's PyTorch yardsticks where one call
+    computes the same function (project, tangent, fused_update)."""
     from repro_torch.kernels import grassmann as gk
     from repro_torch.kernels import ref
 
@@ -3291,11 +3359,20 @@ def _time_opt_shapes(out, tag, shapes, seed0) -> None:
                 lambda: ref.fused_update_ref(G, S, A, Gto, phi, 0.01, clip,
                                              out_dtype=G.dtype)),
         }
+        lib = {}
+        if library:   # phase 8's yardsticks, D formed beforehand
+            phic = phi * clip[:, None]
+            D = Gto - phic[:, None, :] * A
+            Gphic = G.float() * phic[:, None, :]
+            lib = {"project": lambda: S.mT @ G.float(),
+                   "tangent": lambda: -2.0 * (G.float() @ A.mT)
+                   + 2.0 * (S @ (A @ A.mT)),
+                   "fused_update": lambda: torch.baddbmm(Gphic, S, D)}
         for name, (kern, plain) in calls.items():
             _record_kernel(out, tag, name, label, kern, plain,
                            lambda g, w, name=name: [(name, g, w)], OPT_REL,
-                           m, n, r, b, iters=3)
-        del x, S, G, M, V, phi, clip, A, Gto, calls
+                           m, n, r, b, iters=3, library=lib.get(name))
+        del x, S, G, M, V, phi, clip, A, Gto, calls, lib
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -4048,12 +4125,66 @@ def phase_moe_mixtral() -> dict:
           f"forward or the prefill: the forward dropped {fwd_dropped} of "
           f"{(P + gen) * cfg.moe.top_k} slots, the sequence's tail first); "
           f"serve peak "
-          f"{serve_peak / 2**30:.2f} GiB; phase 25 (b, c) "
-          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
-    del params, toks, got, got_l, want_l
+          f"{serve_peak / 2**30:.2f} GiB", flush=True)
+    del toks, got, got_l, want_l
+    rec["no_drop"] = _mixtral_ring_no_drop(cfg, params, stream, P, gen)
+    print(f"[moe] phase 25 (b, c): {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    del params
     gc.collect()
     torch.cuda.empty_cache()
     return rec
+
+
+def _mixtral_ring_no_drop(cfg, params, stream, P: int, gen: int) -> dict:
+    """Phase 25 (c), beside the capacity-1.25 check: the same weights and
+    tokens at capacity factor E / top_k (C = N: no slot can drop), so the
+    ring decode's logits (prefill P, then ``gen`` steps) are held against
+    the full forward at every position with phase 24's criteria."""
+    from dataclasses import replace
+
+    from repro_torch.models import transformer as ttf
+    from repro_torch.models.api import build_model
+
+    ncfg = cfg.with_(moe=replace(cfg.moe, capacity_factor=(
+        cfg.moe.n_experts / cfg.moe.top_k)))
+    bundle = build_model(ncfg.with_(kv_block=_divisor_block(P,
+                                                            cfg.kv_block)))
+    fcfg = ncfg.with_(kv_block=_divisor_block(P + gen, cfg.kv_block))
+    with torch.no_grad(), _MoEDrops() as drops:
+        toks = stream.cuda()
+        logits, cache = bundle.prefill(params, {"tokens": toks[:, :P]},
+                                       P + gen)
+        got = [logits[0].float().cpu()]
+        for i in range(gen):
+            logits, cache = bundle.decode_step(params, cache, toks[:, P + i])
+            got.append(logits[0].float().cpu())
+        T = cache.kv.k.shape[2]
+        del cache, logits
+        full_logits, _ = ttf.decoder_forward(params, toks, fcfg,
+                                             remat="none")
+        want = full_logits[0, P - 1:].float().cpu()
+        del full_logits, toks
+    agree, p90, scale = _agreement(torch.stack(got), want,
+                                   torch.ones(gen + 1, dtype=torch.bool))
+    dropped = drops.slots_dropped()
+    if not (T == cfg.sliding_window and dropped == 0
+            and agree >= VARIANT_AGREE
+            and p90 < VARIANT_P90 * scale + VARIANT_P90):
+        raise AssertionError(f"mixtral ring decode vs forward at capacity "
+                             f"factor {ncfg.moe.capacity_factor:g}: {T} "
+                             f"slots, {dropped} slots dropped, agreement "
+                             f"{agree:.3f}, p90 {p90:.4f} (scale "
+                             f"{scale:.3f})")
+    print(f"[moe] mixtral-8x22b ring decode (prefill {P} > {T}, then {gen} "
+          f"positions) vs full forward at capacity factor "
+          f"{ncfg.moe.capacity_factor:g} (C = N, the seed's weights): 0 "
+          f"slots dropped; logits at all {gen + 1} positions: argmax "
+          f"agreement {agree:.3f} (>= {VARIANT_AGREE}), p90 |delta| "
+          f"{p90:.4f} (< {VARIANT_P90:g} scale + {VARIANT_P90:g}, scale "
+          f"{scale:.3f})", flush=True)
+    return {"capacity_factor": ncfg.moe.capacity_factor, "agree": agree,
+            "p90": p90, "scale": scale, "slots_dropped": dropped}
 
 
 def phase_moe_maverick() -> dict:
@@ -4251,6 +4382,392 @@ def phase_moe() -> dict:
     return {"kernels": kernels, "mixtral": mixtral, "maverick": maverick}
 
 
+# ---------------------------------------------------------------------------
+# zamba2-7b: Mamba2's SSD and the shared attention block (phase 26)
+# ---------------------------------------------------------------------------
+
+ZAMBA_ARCH = "zamba2-7b"
+ZAMBA_LAYERS = 18         # full width, 2 of its 9 groups: the shared block twice
+ZAMBA_TRAIN = (1, 4096)   # batch x seq: train_4k's length, 32 chunks of 128
+ZAMBA_SERVE = (2048, 8192)   # prompts: 2 requests of the first, 1 of the second
+# fp32 smoke zamba, CUDA vs CPU from the same params: the loss, every
+# gradient and prefill (of the largest entry), and a decode step whose
+# new conv window entries round to the same bf16 values on both
+ZAMBA_SMOKE_REL = 1e-5
+# a decode step rounds the new token's conv input to bf16 before its conv
+# reads it (the reference does); where the two devices' fp32 inputs
+# straddle a rounding boundary they round one bf16 step apart, which moved
+# the fp32 smoke's outputs by up to 8.6e-5 of their largest against the
+# JAX package on the CPU (tests/test_torch_zamba.py)
+ZAMBA_DECODE_REL = 5e-4
+# the SSD states (and conv windows) after prefill(P) and 16 decode steps
+# against prefill(P + 16)'s, of the largest entry.  The reference's own
+# gap: its decode reads the conv inputs rounded to bf16, its chunked
+# prefill does not; on the CPU at smoke width both packages gave 1.6e-2
+# (fp32) and 2.4-2.8e-2 (bf16) at 6 layers, the port 3.2e-2 at 18 (bf16)
+ZAMBA_STATE_REL = 0.1
+# (label, m, n, r, matrices, G a transposed view): the stacks of 18 layers
+ZAMBA_OPT_SHAPES = (
+    ("zamba in_proj", 3584, 14576, 512, ZAMBA_LAYERS, False),
+    ("zamba out_proj", 3584, 7168, 512, ZAMBA_LAYERS, True),
+)
+
+
+def _rel(got, want) -> float:
+    """max |got - want| over max |want|, on the CPU in fp32."""
+    got, want = got.float().cpu(), want.float().cpu()
+    return ((got - want).abs().max()
+            / want.abs().max().clamp_min(1e-30)).item()
+
+
+def _zamba_cache_to(cache, device):
+    """A copy of a zamba cache on ``device`` (decode writes in place)."""
+    from repro_torch.models import ssm
+    from repro_torch.models.zamba import ZambaCache
+
+    return ZambaCache(
+        mamba=ssm.MambaState(h=cache.mamba.h.to(device, copy=True),
+                             conv=cache.mamba.conv.to(device, copy=True)),
+        shared_k=cache.shared_k.to(device, copy=True),
+        shared_v=cache.shared_v.to(device, copy=True),
+        shared_pos=cache.shared_pos.to(device, copy=True),
+        length=cache.length)
+
+
+def _bf16_steps_apart(got, want) -> int:
+    """Entries of two bf16 tensors more than one bf16 step apart beyond
+    ``ZAMBA_SMOKE_REL`` of the largest (0 when they are the same values
+    rounded on either side of a boundary)."""
+    g, w = got.float().cpu(), want.float().cpu()
+    step = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(1e-30))) - 7)
+    return int(((g - w).abs() > step + ZAMBA_SMOKE_REL
+                * w.abs().max()).sum())
+
+
+def phase_zamba_smoke() -> None:
+    """Phase 26 (b): the fp32 smoke zamba on CUDA and on the CPU from the
+    same params: the loss and every gradient within ``ZAMBA_SMOKE_REL``;
+    4 steps through ``run`` (tracking at 2, rank 32, ``--grad-fused``
+    asked for: the fallback) within ``SMOKE_LOSS_ATOL`` with exact
+    launches from the plans on CUDA and none on the CPU; prefill (logits,
+    SSD states, the shared K/V; the bf16 conv windows within a bf16 step)
+    within ``ZAMBA_SMOKE_REL``, then 3 decode steps, each from the CPU's
+    cache of the step before, within ``ZAMBA_SMOKE_REL`` where both
+    devices' new conv entries are the same bf16 values, else
+    ``ZAMBA_DECODE_REL`` (the entries that round apart printed)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.api import get_optimizer
+    from repro_torch.core.subtrack import tree_leaves, tree_map
+    from repro_torch.data.pipeline import (DataConfig, SyntheticLMDataset,
+                                           batch_for_model)
+    from repro_torch.kernels import ops
+    from repro_torch.launch.steps import (TrainState, make_warm_start,
+                                          value_and_grad)
+    from repro_torch.launch.train import run
+    from repro_torch.models.api import build_model
+    from repro_torch.optim.schedules import cosine_with_warmup
+
+    steps, k, rank = VARIANT_STEPS, VARIANT_K, 32
+    tracking = sum(1 for s_ in range(steps) if s_ and s_ % k == 0)
+    cfg = get_config(ZAMBA_ARCH, smoke=True).with_(dtype="float32")
+    bundle = build_model(cfg)
+    data = SyntheticLMDataset(DataConfig(vocab_size=cfg.vocab_size,
+                                         seq_len=128, global_batch=2,
+                                         seed=SEED))
+    batches = [batch_for_model(cfg, None, data, s_) for s_ in range(steps)]
+    params = bundle.init(torch.Generator().manual_seed(SEED))
+    on = {d: tree_map(lambda t: t.to(d, copy=True), params)
+          for d in ("cuda", "cpu")}
+    grads = {}
+    for device, p in on.items():
+        loss, _, g = value_and_grad(
+            bundle, p, {k_: v.to(device) for k_, v in batches[0].items()},
+            "full")
+        grads[device] = (float(loss), [t.cpu() for t in tree_leaves(g)])
+    (l_c, g_c), (l_h, g_h) = grads["cuda"], grads["cpu"]
+    g_err = max(_rel(a, b) for a, b in zip(g_c, g_h))
+    if not (abs(l_c - l_h) <= ZAMBA_SMOKE_REL * abs(l_h)
+            and g_err <= ZAMBA_SMOKE_REL):
+        raise AssertionError(f"zamba smoke: loss CUDA {l_c} CPU {l_h}, "
+                             f"gradients {g_err:.3e} of the largest")
+    print(f"[zamba] smoke fp32 ({cfg.n_layers} layers, the shared block "
+          f"every {cfg.attn_every}): loss CUDA {l_c:.6f} vs CPU {l_h:.6f}, "
+          f"{len(g_c)} gradients within {g_err:.2e} of their largest "
+          f"(budget {ZAMBA_SMOKE_REL:g})", flush=True)
+    del grads, g_c, g_h
+
+    opt = get_optimizer("subtrack", rank=rank, update_interval=k,
+                        eta=2e-5, use_kernels=True)
+    warm, _ = make_warm_start(bundle, opt)(
+        TrainState(params=params, opt=opt.init(params)), batches[0])
+
+    def go(device):
+        ops.reset_launch_counts()
+        out = run(cfg, tree_map(lambda t: t.to(device, copy=True), params),
+                  lambda s_: batches[s_], optimizer=opt, steps=steps,
+                  lr_at=cosine_with_warmup(1e-3, steps, 2), log_every=steps,
+                  opt_state=_state_to(warm.opt, device), grad_fused=True)
+        return [h["loss"] for h in out["history"]], ops.launch_counts()
+
+    cuda_losses, cuda_counts = go("cuda")
+    cpu_losses, cpu_counts = go("cpu")
+    diff = max(abs(a - b) for a, b in zip(cuda_losses, cpu_losses))
+    want = _plan_launches(cfg, params, rank, steps, tracking)
+    if not diff <= SMOKE_LOSS_ATOL:
+        raise AssertionError(f"zamba smoke: CUDA {cuda_losses} vs CPU "
+                             f"{cpu_losses} (max diff {diff:.3e})")
+    if cuda_counts != want or any(cpu_counts.values()):
+        raise AssertionError(f"zamba smoke launches: CUDA {cuda_counts} "
+                             f"(want {want}), CPU {cpu_counts}")
+    print(f"[zamba] smoke, {steps} steps (--grad-fused asked for: the plain "
+          f"backward): losses CUDA vs CPU max diff {diff:.2e} (budget "
+          f"{SMOKE_LOSS_ATOL:g}); CUDA launches "
+          f"{({k_: v for k_, v in cuda_counts.items() if v})}", flush=True)
+
+    # prefill (24 tokens: not a chunk multiple) and 3 decode steps
+    P, gen = 24, 3
+    toks = SyntheticLMDataset(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=P + gen, global_batch=2,
+        seed=SEED + 3)).global_batch_at(0)["tokens"]
+    with torch.no_grad():
+        res = {d: bundle.prefill(on[d], {"tokens": toks[:, :P].to(d)},
+                                 P + gen + 5) for d in ("cuda", "cpu")}
+        (lg_c, c_c), (lg_h, c_h) = res["cuda"], res["cpu"]
+        rels = [_rel(lg_c, lg_h), _rel(c_c.mamba.h, c_h.mamba.h),
+                _rel(c_c.shared_k, c_h.shared_k),
+                _rel(c_c.shared_v, c_h.shared_v)]
+        apart = _bf16_steps_apart(c_c.mamba.conv, c_h.mamba.conv)
+        if max(rels) > ZAMBA_SMOKE_REL or apart:
+            raise AssertionError(f"zamba smoke prefill: logits, h, k, v "
+                                 f"{rels}; {apart} conv entries apart")
+        line = [f"prefill {max(rels):.2e}"]
+        del res, c_c
+        for i in range(gen):
+            tok = toks[:, P + i]
+            lg_c, c_c = bundle.decode_step(on["cuda"],
+                                           _zamba_cache_to(c_h, "cuda"),
+                                           tok.cuda())
+            lg_h, c_h = bundle.decode_step(on["cpu"], c_h, tok)
+            flips = int((c_c.mamba.conv[:, :, -1].cpu()
+                         != c_h.mamba.conv[:, :, -1]).sum())
+            budget = ZAMBA_DECODE_REL if flips else ZAMBA_SMOKE_REL
+            rels = [_rel(lg_c, lg_h), _rel(c_c.mamba.h, c_h.mamba.h),
+                    _rel(c_c.shared_k, c_h.shared_k),
+                    _rel(c_c.shared_v, c_h.shared_v)]
+            apart = _bf16_steps_apart(c_c.mamba.conv, c_h.mamba.conv)
+            if max(rels) > budget or apart:
+                raise AssertionError(f"zamba smoke decode {i}: logits, h, "
+                                     f"k, v {rels} (budget {budget:g}, "
+                                     f"{flips} new conv entries rounded "
+                                     f"apart); {apart} conv entries apart")
+            line.append(f"decode {i} {max(rels):.2e} ({flips} new conv "
+                        f"entries rounded apart, budget {budget:g})")
+            del c_c
+    print(f"[zamba] smoke prefill ({P} tokens) and {gen} decode steps, each "
+          f"from the CPU's cache: logits, SSD states and shared K/V, CUDA vs "
+          f"CPU of the largest entry: {'; '.join(line)}", flush=True)
+
+
+def phase_zamba_full() -> dict:
+    """Phase 26 (c, d): zamba2-7b at full width and ``ZAMBA_LAYERS``
+    layers: 4 SubTrack++ steps through ``run`` (batch 1 x 4096, default
+    rank, kernels on, eta pinned): finite, unquarantined, tracking at 2,
+    launches from the plans; then the trained weights through
+    ``run_dense`` (2 requests of 2048 + 16, 1 of 8192 + 16), 2048 + 16
+    teacher-forced against ``zamba_forward`` (phase 24's criteria), and the
+    SSD states of prefill(P) + 16 decode steps against prefill(P + 16)'s
+    (``ZAMBA_STATE_REL``).  Returns launches, times and cache bytes."""
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.api import get_optimizer
+    from repro_torch.core.plan import make_plans, matrix_count
+    from repro_torch.data.pipeline import (DataConfig, SyntheticLMDataset,
+                                           batch_for_model, validate_batch)
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import AdmissionQueue, Request, run_dense
+    from repro_torch.launch.steps import default_rank
+    from repro_torch.launch.train import run
+    from repro_torch.models import zamba
+    from repro_torch.models.api import build_model
+    from repro_torch.optim.schedules import cosine_with_warmup
+
+    t_phase = time.perf_counter()
+    steps, k = VARIANT_STEPS, VARIANT_K
+    full = get_config(ZAMBA_ARCH)
+    cfg = full.with_(n_layers=ZAMBA_LAYERS)
+    batch, seq = ZAMBA_TRAIN
+    rank = default_rank(cfg.d_model)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    bundle = build_model(cfg)
+    params = bundle.init(torch.Generator(device="cuda").manual_seed(SEED))
+    n_params = sum(t.numel() for _, t in _leaf_paths(params))
+    plans = [(p, t) for (_, p), (_, t) in zip(
+        _leaf_paths(make_plans(params, rank)), _leaf_paths(params))]
+    n_svd = sum(matrix_count(p, tuple(t.shape)) for p, t in plans
+                if p.mode == "lowrank")
+    n_low = sum(1 for p, _ in plans if p.mode == "lowrank")
+    print(f"[zamba] zamba2-7b cut to size: {full.n_layers} -> "
+          f"{cfg.n_layers} Mamba2 layers ({cfg.n_layers // cfg.attn_every} "
+          f"groups: the shared block applied twice) at full width (d "
+          f"{cfg.d_model}, {cfg.d_model * cfg.ssm.expand // cfg.ssm.head_dim}"
+          f" SSD heads of {cfg.ssm.head_dim}, d_state {cfg.ssm.d_state}, "
+          f"chunk {cfg.ssm.chunk}; attention {cfg.n_heads} heads of "
+          f"{cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.padded_vocab}): "
+          f"{n_params / 1e9:.2f} B params; rank {rank} ({n_low} low-rank "
+          f"leaves, {n_svd} matrices), batch {batch} x {seq}, eta "
+          f"{VARIANT_ETA:g}", flush=True)
+    opt = get_optimizer("subtrack", rank=rank, update_interval=k,
+                        eta=VARIANT_ETA, use_kernels=True)
+    data = SyntheticLMDataset(DataConfig(vocab_size=cfg.vocab_size,
+                                         seq_len=seq, global_batch=batch,
+                                         seed=SEED))
+
+    def batch_at(step, mutate=None):
+        b = batch_for_model(cfg, None, data, step)
+        validate_batch(b, cfg.vocab_size)
+        return b
+
+    want = _plan_launches(cfg, params, rank, steps,
+                          sum(1 for s_ in range(steps) if s_ and s_ % k == 0))
+    ops.reset_launch_counts()
+    res = run(cfg, params, batch_at, optimizer=opt, steps=steps,
+              lr_at=cosine_with_warmup(1e-3, steps, 2), log_every=1)
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    hist = res["history"]
+    if not all(h["loss"] is not None and math.isfinite(h["loss"])
+               and not h["quarantined"] for h in hist):
+        raise AssertionError(f"zamba: history {hist}")
+    if [h["step"] for h in hist if h["subspace_update"]] != [2]:
+        raise AssertionError(f"zamba: tracking steps wrong: {hist}")
+    used = ("project", "project_colnorms", "tangent", "fused_update",
+            "adam_lowrank_norms")
+    if launches != want or not all(launches[n] for n in used):
+        raise AssertionError(f"zamba launches {launches}, want {want}")
+    plain_s = [h["dt"] for h in hist if not h["subspace_update"]]
+    track_s = [h["dt"] for h in hist if h["subspace_update"]][0]
+    tok_s = batch * seq / (sum(plain_s[1:]) / len(plain_s[1:]))
+    rec = {"launches": launches, "warm_start_s": res["warm_start_s"],
+           "svds": n_svd, "plain_s": plain_s, "tracking_s": track_s,
+           "tok_s": tok_s, "train_peak_gib": peak / 2**30,
+           "losses": [h["loss"] for h in hist], "params_b": n_params / 1e9}
+    print(f"[zamba] train: warm start {res['warm_start_s']:.2f} s ({n_svd} "
+          f"SVDs; loss {res['warm_loss']:.4f}); losses {rec['losses']}; "
+          f"plain steps {[round(t, 3) for t in plain_s]} s (step 0 cold), "
+          f"tracking {track_s:.3f} s; {tok_s:.1f} tok/s on warm plain "
+          f"steps; peak {peak / 2**30:.2f} GiB; launches "
+          f"{({k_: v for k_, v in launches.items() if v})}", flush=True)
+    params = res.pop("state").params       # drop the optimizer state
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # (d) the dense engine: 2 requests of P + GEN, 1 of P_long + GEN
+    P, P_long = ZAMBA_SERVE
+    gen = VARIANT_GEN
+    stream = SyntheticLMDataset(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=P + gen, global_batch=2,
+        seed=SEED + 1)).global_batch_at(0)["tokens"]
+    long_prompt = SyntheticLMDataset(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=P_long, global_batch=1,
+        seed=SEED + 2)).global_batch_at(0)["tokens"]
+    served = {}
+    ops.reset_launch_counts()
+    for name, prompts in (("short", stream[:, :P]), ("long", long_prompt)):
+        queue = AdmissionQueue()
+        for i in range(prompts.shape[0]):
+            queue.submit(Request(rid=i, prompt=prompts[i].numpy(),
+                                 max_new=gen, t_submit=time.time()))
+        served[name] = run_dense(cfg, bundle, params, queue,
+                                 batch=prompts.shape[0],
+                                 prompt_len=prompts.shape[1])
+        if served[name]["requests"] != prompts.shape[0] or any(
+                len(v) != gen for v in served[name]["outputs"].values()):
+            raise AssertionError(f"zamba serve {name}: {served[name]}")
+        T = prompts.shape[1] + gen + 8              # run_dense's max_len
+        c = bundle.init_cache(prompts.shape[0], T, device="meta")
+        served[name]["state_bytes"] = c.mamba.h.nbytes + c.mamba.conv.nbytes
+        served[name]["kv_bytes"] = c.shared_k.nbytes + c.shared_v.nbytes
+    if any(ops.launch_counts().values()):
+        raise AssertionError(f"zamba dense serving launched "
+                             f"{ops.launch_counts()}")
+    serve_peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        toks = stream.cuda()
+        T = P + gen
+        logits, cache = bundle.prefill(params, {"tokens": toks[:, :P]}, T)
+        got = [logits.float().cpu()]
+        for i in range(gen):
+            logits, cache = bundle.decode_step(params, cache, toks[:, P + i])
+            got.append(logits.float().cpu())
+        fcfg = cfg.with_(kv_block=_divisor_block(T, cfg.kv_block))
+        _, whole = build_model(fcfg).prefill(params, {"tokens": toks}, T)
+        h_rel = _rel(cache.mamba.h, whole.mamba.h)
+        conv_rel = _rel(cache.mamba.conv, whole.mamba.conv)
+        del cache, whole, logits
+        full_logits, _ = zamba.zamba_forward(params, toks, fcfg,
+                                             remat="none")
+        want_l = full_logits[:, P - 1:].float().transpose(0, 1).cpu()
+        del full_logits
+    got_l = torch.stack(got).numpy()
+    want_l = want_l.numpy()
+    agree = float((got_l.argmax(-1) == want_l.argmax(-1)).mean())
+    p90 = float(np.percentile(np.abs(got_l - want_l), 90))
+    scale = float(np.percentile(np.abs(want_l), 90)) + 1e-3
+    if not (agree >= VARIANT_AGREE
+            and p90 < VARIANT_P90 * scale + VARIANT_P90
+            and h_rel <= ZAMBA_STATE_REL and conv_rel <= ZAMBA_STATE_REL):
+        raise AssertionError(f"zamba decode vs forward: agreement "
+                             f"{agree:.3f}, p90 {p90:.4f} (scale "
+                             f"{scale:.3f}); states {h_rel:.3e}, conv "
+                             f"windows {conv_rel:.3e}")
+    rec.update(serve={n: {"tok_s": s_["tok_per_s"],
+                          "ttft_p50_s": s_["ttft_p50_s"],
+                          "decode_step_ms": s_["decode_step_ms_mean"],
+                          "state_bytes": s_["state_bytes"],
+                          "kv_bytes": s_["kv_bytes"]}
+                      for n, s_ in served.items()},
+               serve_peak_gib=serve_peak / 2**30, agree=agree, p90=p90,
+               scale=scale, state_rel=h_rel, conv_rel=conv_rel)
+    for (name, s_), (b_, plen) in zip(served.items(), ((2, P), (1, P_long))):
+        print(f"[zamba] serve (dense) {name}: {b_} x ({plen} + {gen}): "
+              f"{s_['tok_per_s']:.1f} tok/s, TTFT p50 "
+              f"{s_['ttft_p50_s'] * 1e3:.1f} ms, decode step "
+              f"{s_['decode_step_ms_mean']:.2f} ms; cache: Mamba states "
+              f"{s_['state_bytes'] / 2**20:.2f} MiB (any length), shared K/V "
+              f"{s_['kv_bytes'] / 2**20:.2f} MiB", flush=True)
+    print(f"[zamba] teacher-forced decode (2 x {P} + {gen}) vs zamba_forward:"
+          f" argmax agreement {agree:.3f} (>= {VARIANT_AGREE}), p90 |delta| "
+          f"{p90:.4f} < {VARIANT_P90 * scale + VARIANT_P90:.4f}; SSD states "
+          f"of prefill({P}) + {gen} decode steps vs prefill({P + gen}) "
+          f"{h_rel:.2e}, conv windows {conv_rel:.2e} of the largest (budget "
+          f"{ZAMBA_STATE_REL:g}); serve peak {serve_peak / 2**30:.2f} GiB; "
+          f"phase 26 (c, d) {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    del params, toks, got, got_l, want_l
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_zamba() -> dict:
+    """Phase 26: zamba2-7b, (a) the optimizer kernels at its stacks, (b)
+    the smoke config CUDA against the CPU, (c) training and (d) serving
+    at full width and ``ZAMBA_LAYERS`` layers."""
+    t0 = time.perf_counter()
+    kernels: dict = {}
+    _time_opt_shapes(kernels, "zamba", ZAMBA_OPT_SHAPES, SEED + 30,
+                     library=True)
+    phase_zamba_smoke()
+    train = phase_zamba_full()
+    print(f"[zamba] phase 26: {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"kernels": kernels, "train": train}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -4285,6 +4802,7 @@ def main() -> int:
     trained_1b = phase_train_1b()
     variants = phase_decoder_variants()
     moe = phase_moe()
+    zamba = phase_zamba()
     phase_serve_dense(served)
     fp32_routes = phase_time_fp32_routes()
     phase_train_1b_options(trained_1b)
@@ -4388,6 +4906,10 @@ def main() -> int:
                 if name == "paged_attention" else 0}
         if name == "paged_attention":      # phase 25 (d): maverick's decode
             entry["maverick_decode"] = moe["maverick"]["kernel"]
+        if name in zamba["kernels"]:       # phase 26 (a): zamba's stacks
+            entry["zamba_shapes"] = zamba["kernels"][name]
+        entry["zamba_launches"] = {         # phase 26 (c)
+            "zamba2-7b train": zamba["train"]["launches"][name]}
         if name in fp32_routes:   # the routes --accum puts on a path
             entry["fp32_ms"] = fp32_routes[name]["ms"]
             entry["fp32_bound_ms"] = fp32_routes[name]["bound_ms"]

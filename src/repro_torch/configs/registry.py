@@ -7,9 +7,11 @@ config modules of their own (copies of ``repro.configs``'), ``gemma2-27b``
 (local/global windows, softcaps, sandwich norms, GeGLU, tied and scaled
 embeddings), ``minicpm3-4b`` (MLA), ``qwen2-vl-2b`` (M-RoPE, QKV bias,
 the vision stub), ``mixtral-8x22b`` (8 experts top-2, a 4096 window on
-every layer) and ``llama4-maverick-400b-a17b`` (128 experts top-1 and a
-shared expert).  The numbers are those of ``repro.configs.registry``
-and its config modules.  Any other arch id raises "not yet ported".
+every layer), ``llama4-maverick-400b-a17b`` (128 experts top-1 and a
+shared expert) and the hybrid ``zamba2-7b`` (81 Mamba2 layers and one
+weight-shared attention + MLP block after every 9).  The numbers are
+those of ``repro.configs.registry`` and its config modules.  Any other
+arch id raises "not yet ported".
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ _ARCH_MODULES = {
     "qwen2-vl-2b": "repro_torch.configs.qwen2_vl_2b",
     "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
     "llama4-maverick-400b-a17b": "repro_torch.configs.llama4_maverick",
+    "zamba2-7b": "repro_torch.configs.zamba2_7b",
 }
 
 

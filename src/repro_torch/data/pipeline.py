@@ -68,13 +68,14 @@ VISION_SEED = 7   # the JAX package folds each step into PRNGKey(7)
 
 def batch_for_model(model_cfg, shape, dataset: SyntheticLMDataset,
                     step: int) -> dict:
-    """The full train batch for a model: the tokens, and for a vision
-    config the stub's inputs: ``vision_embeds`` (B, vision_tokens, d),
-    0.02 N(0, 1) in bf16 from a ``torch.Generator`` seeded per step (other
-    numbers than the JAX package's threefry draws, as the tokens are), and
-    ``mrope_positions`` (B, 3, S) int32 with t = h = w = the text
-    position.  The encoder-decoder stub comes with that family."""
-    if model_cfg.family != "decoder":
+    """The full train batch for a model: the tokens (all a zamba or
+    plain decoder config takes), and for a vision config the stub's
+    inputs: ``vision_embeds`` (B, vision_tokens, d), 0.02 N(0, 1) in bf16
+    from a ``torch.Generator`` seeded per step (other numbers than the JAX
+    package's threefry draws, as the tokens are), and ``mrope_positions``
+    (B, 3, S) int32 with t = h = w = the text position.  The
+    encoder-decoder stub comes with that family."""
+    if model_cfg.family == "encdec":
         raise NotImplementedError(f"batches for {model_cfg.name} "
                                   "(encoder-decoder inputs) are not yet "
                                   "ported to repro_torch")

@@ -25,15 +25,17 @@ def _tensor(a: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
 
 
 def params_from_jax(params_np, cfg: ModelConfig, device="cpu") -> dict:
-    """JAX decoder params (nested dicts of numpy arrays) -> port params in
-    ``cfg.dtype`` on ``device``; an MoE router stays fp32, as the JAX
-    package draws it."""
+    """JAX params (nested dicts of numpy arrays) -> port params on
+    ``device``: a leaf whose JAX array is fp32 stays fp32 (an MoE router,
+    Mamba's ``A_log``, ``D`` and ``dt_bias``, as the JAX package draws
+    them), every other leaf takes ``cfg.dtype``."""
     dtype = torch_dtype(cfg.dtype)
 
-    def conv(tree, key=None):
+    def conv(tree):
         if isinstance(tree, dict):
-            return {k: conv(v, k) for k, v in tree.items()}
-        return _tensor(tree, torch.float32 if key == "router" else dtype,
+            return {k: conv(v) for k, v in tree.items()}
+        return _tensor(tree, torch.float32
+                       if np.asarray(tree).dtype == np.float32 else dtype,
                        device)
 
     return conv(params_np)

@@ -36,7 +36,8 @@ from torch.autograd import DeviceType
 from torch.profiler import ProfilerActivity, profile
 
 from repro_torch.launch.steps import GATE_RANGE, make_train_step
-from repro_torch.launch.train import _parse_args, prepare, run
+from repro_torch.launch.train import (_parse_args, prepare,
+                                      resolve_grad_fused, run)
 from repro_torch.models.api import build_model
 
 # CUDA function names of the port's optimizer kernels (csrc/*.cu)
@@ -61,7 +62,8 @@ def main(argv=None) -> list[dict]:
     state = run(cfg, params, batch_at, optimizer=optimizer, steps=0,
                 lr_at=lambda s: args.lr, remat=args.remat)["state"]
     step = make_train_step(bundle, optimizer, accum=args.accum,
-                           remat=args.remat, grad_fused=args.grad_fused)
+                           remat=args.remat, grad_fused=resolve_grad_fused(
+                               bundle, args.grad_fused, args.accum))
     batch = {k: v.to(device) for k, v in batch_at(1).items()}
     out = []
     for profiled in (False, True):

@@ -17,9 +17,11 @@ hand-written CUDA kernels (``repro_torch.kernels.ops``).  With
 ``--grad-fused`` the plain steps take the grad-fused backward: every
 taggable matmul forms its weight gradient through the ``grad_tap`` kernel,
 which also emits the [A; colnorms] panel that the clip and the
-optimizer's plain step consume in place of a projection pass.  Weights are
-random, drawn from ``--seed``; batches come from the synthetic Zipf +
-Markov stream and are validated on the host before any embedding lookup.
+optimizer's plain step consume in place of a projection pass (a model
+family with no taggable matmul, zamba, says so and takes the plain
+backward, as the JAX package does).  Weights are random, drawn from
+``--seed``; batches come from the synthetic Zipf + Markov stream and are
+validated on the host before any embedding lookup.
 
 ``--accum N`` splits each batch into N microbatches whose gradients add
 into an fp32 accumulator (the grad-fused backward then falls back to the
@@ -441,6 +443,24 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def resolve_grad_fused(bundle, grad_fused: bool, accum: int,
+                       chatty: bool = True) -> bool:
+    """Whether the plain steps take the grad-fused backward.  Not for a
+    family whose bundle exposes no taggable matmuls (no ``loss_taps``:
+    zamba) nor under gradient accumulation: it then says so (when
+    ``chatty``) and the plain backward runs, as in the JAX package."""
+    if grad_fused and (bundle.loss_taps is None or accum > 1):
+        if chatty:
+            print("[train] --grad-fused requested but "
+                  + ("this model family exposes no taggable matmuls"
+                     if bundle.loss_taps is None
+                     else "gradient accumulation is on (taps are not "
+                          "additive across microbatches)")
+                  + " — falling back to the plain backward", flush=True)
+        return False
+    return grad_fused
+
+
 def run(cfg, params, batch_at: Callable, *, optimizer, steps: int,
         lr_at: Callable[[int], float], remat: str = "full",
         log_every: int = 10, opt_state=None, grad_fused: bool = False,
@@ -455,8 +475,9 @@ def run(cfg, params, batch_at: Callable, *, optimizer, steps: int,
     checkpoint's state (with ``start_step`` its step + 1), or a test's
     hand-over of the JAX package's warm-started state.  ``grad_fused``
     runs the plain steps through the grad-fused backward, unless ``accum``
-    > 1 (the driver then says so and takes the plain backward, as the JAX
-    driver does).  A dense baseline (``adamw``, ``badam``) has no warm
+    > 1 or the model family has no taggable matmuls (the run then says so
+    and takes the plain backward, :func:`resolve_grad_fused`).  A dense
+    baseline (``adamw``, ``badam``) has no warm
     start and no tracking step.  ``runtime`` carries the injections,
     sentinel, watchdog and checkpoints (none by default).  ``mesh`` (a
     :class:`~repro_torch.distributed.context.MeshContext`, the
@@ -472,18 +493,14 @@ def run(cfg, params, batch_at: Callable, *, optimizer, steps: int,
     device = tree_leaves(params)[0].device
     bundle = build_model(cfg)
     baseline = not isinstance(optimizer.config, LowRankConfig)
-    if baseline:
-        grad_fused = False  # dense baselines have no projection to tap
-    if grad_fused and accum > 1:
-        print("[train] --grad-fused requested but gradient accumulation is "
-              "on (taps are not additive across microbatches) — falling "
-              "back to the plain backward", flush=True)
-        grad_fused = False
     mesh = mesh if mesh is not None else optimizer.mesh
+    chatty = mesh is None or mesh.rank == 0
+    # dense baselines have no projection to tap
+    grad_fused = resolve_grad_fused(bundle, grad_fused and not baseline,
+                                    accum, chatty)
     train_step = make_train_step(bundle, optimizer, accum=accum, remat=remat,
                                  grad_fused=grad_fused, mesh=mesh)
     k = getattr(optimizer.config, "update_interval", 0)
-    chatty = mesh is None or mesh.rank == 0
 
     def on_device(batch):
         return {key: v.to(device) for key, v in batch.items()}
@@ -707,8 +724,9 @@ def prepare(args: argparse.Namespace, mesh=None, params=None):
         print(f"[train] optimizer hot path: fused kernels [{where}] "
               "(project_colnorms -> adam_lowrank_norms -> fused_update)",
               flush=True)
-    if args.grad_fused and not baseline and args.accum == 1 and (
-            mesh is None or mesh.rank == 0):
+    if args.grad_fused and not baseline and args.accum == 1 \
+            and build_model(cfg).loss_taps is not None \
+            and (mesh is None or mesh.rank == 0):
         print("[train] grad-fused backward: taggable leaves emit "
               "[A; colnorms] from the weight-gradient epilogue; plain "
               "optimizer steps skip their projection read of G", flush=True)

@@ -1,13 +1,17 @@
-"""Model factory: the decoder bundle (training loss, dense and paged
-serving).
+"""Model factory: the decoder and zamba bundles (training loss, dense
+and paged serving).
 
-Counterpart of ``repro.models.api``.  So far only the decoder family's
+Counterpart of ``repro.models.api``.  Ported so far: the decoder family's
 ``init``, ``loss``, ``loss_taps``, its dense serving fields (``prefill``,
-``decode_step``, ``init_cache``) and its three paged fields are ported;
-other families raise.  As in the JAX package, prefill passes every batch
-entry but the tokens to the model (``vision_embeds``,
-``mrope_positions``), and an mrope config's decode step rotates the new
-token by ``cache.length`` on all three position streams.
+``decode_step``, ``init_cache``) and its three paged fields; and the
+zamba family's ``init``, ``loss`` and dense serving fields (no
+``loss_taps`` and no paged fields, as in the reference: the grad-fused
+backward falls back to the plain one and serving to the dense engine).
+The xlstm and encoder-decoder families raise.  As in the JAX package,
+the decoder's prefill passes every batch entry but the tokens to the
+model (``vision_embeds``, ``mrope_positions``), and an mrope config's
+decode step rotates the new token by ``cache.length`` on all three
+position streams.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.models import attention as attn
-from repro_torch.models import transformer
+from repro_torch.models import transformer, zamba
 from repro_torch.models.config import ModelConfig
 
 
@@ -98,9 +102,33 @@ def _decoder_bundle(cfg: ModelConfig) -> ModelBundle:
                        init_cache=init_cache, **paged)
 
 
+def _zamba_bundle(cfg: ModelConfig) -> ModelBundle:
+    def init(gen: torch.Generator, device=None):
+        params = zamba.init_zamba(gen, cfg)
+        return params if device is None else _to(params, torch.device(device))
+
+    def loss(params, batch, remat="full"):
+        return zamba.zamba_loss(params, batch, cfg, remat)
+
+    def prefill(params, batch, max_len):
+        return zamba.zamba_prefill(params, batch["tokens"], cfg, max_len)
+
+    def decode_step(params, cache, token):
+        return zamba.zamba_decode_step(params, cache, token, cfg)
+
+    def init_cache(batch, max_len, device=None):
+        return zamba.init_zamba_cache(cfg, batch, max_len, device=device)
+
+    return ModelBundle(cfg=cfg, init=init, loss=loss, prefill=prefill,
+                       decode_step=decode_step, init_cache=init_cache)
+
+
+_BUNDLES = {"decoder": _decoder_bundle, "zamba": _zamba_bundle}
+
+
 def build_model(cfg: ModelConfig) -> ModelBundle:
-    if cfg.family != "decoder":
+    if cfg.family not in _BUNDLES:
         raise NotImplementedError(
             f"model family {cfg.family!r} is not yet ported to repro_torch "
-            "(ported: decoder)")
-    return _decoder_bundle(cfg)
+            f"(ported: {', '.join(_BUNDLES)})")
+    return _BUNDLES[cfg.family](cfg)

@@ -79,7 +79,7 @@ def test_serve_raises_without_cuda_unless_cpu_is_asked_for(monkeypatch):
 
 @pytest.mark.parametrize("argv,match", [
     (["--mesh", "prod"], "--mesh"),
-    (["--arch", "zamba2-7b"], "not yet ported"),
+    (["--arch", "xlstm-125m"], "not yet ported"),
 ])
 def test_serve_parts_not_ported_yet_raise(argv, match):
     with pytest.raises(NotImplementedError, match=match):
@@ -165,7 +165,7 @@ def test_ported_flags_run_on_the_asked_device(monkeypatch, entry, argv):
 @pytest.mark.parametrize("argv,match", [
     (["--mesh", "prod"], "--mesh prod needs a world of 256"),
     (["--inject", "dev-loss@3"], "--inject"),
-    (["--arch", "zamba2-7b"], "not yet ported"),
+    (["--arch", "xlstm-125m"], "not yet ported"),
     (["--mesh", "multipod"], "--mesh multipod needs a world of 512"),
     (["--mesh", "host", "--mesh-devices", "2"], "--mesh-devices"),
     (["--step-timeout", "30"], "--step-timeout"),

@@ -235,8 +235,8 @@ def test_paged_supported_matches_jax():
 
     for name in ("llama-7b", "qwen1.5-4b", "stablelm-12b", "gemma2-27b",
                  "minicpm3-4b", "qwen2-vl-2b", "mixtral-8x22b",
-                 "llama4-maverick-400b-a17b"):
+                 "llama4-maverick-400b-a17b", "zamba2-7b"):
         assert transformer.paged_supported(get_config(name)) == \
             jax_supported(jax_get_config(name))
     with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_config("zamba2-7b")
+        get_config("xlstm-125m")
