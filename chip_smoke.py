@@ -5,9 +5,9 @@
 
 Phases (run in this order, except that 13-15 and 17-19, the kernel checks
 of the llama-1b slice and of the last three kernels, run right after phase
-10, before the long training runs, 23 right after phase 11, and 24, 25,
-26 and then 20-22 right after phase 16); any failure raises and the
-script exits non-zero:
+10, before the long training runs, 23 right after phase 11, and 24-28
+and then 20-22 right after phase 16); any failure raises and the script
+exits non-zero:
 
 1. print the card's name and power limit as nvidia-smi gives them;
 2. build every CUDA kernel of the ported paths from ``src/repro_torch/csrc``
@@ -81,7 +81,7 @@ script exits non-zero:
    plain on CUDA); exact launch counts on CUDA, none on the CPU;
 11. time one SVD of a (4096, 4096) and a (4096, 11008) fp32 matrix per
    cuSOLVER routine (the warm start uses gesvd), then train llama-7b at
-   full width and ``LAYERS_7B`` = 16 of its 32 layers (114 warm-start
+   full width and ``LAYERS_7B`` = 8 of its 32 layers (58 warm-start
    SVDs) through ``run``, what the CLI runs (phase 16 drives the CLI): 4
    steps, update interval 2: plain steps 0, 1, 3 and a tracking step at
    2; rank 1024, remat full, batch 2 x 512, the CLI's schedule and
@@ -89,8 +89,8 @@ script exits non-zero:
    per plain step and 5 per tracking step);
 12. continue from that run's state for 4 grad-fused llama-7b steps through
    ``run(..., grad_fused=True)`` (plain 0, 1, 3; tracking 2): finite
-   losses, launches from the plans: per plain step 113 grad_tap calls
-   (7 sites x 16 layers + lm_head; the count is of calls), 1
+   losses, launches from the plans: per plain step 57 grad_tap calls
+   (7 sites x 8 layers + lm_head; the count is of calls), 1
    project_colnorms, 9 adam_lowrank_norms and 9 fused_update, the plain
    path's 45 on the tracking step;
 13. hold the tracking front end ``project_tangent_colnorms`` and the unfused
@@ -292,10 +292,52 @@ script exits non-zero:
    2048 + 16 teacher-forced against ``zamba_forward`` (phase 24's
    criteria) and the SSD states of prefill(2048) + 16 decode steps
    against prefill(2064)'s (``ZAMBA_STATE_REL``);
-27. print the kernels line (project, project_colnorms and the front end
+27. xlstm-125m (9 mLSTM and 3 sLSTM blocks): (a) project_colnorms, the
+   single-launch front end project_tangent_colnorms, project,
+   adam_lowrank_norms and fused_update at the sLSTM's R stack, 3 x 4 x
+   (192, 768, r 128) (m not a multiple of the 128-row tiles), and the
+   embedding's (768, 50432, r 128) view, bf16 G, against their plain
+   versions (``OPT_REL``, ``FRONT_REL``), timed beside their bounds,
+   plain versions and phase 8's PyTorch yardsticks; (b) the fp32 smoke
+   config on CUDA against the CPU from the same params: the loss and
+   every gradient within ``XLSTM_GRAD_REL``, 4 steps through ``run`` at
+   rank 16 (``--grad-fused`` asked for: the fallback) within
+   ``SMOKE_LOSS_ATOL`` with exact launches from the plans, prefill and 3
+   decode steps, each from the CPU's cache, within ``FAMILY_SMOKE_REL``
+   where the new conv entries round to the same bf16 values, else
+   ``XLSTM_DECODE_REL``, and the bf16 smoke (the served dtype) the same
+   way within ``XLSTM_BF16_PREFILL_REL`` and ``XLSTM_BF16_DECODE_REL``;
+   planted faults (the sLSTM bias in the other layout, a conv window not
+   advanced, an mLSTM stabiliser off by one) read past each budget;
+   (c) full width and depth (12 blocks, 0.19 B params) through ``run``:
+   4 steps at interval 2, default rank 128, eta pinned, batch 4 x 1024:
+   finite, unquarantined, exact launches from the plans, warm start, step
+   times, tok/s and peak printed, and the sLSTM's sequential loop timed
+   alone beside the step; (d) its trained weights through ``run_dense``:
+   2 requests of 2048 + 16 (decode ms and the cache's bytes, the same at
+   any length), and the bf16 decode teacher-forced against
+   ``xlstm_forward`` (agreement ``XLSTM_AGREE``, phase 24's p90) with the
+   states of prefill(2048) + 16 decode steps against prefill(2064)'s,
+   each stabilised pair at one stabiliser, within ``XLSTM_STATE_REL``;
+   the planted faults must fail these;
+28. seamless-m4t-large-v2 (24 + 24 layers, the speech front end a stub
+   of frame embeddings): (a) the same five kernels at the embedding's
+   (1024, 256256, r 256) view and the w_gate stack, ``SEAMLESS_LAYERS``
+   x (1024, 8192, r 256), bf16 G, as 27 (a), and the warm start's SVD of
+   the embedding timed; (b) the fp32 smoke config as 27 (b) at rank 32,
+   the loss and gradients within ``FAMILY_SMOKE_REL``, prefill and
+   decode within ``FAMILY_SMOKE_REL``; (c) full width and
+   ``SEAMLESS_LAYERS`` = 6 encoder + 6 decoder layers (0.90 B params)
+   through ``run``: 4 steps at interval 2, default rank 256, eta pinned,
+   batch 2 x 2048 frames and tokens, the checks and prints of 27 (c);
+   (d) its trained weights through ``run_dense``: 2 requests of 1024 +
+   16 on zero frames (the self and cross K/V bytes printed),
+   teacher-forced against ``encode`` + ``decode_train`` (phase 24's
+   criteria);
+29. print the kernels line (project, project_colnorms and the front end
    with their fp32 routes' times as ``fp32_ms``; tangent_gram's launches
-   those of phase 23's row tracking step; each kernel's phase-24, -25 and
-   -26 shapes and its launches in those phases' runs), then
+   those of phase 23's row tracking step; each kernel's phase-24 to -28
+   shapes and its launches in those phases' runs), then
    ``{"ok": true, "device": {...}}`` last.
 
 Without a CUDA device, or outside a checkout of the repository, it exits
@@ -756,7 +798,7 @@ UPDATE_VARIANTS = [(True, False), (True, True), (False, False),
 RANK_7B = 1024
 # phases 11, 12 and 23 train llama-7b at full width and this many of its 32
 # layers (the warm start's SVDs, 7 per layer and 2, dominate the script)
-LAYERS_7B = 16
+LAYERS_7B = 8
 TIMED = (4096, 11008)
 SMOKE_LOSS_ATOL = 1e-4   # fp32 smoke llama, 6 steps, CUDA vs CPU sum orders
 N_LOWRANK_LEAVES = 9     # wq wk wv wo w_gate w_up w_down embed lm_head
@@ -1439,7 +1481,7 @@ def phase_train_7b_grad_fused(trained: dict) -> dict:
     ``run`` (what the CLI runs with --grad-fused), from phase 10's own
     warm-started and trained state and the next batches of its stream:
     plain steps 0, 1 and 3, tracking step 2.  Exact launches from the
-    plans: per plain step grad_tap 113 (7 sites x 16 layers + lm_head),
+    plans: per plain step grad_tap 57 (7 sites x 8 layers + lm_head),
     project_colnorms 1 (embed), adam_lowrank_norms 9, fused_update 9; a
     tracking step takes the plain backward and its 45 launches."""
     from repro_torch.core.api import get_optimizer
@@ -3327,14 +3369,22 @@ def _record_kernel(out, tag, name, label, kern, plain, parts, rel, m, n, r,
           f"plain {plain_ms:.4f} ms{lib}, route {route}", flush=True)
 
 
-def _time_opt_shapes(out, tag, shapes, seed0, library=False) -> None:
-    """The optimizer step's kernels (project_colnorms, tangent, project,
-    adam_lowrank_norms, fused_update) at each (label, m, n, r, matrices,
-    G a transposed view) of ``shapes``, through :func:`_record_kernel`;
-    with ``library`` also phase 8's PyTorch yardsticks where one call
-    computes the same function (project, tangent, fused_update)."""
+def _time_opt_shapes(out, tag, shapes, seed0, library=False,
+                     only=None) -> None:
+    """The optimizer step's kernels (project_colnorms, the tracking front
+    end, project, adam_lowrank_norms, fused_update; those named in
+    ``only`` where it is given) at each (label, m, n, r, matrices, G a
+    transposed view) of ``shapes``, through :func:`_record_kernel`.  The
+    front end is the dispatch's: tangent after project_colnorms past
+    ``MAX_FRONT_M``, else the single-launch project_tangent_colnorms
+    (``FRONT_REL``).  With ``library`` also phase 8's PyTorch yardsticks
+    where one call computes the same function (project, tangent,
+    fused_update)."""
     from repro_torch.kernels import grassmann as gk
     from repro_torch.kernels import ref
+
+    def one(name):
+        return lambda g, w: [(name, g, w)], OPT_REL
 
     for i, (label, m, n, r, b, tr) in enumerate(shapes):
         x = _variant_inputs(m, n, r, b, tr, seed0 + i)
@@ -3342,22 +3392,32 @@ def _time_opt_shapes(out, tag, shapes, seed0, library=False) -> None:
                                                 "clip"))
         A, _ = ref.project_colnorms_ref(S, G)
         Gto = ref.adam_lowrank_norms_ref(A, M, V, 3, 0.9, 0.999, 1e-8)[2]
+        front = ({"tangent": (lambda: gk.tangent(G, A, S),
+                              lambda: ref.tangent_ref(G, A, S),
+                              *one("tangent"))}
+                 if m > gk.MAX_FRONT_M else
+                 {"project_tangent_colnorms": (
+                     lambda: gk.project_tangent_colnorms(S, G),
+                     lambda: ref.project_tangent_colnorms_ref(S, G),
+                     lambda g, w: zip(("A", "gsq", "T"), g, w), FRONT_REL)})
         calls = {
             "project_colnorms": (lambda: gk.project_colnorms(S, G),
-                                 lambda: ref.project_colnorms_ref(S, G)),
-            "tangent": (lambda: gk.tangent(G, A, S),
-                        lambda: ref.tangent_ref(G, A, S)),
+                                 lambda: ref.project_colnorms_ref(S, G),
+                                 *one("project_colnorms")),
+            **front,
             "project": (lambda: gk.project(S, G),
-                        lambda: ref.project_ref(S, G)),
+                        lambda: ref.project_ref(S, G), *one("project")),
             "adam_lowrank_norms": (
                 lambda: gk.adam_lowrank_norms(A, M, V, 3),
                 lambda: ref.adam_lowrank_norms_ref(A, M, V, 3, 0.9, 0.999,
-                                                   1e-8)),
+                                                   1e-8),
+                *one("adam_lowrank_norms")),
             "fused_update": (
                 lambda: gk.fused_update(G, S, A, Gto, phi, 0.01, clip,
                                         out_dtype=G.dtype),
                 lambda: ref.fused_update_ref(G, S, A, Gto, phi, 0.01, clip,
-                                             out_dtype=G.dtype)),
+                                             out_dtype=G.dtype),
+                *one("fused_update")),
         }
         lib = {}
         if library:   # phase 8's yardsticks, D formed beforehand
@@ -3368,10 +3428,11 @@ def _time_opt_shapes(out, tag, shapes, seed0, library=False) -> None:
                    "tangent": lambda: -2.0 * (G.float() @ A.mT)
                    + 2.0 * (S @ (A @ A.mT)),
                    "fused_update": lambda: torch.baddbmm(Gphic, S, D)}
-        for name, (kern, plain) in calls.items():
-            _record_kernel(out, tag, name, label, kern, plain,
-                           lambda g, w, name=name: [(name, g, w)], OPT_REL,
-                           m, n, r, b, iters=3, library=lib.get(name))
+        for name, (kern, plain, parts, rel) in calls.items():
+            if only is None or name in only:
+                _record_kernel(out, tag, name, label, kern, plain, parts,
+                               rel, m, n, r, b, iters=3,
+                               library=lib.get(name))
         del x, S, G, M, V, phi, clip, A, Gto, calls, lib
         gc.collect()
         torch.cuda.empty_cache()
@@ -3388,15 +3449,8 @@ def phase_variant_kernels() -> dict:
 
     out: dict = {}
     _time_opt_shapes(out, "variants", VARIANT_OPT_SHAPES, SEED)
-    for i, (label, m, n, r, b, tr) in enumerate(VARIANT_FRONT_SHAPES):
-        x = _variant_inputs(m, n, r, b, tr, SEED + 10 + i)
-        S, G = x["S"], x["G"]
-        _record_kernel(out, "variants", "project_tangent_colnorms", label,
-                       lambda: gk.project_tangent_colnorms(S, G),
-                       lambda: ref.project_tangent_colnorms_ref(S, G),
-                       lambda g, w: zip(("A", "gsq", "T"), g, w), FRONT_REL,
-                       m, n, r, b, iters=5)
-        del x, S, G
+    _time_opt_shapes(out, "variants", VARIANT_FRONT_SHAPES, SEED + 10,
+                     only=("project_tangent_colnorms",))
     label, tb, tm, tn, tr_ = VARIANT_TAP
     x, dy, S = _tap_inputs(tb, tm, tn, tr_, torch.bfloat16, SEED)
     got = gk.grad_tap(x, dy, S, out_dtype=torch.bfloat16)
@@ -4434,32 +4488,55 @@ def _zamba_cache_to(cache, device):
         length=cache.length)
 
 
-def _bf16_steps_apart(got, want) -> int:
+def _bf16_steps_apart(got, want, rel=ZAMBA_SMOKE_REL) -> int:
     """Entries of two bf16 tensors more than one bf16 step apart beyond
-    ``ZAMBA_SMOKE_REL`` of the largest (0 when they are the same values
-    rounded on either side of a boundary)."""
+    ``rel`` of the largest (0 when they are the same values rounded on
+    either side of a boundary)."""
     g, w = got.float().cpu(), want.float().cpu()
     step = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(1e-30))) - 7)
-    return int(((g - w).abs() > step + ZAMBA_SMOKE_REL
-                * w.abs().max()).sum())
+    return int(((g - w).abs() > step + rel * w.abs().max()).sum())
 
 
-def phase_zamba_smoke() -> None:
-    """Phase 26 (b): the fp32 smoke zamba on CUDA and on the CPU from the
-    same params: the loss and every gradient within ``ZAMBA_SMOKE_REL``;
-    4 steps through ``run`` (tracking at 2, rank 32, ``--grad-fused``
-    asked for: the fallback) within ``SMOKE_LOSS_ATOL`` with exact
-    launches from the plans on CUDA and none on the CPU; prefill (logits,
-    SSD states, the shared K/V; the bf16 conv windows within a bf16 step)
-    within ``ZAMBA_SMOKE_REL``, then 3 decode steps, each from the CPU's
-    cache of the step before, within ``ZAMBA_SMOKE_REL`` where both
-    devices' new conv entries are the same bf16 values, else
-    ``ZAMBA_DECODE_REL`` (the entries that round apart printed)."""
+def _family_smoke_data(arch, seq=128):
+    """The fp32 smoke config of ``arch``, its bundle, CPU params of the
+    seed and ``VARIANT_STEPS`` batches of 2 x ``seq``."""
     from repro_torch.configs.registry import get_config
-    from repro_torch.core.api import get_optimizer
-    from repro_torch.core.subtrack import tree_leaves, tree_map
     from repro_torch.data.pipeline import (DataConfig, SyntheticLMDataset,
                                            batch_for_model)
+    from repro_torch.models.api import build_model
+
+    cfg = get_config(arch, smoke=True).with_(dtype="float32")
+    bundle = build_model(cfg)
+    data = SyntheticLMDataset(DataConfig(vocab_size=cfg.vocab_size,
+                                         seq_len=seq, global_batch=2,
+                                         seed=SEED))
+    batches = [batch_for_model(cfg, None, data, s_)
+               for s_ in range(VARIANT_STEPS)]
+    return cfg, bundle, bundle.init(torch.Generator().manual_seed(SEED)), \
+        batches
+
+
+def _prompt_stream(cfg, P, gen, seed):
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset
+
+    return SyntheticLMDataset(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=P + gen, global_batch=2,
+        seed=seed)).global_batch_at(0)["tokens"]
+
+
+def _smoke_grads_and_run(tag, cfg, params, batches, rank, rel,
+                         what, fault=None) -> dict:
+    """The fp32 smoke ``cfg`` on CUDA and on the CPU from the same
+    ``params`` (on the CPU): the loss and every gradient of
+    ``batches[0]`` within ``rel`` of the largest entry (and where
+    ``fault`` plants one, ``fault(params)``'s CPU gradients read against
+    the sound ones, past ``rel``); then
+    ``len(batches)`` steps through ``run`` (tracking at 2, eta 2e-5,
+    ``--grad-fused`` asked for: a family with no tap site takes the plain
+    backward) within ``SMOKE_LOSS_ATOL``, exact launches from the plans
+    on CUDA and none on the CPU.  Returns the params on each device."""
+    from repro_torch.core.api import get_optimizer
+    from repro_torch.core.subtrack import tree_leaves, tree_map
     from repro_torch.kernels import ops
     from repro_torch.launch.steps import (TrainState, make_warm_start,
                                           value_and_grad)
@@ -4467,15 +4544,9 @@ def phase_zamba_smoke() -> None:
     from repro_torch.models.api import build_model
     from repro_torch.optim.schedules import cosine_with_warmup
 
-    steps, k, rank = VARIANT_STEPS, VARIANT_K, 32
+    steps, k = len(batches), VARIANT_K
     tracking = sum(1 for s_ in range(steps) if s_ and s_ % k == 0)
-    cfg = get_config(ZAMBA_ARCH, smoke=True).with_(dtype="float32")
     bundle = build_model(cfg)
-    data = SyntheticLMDataset(DataConfig(vocab_size=cfg.vocab_size,
-                                         seq_len=128, global_batch=2,
-                                         seed=SEED))
-    batches = [batch_for_model(cfg, None, data, s_) for s_ in range(steps)]
-    params = bundle.init(torch.Generator().manual_seed(SEED))
     on = {d: tree_map(lambda t: t.to(d, copy=True), params)
           for d in ("cuda", "cpu")}
     grads = {}
@@ -4486,14 +4557,21 @@ def phase_zamba_smoke() -> None:
         grads[device] = (float(loss), [t.cpu() for t in tree_leaves(g)])
     (l_c, g_c), (l_h, g_h) = grads["cuda"], grads["cpu"]
     g_err = max(_rel(a, b) for a, b in zip(g_c, g_h))
-    if not (abs(l_c - l_h) <= ZAMBA_SMOKE_REL * abs(l_h)
-            and g_err <= ZAMBA_SMOKE_REL):
-        raise AssertionError(f"zamba smoke: loss CUDA {l_c} CPU {l_h}, "
+    planted = ""
+    if fault is not None:
+        _, _, g = value_and_grad(bundle, fault(on["cpu"]), batches[0],
+                                 "full")
+        f_err = max(_rel(a, b) for a, b in zip(tree_leaves(g), g_h))
+        planted = f"; the planted fault reads {f_err:.2e}"
+    print(f"[{tag}] smoke fp32 ({what}): loss CUDA {l_c:.6f} vs CPU "
+          f"{l_h:.6f}, {len(g_c)} gradients within {g_err:.2e} of their "
+          f"largest (budget {rel:g}){planted}", flush=True)
+    if not (abs(l_c - l_h) <= rel * abs(l_h) and g_err <= rel):
+        raise AssertionError(f"{tag} smoke: loss CUDA {l_c} CPU {l_h}, "
                              f"gradients {g_err:.3e} of the largest")
-    print(f"[zamba] smoke fp32 ({cfg.n_layers} layers, the shared block "
-          f"every {cfg.attn_every}): loss CUDA {l_c:.6f} vs CPU {l_h:.6f}, "
-          f"{len(g_c)} gradients within {g_err:.2e} of their largest "
-          f"(budget {ZAMBA_SMOKE_REL:g})", flush=True)
+    if fault is not None and not f_err > rel:
+        raise AssertionError(f"{tag} smoke: the planted fault's gradients "
+                             f"read {f_err:.3e}, within the budget")
     del grads, g_c, g_h
 
     opt = get_optimizer("subtrack", rank=rank, update_interval=k,
@@ -4514,21 +4592,37 @@ def phase_zamba_smoke() -> None:
     diff = max(abs(a - b) for a, b in zip(cuda_losses, cpu_losses))
     want = _plan_launches(cfg, params, rank, steps, tracking)
     if not diff <= SMOKE_LOSS_ATOL:
-        raise AssertionError(f"zamba smoke: CUDA {cuda_losses} vs CPU "
+        raise AssertionError(f"{tag} smoke: CUDA {cuda_losses} vs CPU "
                              f"{cpu_losses} (max diff {diff:.3e})")
     if cuda_counts != want or any(cpu_counts.values()):
-        raise AssertionError(f"zamba smoke launches: CUDA {cuda_counts} "
+        raise AssertionError(f"{tag} smoke launches: CUDA {cuda_counts} "
                              f"(want {want}), CPU {cpu_counts}")
-    print(f"[zamba] smoke, {steps} steps (--grad-fused asked for: the plain "
-          f"backward): losses CUDA vs CPU max diff {diff:.2e} (budget "
-          f"{SMOKE_LOSS_ATOL:g}); CUDA launches "
+    print(f"[{tag}] smoke, {steps} steps at rank {rank} (--grad-fused asked "
+          f"for: the plain backward): losses CUDA vs CPU max diff "
+          f"{diff:.2e} (budget {SMOKE_LOSS_ATOL:g}); CUDA launches "
           f"{({k_: v for k_, v in cuda_counts.items() if v})}", flush=True)
+    return on
+
+
+def phase_zamba_smoke() -> None:
+    """Phase 26 (b): the fp32 smoke zamba on CUDA and on the CPU from the
+    same params: the loss and every gradient within ``ZAMBA_SMOKE_REL``;
+    4 steps through ``run`` (tracking at 2, rank 32, ``--grad-fused``
+    asked for: the fallback) within ``SMOKE_LOSS_ATOL`` with exact
+    launches from the plans on CUDA and none on the CPU; prefill (logits,
+    SSD states, the shared K/V; the bf16 conv windows within a bf16 step)
+    within ``ZAMBA_SMOKE_REL``, then 3 decode steps, each from the CPU's
+    cache of the step before, within ``ZAMBA_SMOKE_REL`` where both
+    devices' new conv entries are the same bf16 values, else
+    ``ZAMBA_DECODE_REL`` (the entries that round apart printed)."""
+    cfg, bundle, params, batches = _family_smoke_data(ZAMBA_ARCH)
+    on = _smoke_grads_and_run(
+        "zamba", cfg, params, batches, 32, ZAMBA_SMOKE_REL,
+        f"{cfg.n_layers} layers, the shared block every {cfg.attn_every}")
 
     # prefill (24 tokens: not a chunk multiple) and 3 decode steps
     P, gen = 24, 3
-    toks = SyntheticLMDataset(DataConfig(
-        vocab_size=cfg.vocab_size, seq_len=P + gen, global_batch=2,
-        seed=SEED + 3)).global_batch_at(0)["tokens"]
+    toks = _prompt_stream(cfg, P, gen, SEED + 3)
     with torch.no_grad():
         res = {d: bundle.prefill(on[d], {"tokens": toks[:, :P].to(d)},
                                  P + gen + 5) for d in ("cuda", "cpu")}
@@ -4568,57 +4662,39 @@ def phase_zamba_smoke() -> None:
           f"CPU of the largest entry: {'; '.join(line)}", flush=True)
 
 
-def phase_zamba_full() -> dict:
-    """Phase 26 (c, d): zamba2-7b at full width and ``ZAMBA_LAYERS``
-    layers: 4 SubTrack++ steps through ``run`` (batch 1 x 4096, default
-    rank, kernels on, eta pinned): finite, unquarantined, tracking at 2,
-    launches from the plans; then the trained weights through
-    ``run_dense`` (2 requests of 2048 + 16, 1 of 8192 + 16), 2048 + 16
-    teacher-forced against ``zamba_forward`` (phase 24's criteria), and the
-    SSD states of prefill(P) + 16 decode steps against prefill(P + 16)'s
-    (``ZAMBA_STATE_REL``).  Returns launches, times and cache bytes."""
-    import numpy as np
-
-    from repro_torch.configs.registry import get_config
+def _train_full(tag, cfg, batch, seq, cut, used) -> tuple[dict, dict]:
+    """``cfg`` at full width through ``run``: ``VARIANT_STEPS`` steps at
+    interval ``VARIANT_K`` (tracking at 2), the default rank, kernels on,
+    eta ``VARIANT_ETA``, from random bf16 weights of the seed: finite,
+    unquarantined, launches from the plans, every kernel of ``used``
+    launched.  ``cut(n_params, rank, low-rank leaves, matrices)`` says how
+    the config was cut, printed first.  Returns the record (launches, warm
+    start, step times, tok/s, peak) and the trained params, with the
+    optimizer state dropped."""
     from repro_torch.core.api import get_optimizer
     from repro_torch.core.plan import make_plans, matrix_count
     from repro_torch.data.pipeline import (DataConfig, SyntheticLMDataset,
                                            batch_for_model, validate_batch)
     from repro_torch.kernels import ops
-    from repro_torch.launch.serve import AdmissionQueue, Request, run_dense
     from repro_torch.launch.steps import default_rank
     from repro_torch.launch.train import run
-    from repro_torch.models import zamba
     from repro_torch.models.api import build_model
     from repro_torch.optim.schedules import cosine_with_warmup
 
-    t_phase = time.perf_counter()
     steps, k = VARIANT_STEPS, VARIANT_K
-    full = get_config(ZAMBA_ARCH)
-    cfg = full.with_(n_layers=ZAMBA_LAYERS)
-    batch, seq = ZAMBA_TRAIN
     rank = default_rank(cfg.d_model)
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    bundle = build_model(cfg)
-    params = bundle.init(torch.Generator(device="cuda").manual_seed(SEED))
+    params = build_model(cfg).init(
+        torch.Generator(device="cuda").manual_seed(SEED))
     n_params = sum(t.numel() for _, t in _leaf_paths(params))
     plans = [(p, t) for (_, p), (_, t) in zip(
         _leaf_paths(make_plans(params, rank)), _leaf_paths(params))]
     n_svd = sum(matrix_count(p, tuple(t.shape)) for p, t in plans
                 if p.mode == "lowrank")
     n_low = sum(1 for p, _ in plans if p.mode == "lowrank")
-    print(f"[zamba] zamba2-7b cut to size: {full.n_layers} -> "
-          f"{cfg.n_layers} Mamba2 layers ({cfg.n_layers // cfg.attn_every} "
-          f"groups: the shared block applied twice) at full width (d "
-          f"{cfg.d_model}, {cfg.d_model * cfg.ssm.expand // cfg.ssm.head_dim}"
-          f" SSD heads of {cfg.ssm.head_dim}, d_state {cfg.ssm.d_state}, "
-          f"chunk {cfg.ssm.chunk}; attention {cfg.n_heads} heads of "
-          f"{cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.padded_vocab}): "
-          f"{n_params / 1e9:.2f} B params; rank {rank} ({n_low} low-rank "
-          f"leaves, {n_svd} matrices), batch {batch} x {seq}, eta "
-          f"{VARIANT_ETA:g}", flush=True)
+    print(f"[{tag}] {cut(n_params, rank, n_low, n_svd)}", flush=True)
     opt = get_optimizer("subtrack", rank=rank, update_interval=k,
                         eta=VARIANT_ETA, use_kernels=True)
     data = SyntheticLMDataset(DataConfig(vocab_size=cfg.vocab_size,
@@ -4640,13 +4716,11 @@ def phase_zamba_full() -> dict:
     hist = res["history"]
     if not all(h["loss"] is not None and math.isfinite(h["loss"])
                and not h["quarantined"] for h in hist):
-        raise AssertionError(f"zamba: history {hist}")
+        raise AssertionError(f"{tag}: history {hist}")
     if [h["step"] for h in hist if h["subspace_update"]] != [2]:
-        raise AssertionError(f"zamba: tracking steps wrong: {hist}")
-    used = ("project", "project_colnorms", "tangent", "fused_update",
-            "adam_lowrank_norms")
+        raise AssertionError(f"{tag}: tracking steps wrong: {hist}")
     if launches != want or not all(launches[n] for n in used):
-        raise AssertionError(f"zamba launches {launches}, want {want}")
+        raise AssertionError(f"{tag} launches {launches}, want {want}")
     plain_s = [h["dt"] for h in hist if not h["subspace_update"]]
     track_s = [h["dt"] for h in hist if h["subspace_update"]][0]
     tok_s = batch * seq / (sum(plain_s[1:]) / len(plain_s[1:]))
@@ -4654,7 +4728,7 @@ def phase_zamba_full() -> dict:
            "svds": n_svd, "plain_s": plain_s, "tracking_s": track_s,
            "tok_s": tok_s, "train_peak_gib": peak / 2**30,
            "losses": [h["loss"] for h in hist], "params_b": n_params / 1e9}
-    print(f"[zamba] train: warm start {res['warm_start_s']:.2f} s ({n_svd} "
+    print(f"[{tag}] train: warm start {res['warm_start_s']:.2f} s ({n_svd} "
           f"SVDs; loss {res['warm_loss']:.4f}); losses {rec['losses']}; "
           f"plain steps {[round(t, 3) for t in plain_s]} s (step 0 cold), "
           f"tracking {track_s:.3f} s; {tok_s:.1f} tok/s on warm plain "
@@ -4665,6 +4739,49 @@ def phase_zamba_full() -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
+    return rec, params
+
+
+def phase_zamba_full() -> dict:
+    """Phase 26 (c, d): zamba2-7b at full width and ``ZAMBA_LAYERS``
+    layers: 4 SubTrack++ steps through ``run`` (batch 1 x 4096, default
+    rank, kernels on, eta pinned): finite, unquarantined, tracking at 2,
+    launches from the plans; then the trained weights through
+    ``run_dense`` (2 requests of 2048 + 16, 1 of 8192 + 16), 2048 + 16
+    teacher-forced against ``zamba_forward`` (phase 24's criteria), and the
+    SSD states of prefill(P) + 16 decode steps against prefill(P + 16)'s
+    (``ZAMBA_STATE_REL``).  Returns launches, times and cache bytes."""
+    import numpy as np
+
+    from repro_torch.configs.registry import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLMDataset
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import AdmissionQueue, Request, run_dense
+    from repro_torch.models import zamba
+    from repro_torch.models.api import build_model
+
+    t_phase = time.perf_counter()
+    full = get_config(ZAMBA_ARCH)
+    cfg = full.with_(n_layers=ZAMBA_LAYERS)
+    batch, seq = ZAMBA_TRAIN
+
+    def cut(n_params, rank, n_low, n_svd):
+        return (f"zamba2-7b cut to size: {full.n_layers} -> "
+                f"{cfg.n_layers} Mamba2 layers "
+                f"({cfg.n_layers // cfg.attn_every} groups: the shared block "
+                f"applied twice) at full width (d {cfg.d_model}, "
+                f"{cfg.d_model * cfg.ssm.expand // cfg.ssm.head_dim} SSD "
+                f"heads of {cfg.ssm.head_dim}, d_state {cfg.ssm.d_state}, "
+                f"chunk {cfg.ssm.chunk}; attention {cfg.n_heads} heads of "
+                f"{cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.padded_vocab}): "
+                f"{n_params / 1e9:.2f} B params; rank {rank} ({n_low} "
+                f"low-rank leaves, {n_svd} matrices), batch {batch} x {seq}, "
+                f"eta {VARIANT_ETA:g}")
+
+    rec, params = _train_full("zamba", cfg, batch, seq, cut, (
+        "project", "project_colnorms", "tangent", "fused_update",
+        "adam_lowrank_norms"))
+    bundle = build_model(cfg)
 
     # (d) the dense engine: 2 requests of P + GEN, 1 of P_long + GEN
     P, P_long = ZAMBA_SERVE
@@ -4768,6 +4885,625 @@ def phase_zamba() -> dict:
     return {"kernels": kernels, "train": train}
 
 
+# ---------------------------------------------------------------------------
+# xlstm-125m (phase 27) and seamless-m4t-large-v2 (phase 28)
+# ---------------------------------------------------------------------------
+
+XLSTM_ARCH = "xlstm-125m"
+# batch x seq: the sLSTM's loop runs S steps, so 4 x 1024 takes a quarter
+# of train_4k's 4096 steps for the same tokens
+XLSTM_TRAIN = (4, 1024)
+XLSTM_SERVE = 2048        # prompt: 2 requests of it, + VARIANT_GEN
+SEAMLESS_ARCH = "seamless-m4t-large-v2"
+SEAMLESS_LAYERS = 6       # encoder and decoder layers each, of 24
+SEAMLESS_TRAIN = (2, 2048)   # batch x seq: frames and tokens
+SEAMLESS_SERVE = 1024     # prompt (tokens and zero frames): 2 requests
+# fp32 smoke, CUDA vs CPU from the same params, of the largest entry:
+# the loss and every gradient, prefill and a decode step (the CPU tests'
+# budget against the JAX package; seamless came within 2.13e-6)
+FAMILY_SMOKE_REL = 2e-5
+# the fp32 smoke xlstm's loss and gradients, CUDA vs CPU: its sLSTM runs a
+# 128-step recurrence, and the two devices came 1.77e-5 apart on the H100;
+# a planted fault, the sLSTM bias read in the other layout (each gate's
+# block split by head; ROADMAP Queue 3's sLSTM bias quirk), read 3.96
+# there (PERF.md section 6), and is read on every run
+XLSTM_GRAD_REL = 1e-4
+# an fp32 smoke xlstm decode step whose new conv window entries round
+# apart in bf16 on the two devices: the layers after it read inputs a
+# bf16 step apart, so more entries round apart downstream (42 entries and
+# 5.4e-4 of the largest against the JAX package, tests/test_torch_xlstm.py;
+# CUDA vs CPU within 1.4e-6 on the H100); half a bf16 step of the
+# largest.  The planted faults (a step from a conv window its step before
+# did not advance, an mLSTM stabiliser off by one) read 0.34-1.14 there
+XLSTM_DECODE_REL = 2e-3
+# the bf16 smoke xlstm (the dtype it is served in), CUDA vs CPU from the
+# same params and, for each decode step, the CPU's cache: prefill and a
+# decode step, of the largest entry.  Two bf16 evaluations round their
+# intermediates in different places: the port against the JAX package
+# came 4.6e-2 apart on prefill and 1.6e-2 on a decode step
+# (tests/test_torch_xlstm.py), CUDA against the CPU 2.7e-2 and 4.8e-7 on
+# the H100, where the two planted faults read 0.36-1.13 on a step
+XLSTM_BF16_PREFILL_REL = 0.1
+XLSTM_BF16_DECODE_REL = 3e-2
+# phase 27 (d): bf16 decode of 2 x (2048 + 16) teacher-forced against
+# xlstm_forward, the reference's decode departing from its own forward:
+# it forms q and k in fp32 where its chunked forward rounds them to bf16
+# (at smoke width the JAX package's own bf16 decode agrees with its
+# forward at 0.912 and its states sit 5.1e-2 from prefill(P + 16)'s,
+# tests/test_torch_xlstm.py).  The port on the H100: argmax agreement
+# 0.853, p90 |delta| 0.070, the sLSTM's h 0.198 and the conv windows
+# 0.117 of their largest from prefill(2064)'s at one stabiliser, C and n
+# 1.0e-2; the two planted faults, held for all 16 steps: agreement
+# 0.147-0.176, p90 0.95-1.19, states up to 1.26-1.52 (PERF.md section 6)
+XLSTM_AGREE = 0.75
+XLSTM_STATE_REL = 0.4
+# (label, m, n, r, matrices, G a transposed view): the slice's new shapes
+XLSTM_OPT_SHAPES = (
+    ("xlstm slstm R", 192, 768, 128, 12, False),    # (3, 4, 192, 768)
+    ("xlstm embed", 768, 50432, 128, 1, True),
+)
+SEAMLESS_OPT_SHAPES = (
+    ("seamless embed", 1024, 256256, 256, 1, True),
+    ("seamless w_gate", 1024, 8192, 256, SEAMLESS_LAYERS, False),
+)
+FAMILY_USED = ("project", "project_colnorms", "project_tangent_colnorms",
+               "fused_update", "adam_lowrank_norms")   # every m <= 2048
+
+
+def _xlstm_cache_to(cache, device):
+    """A copy of an xlstm cache on ``device`` (decode writes in place)."""
+    from repro_torch.models.xlstm import MLSTMState, SLSTMState, XLSTMCache
+
+    return XLSTMCache(
+        mlstm=MLSTMState(*(a.to(device, copy=True) for a in cache.mlstm)),
+        mlstm_conv=cache.mlstm_conv.to(device, copy=True),
+        slstm=SLSTMState(*(a.to(device, copy=True) for a in cache.slstm)),
+        length=cache.length)
+
+
+def _xlstm_state_rels(c_c, c_h) -> list[float]:
+    """The xlstm caches' state tensors, CUDA against CPU, of the largest
+    entry: mLSTM C, n, m, sLSTM h, c, n, m."""
+    return ([_rel(a, b) for a, b in zip(c_c.mlstm, c_h.mlstm)]
+            + [_rel(a, b) for a, b in zip(c_c.slstm, c_h.slstm)])
+
+
+XLSTM_FAULTS = ("conv window not advanced", "stabiliser off by one")
+
+
+def _xlstm_fault(cache, fault, before=None):
+    """A copy of an xlstm cache with a planted fault: the conv window of
+    ``before``, the cache a step earlier (a decode step that did not
+    advance the window), or every mLSTM stabiliser m one too large (C
+    and n not rescaled)."""
+    out = _xlstm_cache_to(cache, cache.mlstm_conv.device)
+    if fault == XLSTM_FAULTS[0]:
+        out.mlstm_conv.copy_(before.mlstm_conv)
+    else:
+        out.mlstm.m.add_(1.0)
+    return out
+
+
+def _other_bias_layout(params):
+    """``params`` with each sLSTM bias ``b`` read in the other layout: the
+    cell splits a head's row into i, f, z, o, so a bias whose [i | f | z |
+    o] blocks are each split by head lands on other gates)."""
+    from repro_torch.core.subtrack import tree_map
+
+    out = tree_map(lambda t: t.clone(), params)
+    b = out["slstm_layers"]["b"]
+    d = b.shape[-1] // 4
+    H = params["slstm_layers"]["R"].shape[-3]
+    out["slstm_layers"]["b"] = b.reshape(*b.shape[:-1], 4, H, d // H) \
+        .transpose(-3, -2).reshape(b.shape)
+    return out
+
+
+def _xlstm_decode_vs_cpu(bundle, on, toks, P, gen, prefill_rel,
+                         step_rel) -> list[str]:
+    """Prefill ``toks[:, :P]`` on CUDA and on the CPU from the same params
+    ``on[device]``, then ``gen`` decode steps, each on CUDA from the CPU's
+    cache of the step before, and from the same cache each planted fault
+    of :func:`_xlstm_fault` (the stale window from the second step on),
+    its logits read against the CPU's step; the prefill's planted fault is
+    :func:`_other_bias_layout`.  The prefill's logits and
+    states are held to ``prefill_rel``, a step's to ``step_rel(flips)``
+    where ``flips`` of its new conv entries round apart on the two
+    devices, and every conv window to within a bf16 step of that; each
+    fault must read past its step's budget.  Returns the readings, one
+    string a step, after raising if one fails."""
+    fails, line = [], []
+    with torch.no_grad():
+        res = {d: bundle.prefill(on[d], {"tokens": toks[:, :P].to(d)}, 0)
+               for d in ("cuda", "cpu")}
+        (lg_c, c_c), (lg_h, c_h) = res["cuda"], res["cpu"]
+        rels = [_rel(lg_c, lg_h)] + _xlstm_state_rels(c_c, c_h)
+        apart = _bf16_steps_apart(c_c.mlstm_conv, c_h.mlstm_conv,
+                                  prefill_rel)
+        bias = _rel(bundle.prefill(_other_bias_layout(on["cuda"]),
+                                   {"tokens": toks[:, :P].cuda()}, 0)[0],
+                    lg_h)
+        line.append(f"prefill {max(rels):.2e} (budget {prefill_rel:g}; "
+                    f"fault: the sLSTM bias in the other layout {bias:.2e})")
+        if max(rels) > prefill_rel or apart:
+            fails.append(f"prefill: logits and states {rels}; {apart} conv "
+                         f"entries apart")
+        if not bias > prefill_rel:
+            fails.append(f"prefill: the bias fault reads {bias:.3e}")
+        del res, c_c
+        before = None
+        for i in range(gen):
+            tok = toks[:, P + i]
+            faulty = {name: _xlstm_fault(c_h, name, before)
+                      for name in XLSTM_FAULTS
+                      if before is not None or name != XLSTM_FAULTS[0]}
+            lg_c, c_c = bundle.decode_step(on["cuda"],
+                                           _xlstm_cache_to(c_h, "cuda"),
+                                           tok.cuda())
+            before = _xlstm_cache_to(c_h, "cpu")
+            lg_h, c_h = bundle.decode_step(on["cpu"], c_h, tok)
+            flips = int((c_c.mlstm_conv[:, :, -1].cpu()
+                         != c_h.mlstm_conv[:, :, -1]).sum())
+            budget = step_rel(flips)
+            rels = [_rel(lg_c, lg_h)] + _xlstm_state_rels(c_c, c_h)
+            apart = _bf16_steps_apart(c_c.mlstm_conv, c_h.mlstm_conv, budget)
+            reads = {name: _rel(bundle.decode_step(
+                on["cuda"], _xlstm_cache_to(fc, "cuda"), tok.cuda())[0],
+                lg_h) for name, fc in faulty.items()}
+            line.append(f"decode {i} {max(rels):.2e} ({flips} new conv "
+                        f"entries rounded apart, budget {budget:g}; faults "
+                        + ", ".join(f"{k} {v:.2e}" for k, v in reads.items())
+                        + ")")
+            if max(rels) > budget or apart:
+                fails.append(f"decode {i}: logits and states {rels}; {apart}"
+                             f" conv entries apart")
+            fails += [f"decode {i}: the fault '{k}' reads {v:.3e}"
+                      for k, v in reads.items() if not v > budget]
+            del c_c, faulty
+    if fails:
+        raise AssertionError(f"xlstm smoke decode, CUDA vs CPU: {fails} "
+                             f"({'; '.join(line)})")
+    return line
+
+
+def phase_xlstm_smoke() -> None:
+    """Phase 27 (b): the fp32 smoke xlstm (4 layers: 3 mLSTM, 1 sLSTM) on
+    CUDA and on the CPU from the same params: the loss and every gradient
+    within ``XLSTM_GRAD_REL`` (the sLSTM bias in the other layout read
+    past it); 4 steps through ``run`` at rank 16 (the sLSTM's 4-D R
+    low-rank; ``--grad-fused`` asked for: the fallback) within
+    ``SMOKE_LOSS_ATOL``, exact launches from the plans; prefill and 3
+    decode steps, each from the CPU's cache (:func:`_xlstm_decode_vs_cpu`):
+    in fp32 within ``FAMILY_SMOKE_REL``, or ``XLSTM_DECODE_REL`` for a
+    step whose new conv entries round apart, and in bf16, the dtype it is
+    served in, within ``XLSTM_BF16_PREFILL_REL`` and
+    ``XLSTM_BF16_DECODE_REL``; the planted faults read past each."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core.subtrack import tree_map
+    from repro_torch.models.api import build_model
+
+    cfg, bundle, params, batches = _family_smoke_data(XLSTM_ARCH)
+    on = _smoke_grads_and_run("xlstm", cfg, params, batches, 16,
+                              XLSTM_GRAD_REL,
+                              f"{cfg.n_layers} layers: 3 mLSTM, 1 sLSTM",
+                              fault=_other_bias_layout)
+    P, gen = 21, 3                      # not a multiple of the chunk (8)
+    toks = _prompt_stream(cfg, P, gen, SEED + 3)
+    line = _xlstm_decode_vs_cpu(
+        bundle, on, toks, P, gen, FAMILY_SMOKE_REL,
+        lambda flips: XLSTM_DECODE_REL if flips else FAMILY_SMOKE_REL)
+    print(f"[xlstm] smoke fp32 prefill ({P} tokens) and {gen} decode steps, "
+          f"each from the CPU's cache: logits and mLSTM / sLSTM states, "
+          f"CUDA vs CPU of the largest entry: {'; '.join(line)}", flush=True)
+    cfg16 = get_config(XLSTM_ARCH, smoke=True)
+    bundle16 = build_model(cfg16)
+    params16 = bundle16.init(torch.Generator().manual_seed(SEED))
+    on16 = {d: tree_map(lambda t: t.to(d, copy=True), params16)
+            for d in ("cuda", "cpu")}
+    line = _xlstm_decode_vs_cpu(bundle16, on16, toks, P, gen,
+                                XLSTM_BF16_PREFILL_REL,
+                                lambda _: XLSTM_BF16_DECODE_REL)
+    print(f"[xlstm] smoke bf16 (as served) prefill and {gen} decode steps, "
+          f"the same way: {'; '.join(line)}", flush=True)
+
+
+def _serve_dense(tag, cfg, bundle, params, prompts, gen) -> dict:
+    """Serve ``prompts`` (B, P) through ``run_dense`` in one wave of B,
+    ``gen`` tokens each, no kernel launched; returns run_dense's
+    summary."""
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import AdmissionQueue, Request, run_dense
+
+    queue = AdmissionQueue()
+    for i in range(prompts.shape[0]):
+        queue.submit(Request(rid=i, prompt=prompts[i].numpy(), max_new=gen,
+                             t_submit=time.time()))
+    ops.reset_launch_counts()
+    out = run_dense(cfg, bundle, params, queue, batch=prompts.shape[0],
+                    prompt_len=prompts.shape[1])
+    if out["requests"] != prompts.shape[0] or any(
+            len(v) != gen for v in out["outputs"].values()):
+        raise AssertionError(f"{tag} serve: {out}")
+    if any(ops.launch_counts().values()):
+        raise AssertionError(f"{tag} dense serving launched "
+                             f"{ops.launch_counts()}")
+    return out
+
+
+def _at_one_stabiliser(x, m, m_star):
+    """A stabilised state tensor x (with its log stabiliser m, broadcast
+    over x's trailing dims) rescaled to the stabiliser m_star."""
+    scale = torch.exp(m - m_star)
+    return x * scale.reshape(scale.shape + (1,) * (x.dim() - m.dim()))
+
+
+def _xlstm_state_gap(a, b) -> dict:
+    """Two xlstm caches' states, of the largest entry, each stabilised
+    pair at the larger of the two stabilisers: mLSTM C and n, sLSTM c and
+    n (and h, which carries none), and the conv windows."""
+    out = {}
+    for kind, pairs in (("mlstm", ("C", "n")), ("slstm", ("c", "n"))):
+        sa, sb = getattr(a, kind), getattr(b, kind)
+        m_star = torch.maximum(sa.m, sb.m)
+        for f in pairs:
+            out[f"{kind} {f}"] = _rel(
+                _at_one_stabiliser(getattr(sa, f), sa.m, m_star),
+                _at_one_stabiliser(getattr(sb, f), sb.m, m_star))
+    out["slstm h"] = _rel(a.slstm.h, b.slstm.h)
+    out["conv"] = _rel(a.mlstm_conv, b.mlstm_conv)
+    return out
+
+
+def _xlstm_teacher_forced(cfg, bundle, params, toks, P, gen) -> dict:
+    """Prefill ``toks[:, :P]`` and decode the next ``gen`` tokens, sound
+    and under each planted fault of :func:`_xlstm_fault` (the window held
+    back at every step; the stabiliser moved once, after the prefill); for
+    each run, the logits against ``xlstm_forward`` over all of ``toks``
+    (phase 24's measures: argmax agreement, p90 |delta| and its scale)
+    and the final states against prefill(P + gen)'s at one stabiliser
+    (:func:`_xlstm_state_gap`)."""
+    from repro_torch.models import xlstm
+
+    out = {}
+    with torch.no_grad():
+        logits, cache = bundle.prefill(params, {"tokens": toks[:, :P]}, 0)
+        first = logits.float().cpu()
+        _, whole = bundle.prefill(params, {"tokens": toks}, 0)
+        full_logits, _ = xlstm.xlstm_forward(params, toks, cfg, remat="none")
+        want = full_logits[:, P - 1:].float().transpose(0, 1).cpu()
+        del full_logits
+        for run in ("sound",) + XLSTM_FAULTS:
+            c = _xlstm_cache_to(cache, "cuda")
+            if run == XLSTM_FAULTS[1]:
+                c.mlstm.m.add_(1.0)
+            got = [first]
+            for i in range(gen):
+                held = (c.mlstm_conv.clone() if run == XLSTM_FAULTS[0]
+                        else None)
+                logits, c = bundle.decode_step(params, c, toks[:, P + i])
+                if held is not None:
+                    c.mlstm_conv.copy_(held)
+                got.append(logits.float().cpu())
+            out[run] = (*_agreement(torch.stack(got), want, slice(None)),
+                        _xlstm_state_gap(c, whole))
+            del c
+    return out
+
+
+def phase_xlstm_full() -> dict:
+    """Phase 27 (c, d): xlstm-125m at full width and depth (12 blocks: 9
+    mLSTM, 3 sLSTM): 4 SubTrack++ steps through ``run`` (batch 4 x 1024,
+    default rank 128, kernels on, eta pinned): finite, unquarantined,
+    tracking at 2, launches from the plans; the sLSTM's sequential loop
+    timed alone beside the step; then the trained weights through
+    ``run_dense`` (2 requests of 2048 + 16; the cache's bytes, the same at
+    any length) and the 16 teacher-forced in bf16 against
+    ``xlstm_forward``: agreement ``XLSTM_AGREE``, phase 24's p90, and the
+    states of prefill(2048) + 16 decode steps against prefill(2064)'s at
+    one stabiliser within ``XLSTM_STATE_REL``; each planted fault must
+    fail them."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import xlstm
+    from repro_torch.models.api import build_model
+
+    t_phase = time.perf_counter()
+    cfg = get_config(XLSTM_ARCH)
+    batch, seq = XLSTM_TRAIN
+    every = cfg.xlstm.slstm_every
+    n_s = cfg.n_layers // every
+
+    def cut(n_params, rank, n_low, n_svd):
+        return (f"xlstm-125m at full width and depth ({cfg.n_layers} "
+                f"blocks: {cfg.n_layers - n_s} mLSTM, {n_s} sLSTM; d "
+                f"{cfg.d_model}, {cfg.n_heads} heads, mLSTM inner "
+                f"{xlstm._mlstm_dims(cfg)[0]}, chunk {cfg.xlstm.chunk}, "
+                f"vocab {cfg.padded_vocab}): {n_params / 1e9:.3f} B params; "
+                f"rank {rank} ({n_low} low-rank leaves, {n_svd} matrices), "
+                f"batch {batch} x {seq}, eta {VARIANT_ETA:g}")
+
+    rec, params = _train_full("xlstm", cfg, batch, seq, cut, FAMILY_USED)
+    bundle = build_model(cfg)
+
+    # the sLSTM's loop as the step runs it: one block's forward under the
+    # step's checkpoint, its recompute and its backward, at the step's shape
+    p_s = {k: v[0] for k, v in params["slstm_layers"].items()}
+    x = torch.randn((batch, seq, cfg.d_model), device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(SEED)
+                    ).to(torch.bfloat16)
+    for _ in range(2):                           # the second is timed
+        xi = x.detach().requires_grad_()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y = torch.utils.checkpoint.checkpoint(
+            lambda x_: xlstm.slstm_block(x_, p_s, cfg)[0], xi,
+            use_reentrant=False)
+        y.float().sum().backward()
+        torch.cuda.synchronize()
+        block_s = time.perf_counter() - t0
+    del x, xi, y
+    plain = sum(rec["plain_s"][1:]) / len(rec["plain_s"][1:])
+    rec.update(slstm_block_s=block_s, slstm_share=n_s * block_s / plain)
+    print(f"[xlstm] the sLSTM's loop over {seq} steps, one block at batch "
+          f"{batch} as the step runs it (checkpointed forward, recompute, "
+          f"backward): {block_s:.3f} s; x {n_s} blocks {n_s * block_s:.2f} s "
+          f"of the {plain:.3f} s warm plain step "
+          f"({100 * n_s * block_s / plain:.0f}%)", flush=True)
+
+    # (d) the dense engine: 2 requests of P + GEN
+    P, gen = XLSTM_SERVE, VARIANT_GEN
+    stream = _prompt_stream(cfg, P, gen, SEED + 1)
+    s_ = _serve_dense("xlstm", cfg, bundle, params, stream[:, :P], gen)
+    c = bundle.init_cache(2, P + gen + 8, device="meta")
+    state_bytes = (sum(a.nbytes for a in c.mlstm) + c.mlstm_conv.nbytes
+                   + sum(a.nbytes for a in c.slstm))
+    serve_peak = torch.cuda.max_memory_allocated()
+    print(f"[xlstm] serve (dense): 2 x ({P} + {gen}): {s_['tok_per_s']:.1f} "
+          f"tok/s, TTFT p50 {s_['ttft_p50_s'] * 1e3:.1f} ms, decode step "
+          f"{s_['decode_step_ms_mean']:.2f} ms; cache {state_bytes / 2**20:.2f}"
+          f" MiB at any length (mLSTM C, n, m, bf16 conv windows, sLSTM h, "
+          f"c, n, m); serve peak {serve_peak / 2**30:.2f} GiB", flush=True)
+    rec.update(serve={"tok_s": s_["tok_per_s"],
+                      "ttft_p50_s": s_["ttft_p50_s"],
+                      "decode_step_ms": s_["decode_step_ms_mean"],
+                      "state_bytes": state_bytes},
+               serve_peak_gib=serve_peak / 2**30)
+    # teacher-forced in bf16, sound and under the planted faults
+    runs = _xlstm_teacher_forced(cfg, bundle, params, stream.cuda(), P, gen)
+    rec["teacher_forced"] = {}
+    fails = []
+    for run, (agree, p90, scale, gap) in runs.items():
+        ok = (agree >= XLSTM_AGREE
+              and p90 < VARIANT_P90 * scale + VARIANT_P90
+              and max(gap.values()) <= XLSTM_STATE_REL)
+        rec["teacher_forced"][run] = dict(agree=agree, p90=p90, scale=scale,
+                                          state_gap=gap)
+        print(f"[xlstm] teacher-forced bf16 decode (2 x {P} + {gen}) vs "
+              f"xlstm_forward, {run}: argmax agreement {agree:.3f} (>= "
+              f"{XLSTM_AGREE}), p90 |delta| {p90:.4f} < "
+              f"{VARIANT_P90 * scale + VARIANT_P90:.4f}; states of prefill("
+              f"{P}) + {gen} decode steps vs prefill({P + gen}), at one "
+              f"stabiliser, of the largest: "
+              f"{', '.join(f'{k} {v:.2e}' for k, v in gap.items())} (budget "
+              f"{XLSTM_STATE_REL:g}): {'passes' if ok else 'fails'}",
+              flush=True)
+        if ok != (run == "sound"):
+            fails.append(run)
+    if fails:
+        raise AssertionError(f"xlstm decode vs forward: the sound run must "
+                             f"pass and each fault fail; wrong: {fails} "
+                             f"({rec['teacher_forced']})")
+    print(f"[xlstm] phase 27 (c, d) {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    del runs, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_xlstm() -> dict:
+    """Phase 27: xlstm-125m, (a) the optimizer kernels at the sLSTM's R
+    stack and the embedding's view, (b) the smoke config CUDA against the
+    CPU, (c) training and (d) serving at full width and depth."""
+    t0 = time.perf_counter()
+    kernels: dict = {}
+    _time_opt_shapes(kernels, "xlstm", XLSTM_OPT_SHAPES, SEED + 40,
+                     library=True)
+    phase_xlstm_smoke()
+    train = phase_xlstm_full()
+    print(f"[xlstm] phase 27: {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"kernels": kernels, "train": train}
+
+
+def _encdec_cache_to(cache, device):
+    """A copy of an encoder-decoder cache on ``device``."""
+    from repro_torch.models.encdec import EncDecCache
+
+    return EncDecCache(**{
+        f: getattr(cache, f).to(device, copy=True)
+        for f in ("self_k", "self_v", "self_pos", "cross_k", "cross_v")},
+        length=cache.length)
+
+
+def _encdec_rels(c_c, c_h) -> list[float]:
+    return [_rel(getattr(c_c, f), getattr(c_h, f))
+            for f in ("self_k", "self_v", "cross_k", "cross_v")]
+
+
+def phase_encdec_smoke() -> None:
+    """Phase 28 (b): the fp32 smoke seamless (2 encoder and 2 decoder
+    layers) on CUDA and on the CPU from the same params: the loss and
+    every gradient within ``FAMILY_SMOKE_REL``; 4 steps through ``run``
+    (rank 32, ``--grad-fused`` asked for: the fallback) within
+    ``SMOKE_LOSS_ATOL``, exact launches from the plans; prefill of 24
+    frames and 13 tokens (logits and the self and cross K/V within
+    ``FAMILY_SMOKE_REL``, the position tags equal), then 3 decode steps,
+    each from the CPU's cache of the step before, within it."""
+    cfg, bundle, params, batches = _family_smoke_data(SEAMLESS_ARCH)
+    on = _smoke_grads_and_run(
+        "seamless", cfg, params, batches, 32, FAMILY_SMOKE_REL,
+        f"{cfg.n_enc_layers} encoder and {cfg.n_dec_layers} decoder layers")
+    P, P_enc, gen = 13, 24, 3
+    toks = _prompt_stream(cfg, P, gen, SEED + 3)
+    frames = batches[0]["frames"][:, :P_enc]
+    with torch.no_grad():
+        res = {d: bundle.prefill(on[d], {"tokens": toks[:, :P].to(d),
+                                         "frames": frames.to(d)}, P + gen + 5)
+               for d in ("cuda", "cpu")}
+        (lg_c, c_c), (lg_h, c_h) = res["cuda"], res["cpu"]
+        rels = [_rel(lg_c, lg_h)] + _encdec_rels(c_c, c_h)
+        if max(rels) > FAMILY_SMOKE_REL or not torch.equal(
+                c_c.self_pos.cpu(), c_h.self_pos):
+            raise AssertionError(f"seamless smoke prefill: logits, self "
+                                 f"k, v, cross k, v {rels}")
+        line = [f"prefill {max(rels):.2e}"]
+        del res, c_c
+        for i in range(gen):
+            tok = toks[:, P + i]
+            lg_c, c_c = bundle.decode_step(on["cuda"],
+                                           _encdec_cache_to(c_h, "cuda"),
+                                           tok.cuda())
+            lg_h, c_h = bundle.decode_step(on["cpu"], c_h, tok)
+            rels = [_rel(lg_c, lg_h)] + _encdec_rels(c_c, c_h)
+            if max(rels) > FAMILY_SMOKE_REL or not torch.equal(
+                    c_c.self_pos.cpu(), c_h.self_pos):
+                raise AssertionError(f"seamless smoke decode {i}: {rels}")
+            line.append(f"decode {i} {max(rels):.2e}")
+            del c_c
+    print(f"[seamless] smoke prefill ({P_enc} frames, {P} tokens) and {gen} "
+          f"decode steps, each from the CPU's cache: logits and self / "
+          f"cross K/V, CUDA vs CPU of the largest entry (budget "
+          f"{FAMILY_SMOKE_REL:g}): {'; '.join(line)}", flush=True)
+
+
+def phase_encdec_full() -> dict:
+    """Phase 28 (c, d): seamless-m4t-large-v2 at full width and
+    ``SEAMLESS_LAYERS`` encoder + decoder layers: 4 SubTrack++ steps
+    through ``run`` (batch 2 x 2048 frames and tokens, default rank 256,
+    kernels on, eta pinned): finite, unquarantined, tracking at 2,
+    launches from the plans; then the trained weights through
+    ``run_dense`` (2 requests of 1024 + 16 on zero frames; the self and
+    cross K/V bytes), the 16 teacher-forced against ``encode`` +
+    ``decode_train`` (phase 24's criteria)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models import encdec
+    from repro_torch.models.api import build_model
+
+    t_phase = time.perf_counter()
+    full = get_config(SEAMLESS_ARCH)
+    cfg = full.with_(n_enc_layers=SEAMLESS_LAYERS,
+                     n_dec_layers=SEAMLESS_LAYERS,
+                     n_layers=2 * SEAMLESS_LAYERS)
+    batch, seq = SEAMLESS_TRAIN
+
+    def cut(n_params, rank, n_low, n_svd):
+        return (f"seamless-m4t-large-v2 cut to size: {full.n_enc_layers} + "
+                f"{full.n_dec_layers} -> {cfg.n_enc_layers} encoder + "
+                f"{cfg.n_dec_layers} decoder layers at full width (d "
+                f"{cfg.d_model}, {cfg.n_heads} heads of {cfg.hd}, d_ff "
+                f"{cfg.d_ff}, vocab {cfg.padded_vocab}; the speech front end "
+                f"a stub of frame embeddings): {n_params / 1e9:.2f} B params;"
+                f" rank {rank} ({n_low} low-rank leaves, {n_svd} matrices), "
+                f"batch {batch} x {seq} frames and tokens, eta "
+                f"{VARIANT_ETA:g}")
+
+    rec, params = _train_full("seamless", cfg, batch, seq, cut, FAMILY_USED)
+    bundle = build_model(cfg)
+
+    # (d) the dense engine: 2 requests of P + GEN on zero frames
+    P, gen = SEAMLESS_SERVE, VARIANT_GEN
+    stream = _prompt_stream(cfg, P, gen, SEED + 1)
+    s_ = _serve_dense("seamless", cfg, bundle, params, stream[:, :P], gen)
+    c = encdec.init_encdec_cache(cfg, 2, P + gen + 8, memory_len=P,
+                                 device="meta")
+    self_bytes = c.self_k.nbytes + c.self_v.nbytes
+    cross_bytes = c.cross_k.nbytes + c.cross_v.nbytes
+    serve_peak = torch.cuda.max_memory_allocated()
+    with torch.no_grad():
+        toks = stream.cuda()
+        frames = torch.zeros((2, P, cfg.d_model), dtype=torch.bfloat16,
+                             device="cuda")
+        logits, cache = bundle.prefill(params, {"tokens": toks[:, :P],
+                                                "frames": frames}, P + gen)
+        got = [logits.float().cpu()]
+        for i in range(gen):
+            logits, cache = bundle.decode_step(params, cache, toks[:, P + i])
+            got.append(logits.float().cpu())
+        del cache, logits
+        # the forward's KV blocks must tile both the P + GEN tokens and
+        # the P frames
+        fcfg = cfg.with_(kv_block=_divisor_block(math.gcd(P + gen, P),
+                                                 cfg.kv_block))
+        memory = encdec.encode(params, frames, fcfg, remat="none")
+        full_logits = encdec.decode_train(params, memory, toks, fcfg,
+                                          remat="none")
+        want_l = full_logits[:, P - 1:].float().transpose(0, 1).cpu()
+        del full_logits, memory
+    agree, p90, scale = _agreement(torch.stack(got), want_l, slice(None))
+    if not (agree >= VARIANT_AGREE
+            and p90 < VARIANT_P90 * scale + VARIANT_P90):
+        raise AssertionError(f"seamless decode vs forward: agreement "
+                             f"{agree:.3f}, p90 {p90:.4f} (scale "
+                             f"{scale:.3f})")
+    rec.update(serve={"tok_s": s_["tok_per_s"],
+                      "ttft_p50_s": s_["ttft_p50_s"],
+                      "decode_step_ms": s_["decode_step_ms_mean"],
+                      "self_kv_bytes": self_bytes,
+                      "cross_kv_bytes": cross_bytes},
+               serve_peak_gib=serve_peak / 2**30, agree=agree, p90=p90,
+               scale=scale)
+    print(f"[seamless] serve (dense): 2 x ({P} + {gen}) on zero frames: "
+          f"{s_['tok_per_s']:.1f} tok/s, TTFT p50 "
+          f"{s_['ttft_p50_s'] * 1e3:.1f} ms, decode step "
+          f"{s_['decode_step_ms_mean']:.2f} ms; cache: self K/V "
+          f"{self_bytes / 2**20:.2f} MiB ({P + gen + 8} slots), cross K/V "
+          f"{cross_bytes / 2**20:.2f} MiB ({P} frames)", flush=True)
+    print(f"[seamless] teacher-forced decode (2 x {P} + {gen}) vs encode + "
+          f"decode_train: argmax agreement {agree:.3f} (>= {VARIANT_AGREE}),"
+          f" p90 |delta| {p90:.4f} < {VARIANT_P90 * scale + VARIANT_P90:.4f};"
+          f" serve peak {serve_peak / 2**30:.2f} GiB; phase 28 (c, d) "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    del params, toks, frames, got, want_l
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_encdec() -> dict:
+    """Phase 28: seamless-m4t-large-v2, (a) the optimizer kernels at the
+    embedding's view and the w_gate stack, and the warm start's SVD of
+    the embedding, (b) the smoke config CUDA against the CPU, (c) training
+    and (d) serving at full width and ``SEAMLESS_LAYERS`` + as many
+    layers."""
+    from repro_torch.core.subspace import init_subspace_svd
+
+    t0 = time.perf_counter()
+    kernels: dict = {}
+    _time_opt_shapes(kernels, "seamless", SEAMLESS_OPT_SHAPES, SEED + 50,
+                     library=True)
+    _, m, n, r, _, _ = SEAMLESS_OPT_SHAPES[0]       # the embedding's view
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    G = torch.randn((m, n), generator=gen, device="cuda").to(torch.bfloat16)
+    torch.cuda.synchronize()
+    t_svd = time.perf_counter()
+    S = init_subspace_svd(G, r)
+    torch.cuda.synchronize()
+    svd_s = time.perf_counter() - t_svd
+    orth = (S.mT @ S - torch.eye(r, device="cuda")).abs().max().item()
+    print(f"[seamless] warm-start SVD of the embedding gradient's shape "
+          f"({m}, {n}), bf16 G ({G.numel() / 2**30:.2f} x 2^30 elements: "
+          f"gesvd whole): {svd_s:.2f} s, max |S^T S - I| {orth:.1e}",
+          flush=True)
+    del G, S
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_encdec_smoke()
+    train = phase_encdec_full()
+    train["svd_embed_s"] = svd_s
+    print(f"[seamless] phase 28: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return {"kernels": kernels, "train": train}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on the "
@@ -4803,6 +5539,8 @@ def main() -> int:
     variants = phase_decoder_variants()
     moe = phase_moe()
     zamba = phase_zamba()
+    xl = phase_xlstm()
+    seamless = phase_encdec()
     phase_serve_dense(served)
     fp32_routes = phase_time_fp32_routes()
     phase_train_1b_options(trained_1b)
@@ -4910,6 +5648,13 @@ def main() -> int:
             entry["zamba_shapes"] = zamba["kernels"][name]
         entry["zamba_launches"] = {         # phase 26 (c)
             "zamba2-7b train": zamba["train"]["launches"][name]}
+        for key, res, arch in (("xlstm", xl, "xlstm-125m"),
+                               ("seamless", seamless,
+                                "seamless-m4t-large-v2")):
+            if name in res["kernels"]:    # phases 27 and 28 (a)
+                entry[f"{key}_shapes"] = res["kernels"][name]
+            entry[f"{key}_launches"] = {    # phases 27 and 28 (c)
+                f"{arch} train": res["train"]["launches"][name]}
         if name in fp32_routes:   # the routes --accum puts on a path
             entry["fp32_ms"] = fp32_routes[name]["ms"]
             entry["fp32_bound_ms"] = fp32_routes[name]["bound_ms"]

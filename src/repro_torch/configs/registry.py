@@ -8,10 +8,13 @@ config modules of their own (copies of ``repro.configs``'), ``gemma2-27b``
 embeddings), ``minicpm3-4b`` (MLA), ``qwen2-vl-2b`` (M-RoPE, QKV bias,
 the vision stub), ``mixtral-8x22b`` (8 experts top-2, a 4096 window on
 every layer), ``llama4-maverick-400b-a17b`` (128 experts top-1 and a
-shared expert) and the hybrid ``zamba2-7b`` (81 Mamba2 layers and one
-weight-shared attention + MLP block after every 9).  The numbers are
-those of ``repro.configs.registry`` and its config modules.  Any other
-arch id raises "not yet ported".
+shared expert), the hybrid ``zamba2-7b`` (81 Mamba2 layers and one
+weight-shared attention + MLP block after every 9), ``xlstm-125m`` (9
+mLSTM and 3 sLSTM blocks) and the encoder-decoder
+``seamless-m4t-large-v2`` (24 + 24 layers, the speech front end a stub
+of frame embeddings).  The numbers and the arch ids are those of
+``repro.configs.registry`` and its config modules; any other arch id
+raises ``ValueError``, as there.
 """
 
 from __future__ import annotations
@@ -28,6 +31,8 @@ _ARCH_MODULES = {
     "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
     "llama4-maverick-400b-a17b": "repro_torch.configs.llama4_maverick",
     "zamba2-7b": "repro_torch.configs.zamba2_7b",
+    "xlstm-125m": "repro_torch.configs.xlstm_125m",
+    "seamless-m4t-large-v2": "repro_torch.configs.seamless_m4t_large_v2",
 }
 
 
@@ -85,7 +90,5 @@ def get_config(name: str, smoke: bool = False) -> ModelConfig:
     else:
         cfg = _ASSIGNED.get(name) or _PAPER_MODELS.get(name)
     if cfg is None:
-        raise NotImplementedError(
-            f"arch {name!r} is not yet ported to repro_torch; "
-            f"options: {arch_names()}")
+        raise ValueError(f"unknown arch {name!r}; options: {arch_names()}")
     return reduce_for_smoke(cfg) if smoke else cfg

@@ -2,7 +2,8 @@
 
 Counterpart of ``repro.data.pipeline``: the serving driver's prompts and
 the training driver's batches (with the vision stub's inputs for
-vision configs), with the host-side batch validation.  A
+vision configs and the speech stub's frames for the encoder-decoder),
+with the host-side batch validation.  A
 batch is a pure function of ``(seed, step)``: every draw comes from a
 ``torch.Generator`` seeded from
 those two numbers, where the JAX package folds them into a threefry key.
@@ -64,30 +65,31 @@ class SyntheticLMDataset:
 
 
 VISION_SEED = 7   # the JAX package folds each step into PRNGKey(7)
+                  # for either stub
 
 
 def batch_for_model(model_cfg, shape, dataset: SyntheticLMDataset,
                     step: int) -> dict:
-    """The full train batch for a model: the tokens (all a zamba or
-    plain decoder config takes), and for a vision config the stub's
-    inputs: ``vision_embeds`` (B, vision_tokens, d), 0.02 N(0, 1) in bf16
-    from a ``torch.Generator`` seeded per step (other numbers than the JAX
-    package's threefry draws, as the tokens are), and ``mrope_positions``
-    (B, 3, S) int32 with t = h = w = the text position.  The
-    encoder-decoder stub comes with that family."""
-    if model_cfg.family == "encdec":
-        raise NotImplementedError(f"batches for {model_cfg.name} "
-                                  "(encoder-decoder inputs) are not yet "
-                                  "ported to repro_torch")
+    """The full train batch for a model: the tokens (all a decoder,
+    zamba or xlstm config takes), and the modality stubs' inputs, from a
+    ``torch.Generator`` seeded per step (other numbers than the JAX
+    package's threefry draws, as the tokens are): for a vision config
+    ``vision_embeds`` (B, vision_tokens, d), 0.02 N(0, 1) in bf16, and
+    ``mrope_positions`` (B, 3, S) int32 with t = h = w = the text
+    position; for the encoder-decoder ``frames`` (B, S, d), 0.1 N(0, 1)
+    in bf16, the speech front end's stub."""
     batch = dataset.global_batch_at(step)
     B, S = batch["tokens"].shape
+    gen = torch.Generator().manual_seed(VISION_SEED * 1_000_003 + step)
     if model_cfg.vision_tokens:
-        gen = torch.Generator().manual_seed(VISION_SEED * 1_000_003 + step)
         batch["vision_embeds"] = (0.02 * torch.randn(
             (B, model_cfg.vision_tokens, model_cfg.d_model),
             generator=gen)).to(torch.bfloat16)
         pos = torch.arange(S, dtype=torch.int32).expand(B, S)
         batch["mrope_positions"] = torch.stack([pos, pos, pos], dim=1)
+    if model_cfg.family == "encdec":
+        batch["frames"] = (0.1 * torch.randn(
+            (B, S, model_cfg.d_model), generator=gen)).to(torch.bfloat16)
     return batch
 
 

@@ -20,8 +20,12 @@ device to finish the optimizer), and the stall the read leaves on the
 card (from the end of the report's device-to-host copy to the next device
 activity, the first apply), added to the same JSON objects as
 ``gate_device_s``, ``gate_top_kernels_s``, ``gate_host_s`` and
-``gate_stall_s``.  Needs a CUDA device; raises if
-the profiler saw no device activity.
+``gate_stall_s``.  Each object also carries its steps' losses and
+whether the health gate quarantined them (``quarantined``,
+``gate_quarantined``): a quarantined step applies nothing, so its stall
+is None, as it is where the trace holds no device activity inside the
+gate's host range or after it.  Needs a CUDA device; raises if the
+profiler saw no device activity.
 """
 
 from __future__ import annotations
@@ -75,8 +79,8 @@ def main(argv=None) -> list[dict]:
                 continue
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
-                state, _ = step(state, batch, args.lr,
-                                do_subspace_update=tracking)
+                state, metrics = step(state, batch, args.lr,
+                                      do_subspace_update=tracking)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
             by_name: dict[str, float] = defaultdict(float)
@@ -94,6 +98,8 @@ def main(argv=None) -> list[dict]:
                    "accum": args.accum, "remat": args.remat,
                    "tokens": args.batch * args.seq,
                    "step": "tracking" if tracking else "plain",
+                   "loss": float(metrics["loss"]),
+                   "quarantined": bool(metrics["quarantined"]),
                    "wall_s": wall, "device_busy_s": busy,
                    "busy_share": busy / wall, "idle_share": 1 - busy / wall,
                    "port_kernels_s": port, "other_device_s": busy - port,
@@ -102,9 +108,10 @@ def main(argv=None) -> list[dict]:
     for res in out:                   # the gate, with host activity on
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            state, _ = step(state, batch, args.lr,
-                            do_subspace_update=res["step"] == "tracking")
+            state, metrics = step(state, batch, args.lr,
+                                  do_subspace_update=res["step"] == "tracking")
             torch.cuda.synchronize()
+        res["gate_quarantined"] = bool(metrics["quarantined"])
         gate = [ev for ev in prof.events() if ev.name == GATE_RANGE
                 and ev.device_type == DeviceType.CPU]
         if len(gate) != 1:
@@ -125,9 +132,11 @@ def main(argv=None) -> list[dict]:
         dev = sorted((ev.time_range for ev in prof.events()
                       if ev.device_type == DeviceType.CUDA),
                      key=lambda r: r.start)
-        read = [r for r in dev if span.start <= r.start <= span.end][-1]
-        res["gate_stall_s"] = (min(r.start for r in dev
-                                   if r.start >= read.end) - read.end) / 1e6
+        inside = [r for r in dev if span.start <= r.start <= span.end]
+        after = [r.start for r in dev
+                 if inside and r.start >= inside[-1].end]
+        res["gate_stall_s"] = ((min(after) - inside[-1].end) / 1e6
+                               if after else None)
         print(json.dumps(res), flush=True)
     return out
 

@@ -212,8 +212,9 @@ def run_dense(cfg, bundle, params, queue: AdmissionQueue, *,
 
 def _prefill_inputs(cfg, toks: np.ndarray, device) -> dict:
     """The dense prefill's batch: the tokens, zero vision embeddings
-    (bf16) for a vision config, and t = h = w text positions for an mrope
-    config."""
+    (bf16) for a vision config, t = h = w text positions for an mrope
+    config, and zero frames (B, S, d) in bf16 for the encoder-decoder, as
+    the JAX driver passes."""
     B, S = toks.shape
     batch = {"tokens": torch.as_tensor(toks).to(device)}
     if cfg.vision_tokens:
@@ -223,6 +224,9 @@ def _prefill_inputs(cfg, toks: np.ndarray, device) -> dict:
     if cfg.mrope:
         pos = torch.arange(S, dtype=torch.int32, device=device).expand(B, S)
         batch["mrope_positions"] = torch.stack([pos] * 3, dim=1)
+    if cfg.family == "encdec":
+        batch["frames"] = torch.zeros((B, S, cfg.d_model),
+                                      dtype=torch.bfloat16, device=device)
     return batch
 
 

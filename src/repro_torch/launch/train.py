@@ -18,8 +18,8 @@ hand-written CUDA kernels (``repro_torch.kernels.ops``).  With
 taggable matmul forms its weight gradient through the ``grad_tap`` kernel,
 which also emits the [A; colnorms] panel that the clip and the
 optimizer's plain step consume in place of a projection pass (a model
-family with no taggable matmul, zamba, says so and takes the plain
-backward, as the JAX package does).  Weights are random, drawn from
+family with no taggable matmul, zamba, xlstm or the encoder-decoder,
+says so and takes the plain backward, as the JAX package does).  Weights are random, drawn from
 ``--seed``; batches come from the synthetic Zipf + Markov stream and are
 validated on the host before any embedding lookup.
 
@@ -447,7 +447,7 @@ def resolve_grad_fused(bundle, grad_fused: bool, accum: int,
                        chatty: bool = True) -> bool:
     """Whether the plain steps take the grad-fused backward.  Not for a
     family whose bundle exposes no taggable matmuls (no ``loss_taps``:
-    zamba) nor under gradient accumulation: it then says so (when
+    zamba, xlstm, the encoder-decoder) nor under gradient accumulation: it then says so (when
     ``chatty``) and the plain backward runs, as in the JAX package."""
     if grad_fused and (bundle.loss_taps is None or accum > 1):
         if chatty:

@@ -1,17 +1,19 @@
-"""Model factory: the decoder and zamba bundles (training loss, dense
-and paged serving).
+"""Model factory: one bundle per model family (training loss, dense and
+paged serving).
 
-Counterpart of ``repro.models.api``.  Ported so far: the decoder family's
-``init``, ``loss``, ``loss_taps``, its dense serving fields (``prefill``,
-``decode_step``, ``init_cache``) and its three paged fields; and the
-zamba family's ``init``, ``loss`` and dense serving fields (no
-``loss_taps`` and no paged fields, as in the reference: the grad-fused
-backward falls back to the plain one and serving to the dense engine).
-The xlstm and encoder-decoder families raise.  As in the JAX package,
-the decoder's prefill passes every batch entry but the tokens to the
-model (``vision_embeds``, ``mrope_positions``), and an mrope config's
-decode step rotates the new token by ``cache.length`` on all three
-position streams.
+Counterpart of ``repro.models.api``, for every family of the reference:
+the decoder's ``init``, ``loss``, ``loss_taps``, its dense serving fields
+(``prefill``, ``decode_step``, ``init_cache``) and its three paged
+fields; the zamba, xlstm and encoder-decoder families' ``init``,
+``loss`` and dense serving fields (no ``loss_taps`` and no paged fields,
+as in the reference: the grad-fused backward falls back to the plain one
+and serving to the dense engine).  As in the JAX package, the decoder's
+prefill passes every batch entry but the tokens to the model
+(``vision_embeds``, ``mrope_positions``), an mrope config's decode step
+rotates the new token by ``cache.length`` on all three position
+streams, the encoder-decoder's prefill encodes ``batch["frames"]``, and
+its ``init_cache`` sizes the cross-attention cache at
+``cfg.enc_memory_len``.  An unknown family raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.models import attention as attn
-from repro_torch.models import transformer, zamba
+from repro_torch.models import encdec, transformer, xlstm, zamba
 from repro_torch.models.config import ModelConfig
 
 
@@ -102,33 +104,59 @@ def _decoder_bundle(cfg: ModelConfig) -> ModelBundle:
                        init_cache=init_cache, **paged)
 
 
-def _zamba_bundle(cfg: ModelConfig) -> ModelBundle:
+def _dense_only_bundle(cfg: ModelConfig, init_fn, loss_fn, prefill_fn,
+                       decode_fn, cache_fn) -> ModelBundle:
+    """A family with no taggable matmul and no paged layout (zamba, xlstm,
+    the encoder-decoder): ``init``, ``loss`` and the dense serving fields
+    from its model module's functions, each taking ``cfg``."""
     def init(gen: torch.Generator, device=None):
-        params = zamba.init_zamba(gen, cfg)
+        params = init_fn(gen, cfg)
         return params if device is None else _to(params, torch.device(device))
 
-    def loss(params, batch, remat="full"):
-        return zamba.zamba_loss(params, batch, cfg, remat)
-
-    def prefill(params, batch, max_len):
-        return zamba.zamba_prefill(params, batch["tokens"], cfg, max_len)
-
-    def decode_step(params, cache, token):
-        return zamba.zamba_decode_step(params, cache, token, cfg)
-
-    def init_cache(batch, max_len, device=None):
-        return zamba.init_zamba_cache(cfg, batch, max_len, device=device)
-
-    return ModelBundle(cfg=cfg, init=init, loss=loss, prefill=prefill,
-                       decode_step=decode_step, init_cache=init_cache)
+    return ModelBundle(
+        cfg=cfg, init=init,
+        loss=lambda params, batch, remat="full": loss_fn(params, batch, cfg,
+                                                         remat),
+        prefill=lambda params, batch, max_len: prefill_fn(params, batch, cfg,
+                                                          max_len),
+        decode_step=lambda params, cache, token: decode_fn(params, cache,
+                                                           token, cfg),
+        init_cache=lambda batch, max_len, device=None: cache_fn(
+            cfg, batch, max_len, device=device))
 
 
-_BUNDLES = {"decoder": _decoder_bundle, "zamba": _zamba_bundle}
+def _zamba_bundle(cfg: ModelConfig) -> ModelBundle:
+    return _dense_only_bundle(
+        cfg, zamba.init_zamba, zamba.zamba_loss,
+        lambda params, batch, cfg_, max_len: zamba.zamba_prefill(
+            params, batch["tokens"], cfg_, max_len),
+        zamba.zamba_decode_step, zamba.init_zamba_cache)
+
+
+def _xlstm_bundle(cfg: ModelConfig) -> ModelBundle:
+    return _dense_only_bundle(
+        cfg, xlstm.init_xlstm, xlstm.xlstm_loss,
+        lambda params, batch, cfg_, max_len: xlstm.xlstm_prefill(
+            params, batch["tokens"], cfg_, max_len),
+        xlstm.xlstm_decode_step, xlstm.init_xlstm_cache)
+
+
+def _encdec_bundle(cfg: ModelConfig) -> ModelBundle:
+    return _dense_only_bundle(
+        cfg, encdec.init_encdec, encdec.encdec_loss,
+        lambda params, batch, cfg_, max_len: encdec.encdec_prefill(
+            params, batch["frames"], batch["tokens"], cfg_, max_len),
+        encdec.encdec_decode_step, encdec.init_encdec_cache)
+
+
+_BUNDLES = {"decoder": _decoder_bundle, "zamba": _zamba_bundle,
+            "xlstm": _xlstm_bundle, "encdec": _encdec_bundle}
 
 
 def build_model(cfg: ModelConfig) -> ModelBundle:
-    if cfg.family not in _BUNDLES:
-        raise NotImplementedError(
-            f"model family {cfg.family!r} is not yet ported to repro_torch "
-            f"(ported: {', '.join(_BUNDLES)})")
-    return _BUNDLES[cfg.family](cfg)
+    try:
+        ctor = _BUNDLES[cfg.family]
+    except KeyError:
+        raise ValueError(f"unknown model family {cfg.family!r}; "
+                         f"options: {sorted(_BUNDLES)}") from None
+    return ctor(cfg)

@@ -1,5 +1,5 @@
 """Attention for serving and training: blocked online-softmax attention
-(causal, with an optional sliding window and logit softcap),
+(causal or not, with an optional sliding window and logit softcap),
 single-token decode against a dense (possibly ring-buffered) KV cache,
 the paged KV pool, and MLA (multi-head latent attention: the latent
 cache, its prefill and its absorbed decode).
@@ -23,15 +23,17 @@ NEG_INF = -1e30
 
 
 def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                      window: int | None = None, softcap: float = 0.0,
-                      q_offset: int = 0, kv_block: int = 1024
-                      ) -> torch.Tensor:
-    """Causal online-softmax attention over KV blocks; returns
-    (B, S, Hq, vd).
+                      causal: bool = True, window: int | None = None,
+                      softcap: float = 0.0, q_offset: int = 0,
+                      kv_block: int = 1024) -> torch.Tensor:
+    """Online-softmax attention over KV blocks; returns (B, S, Hq, vd).
 
     q: (B, S, Hq, hd); k: (B, T, Hkv, hd); v: (B, T, Hkv, vd).  GQA folds
     query heads into (Hkv, G) so K/V are never repeated; query head
-    ``h*G + g`` belongs to KV head ``h``.  ``q_offset`` is the absolute
+    ``h*G + g`` belongs to KV head ``h``.  ``causal`` keeps keys with
+    ``k_pos <= q_pos``; without it (the encoder's self-attention, and
+    cross-attention, where T may differ from S) only the window, if any,
+    masks.  ``q_offset`` is the absolute
     position of q[0] (prefill continuation).  ``window`` (None = full)
     keeps keys with ``k_pos > q_pos - window``, the JAX package's
     arithmetic mask (gemma2's global layers pass ``1 << 30``); ``softcap``
@@ -39,7 +41,8 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     mask.  Logits and softmax
     statistics are fp32; as in the JAX package the probabilities are
     rounded to v's dtype before the PV product.  The whole query length is
-    one block (the paged prefill's only caller passes one chunk).
+    one block: the (B, Hkv, G, S, kv_block) fp32 logits of one KV block
+    are the largest tensor it makes.
     """
     B, S, Hq, hd = q.shape
     _, T, Hkv, _ = k.shape
@@ -61,11 +64,12 @@ def blocked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         logits = torch.einsum("bqkgh,bskh->bkgqs", qg, kj) * scale
         if softcap:
             logits = softcap * torch.tanh(logits / softcap)
-        k_pos = torch.arange(t0, t0 + kv_block, device=q.device)
-        mask = k_pos[None, :] <= q_pos[:, None]                    # (S, bk)
-        if window is not None:
-            mask &= k_pos[None, :] > q_pos[:, None] - window
-        logits = torch.where(mask, logits, NEG_INF)
+        if causal or window is not None:
+            k_pos = torch.arange(t0, t0 + kv_block, device=q.device)
+            keep = k_pos[None, :] <= q_pos[:, None] if causal else True
+            if window is not None:                                 # (S, bk)
+                keep = keep & (k_pos[None, :] > q_pos[:, None] - window)
+            logits = torch.where(keep, logits, NEG_INF)
         m_new = torch.maximum(m, logits.amax(dim=-1))
         p = torch.exp(logits - m_new[..., None])
         corr = torch.exp(m - m_new)

@@ -52,6 +52,7 @@ from repro_torch.models import attention as tattn
 from repro_torch.models import common as tcommon
 from repro_torch.models import transformer as ttf
 from repro_torch.models.api import build_model
+from torch_compare import close, close_tree
 from torch_threads import one_thread  # noqa: F401
 
 
@@ -60,22 +61,6 @@ BF16_TOL = 2e-2
 ARCHS = ("gemma2-27b", "minicpm3-4b", "qwen2-vl-2b")
 EXTRA = {"gemma2-27b": dict(sliding_window=16)}
 B, S, MAX_LEN, DECODE_STEPS = 2, 64, 72, 3
-
-
-def _close(got, want, tol=TOL, msg=""):
-    got = got.float().numpy() if torch.is_tensor(got) else np.asarray(got)
-    want = np.asarray(want, np.float32)
-    np.testing.assert_allclose(got, want, rtol=0, err_msg=msg,
-                               atol=tol * max(np.abs(want).max(), 1e-30))
-
-
-def _close_tree(got, want, tol=TOL, path=""):
-    if isinstance(got, dict):
-        assert got.keys() == want.keys(), path
-        for k in got:
-            _close_tree(got[k], want[k], tol, f"{path}/{k}")
-        return
-    _close(got, want, tol, path)
 
 
 def _jax_params(jcfg, seed):
@@ -178,7 +163,7 @@ def test_forward_loss_and_grads_match_jax(variant):
     extras = {k: v for k, v in batch.items() if k != "tokens"}
     logits, aux = ttf.decoder_forward(params, batch["tokens"], tcfg, extras,
                                       remat="none")
-    _close(logits.detach(), want["logits"])
+    close(logits.detach(), want["logits"])
     for p in tree_leaves(params):
         p.requires_grad_(True)
     loss, metrics = build_model(tcfg).loss(params, batch, remat="none")
@@ -186,7 +171,7 @@ def test_forward_loss_and_grads_match_jax(variant):
     assert float(loss.detach()) == pytest.approx(want["loss"], rel=TOL)
     assert float(metrics["aux_loss"]) == 0.0
     it = iter(grads)
-    _close_tree(jax.tree.map(lambda _: next(it), params,
+    close_tree(jax.tree.map(lambda _: next(it), params,
                              is_leaf=torch.is_tensor),
                 want["grads"])
 
@@ -209,9 +194,9 @@ def test_prefill_and_decode_match_jax(variant):
     for i, ((lg, kv, length), (wlg, wc)) in enumerate(zip(got,
                                                           want["served"])):
         assert lg.shape == wlg.shape == (B, tcfg.padded_vocab), i
-        _close(lg, wlg, msg=f"logits {i}")
+        close(lg, wlg, msg=f"logits {i}")
         for f, t in zip(fields, kv):
-            _close(t, getattr(wc.kv, f), msg=f"{f} {i}")
+            close(t, getattr(wc.kv, f), msg=f"{f} {i}")
         assert length == int(wc.length) == S + i
 
 
@@ -230,7 +215,7 @@ def test_blocked_attention_window_softcap_matches_jax(window, cap, dtype):
                                     for a in (q, k, v)), window=window,
                                   softcap=cap, kv_block=16)
     assert got.dtype == tdt
-    _close(got, want, TOL if dtype == "float32" else BF16_TOL)
+    close(got, want, TOL if dtype == "float32" else BF16_TOL)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -259,16 +244,16 @@ def test_mla_attention_matches_jax(dtype):
                                        softcap=3.0, q_block=8, kv_block=8)
     got = tattn.mla_prefill_attention(*t(qn, qr, c, kr, wuk, wuv),
                                       softcap=3.0, kv_block=8)
-    _close(got, want, tol)
+    close(got, want, tol)
     pos = 9
     want_d = jattn.mla_decode_attention(
         *j(qn[:, pos], qr[:, pos], c, kr, wuk, wuv), pos, softcap=3.0)
     got_d = tattn.mla_decode_attention(
         *t(qn[:, pos], qr[:, pos], c, kr, wuk, wuv), pos, softcap=3.0)
     assert got_d.dtype == tdt
-    _close(got_d, want_d, tol)
+    close(got_d, want_d, tol)
     if dtype == "float32":   # absorbed == expanded, in exact arithmetic
-        _close(got_d, got[:, pos], 1e-5)
+        close(got_d, got[:, pos], 1e-5)
 
 
 @pytest.mark.parametrize("streams", ["equal", "unequal"])
@@ -283,9 +268,9 @@ def test_apply_mrope_matches_jax(streams):
                                (4, 6, 6))
     got = tcommon.apply_mrope(torch.tensor(x), torch.tensor(pos), 1e4,
                               (4, 6, 6))
-    _close(got, want)
+    close(got, want)
     if streams == "equal":   # text positions: standard RoPE
-        _close(got, tcommon.apply_rope(torch.tensor(x),
+        close(got, tcommon.apply_rope(torch.tensor(x),
                                        torch.tensor(pos[:, 0]), 1e4))
     with pytest.raises(ValueError, match="sections"):
         tcommon.apply_mrope(torch.tensor(x), torch.tensor(pos), 1e4,
@@ -304,7 +289,7 @@ def test_softcap_and_gelu_match_jax(fn, dtype):
     else:
         want, got = jcommon.gelu(jx), tcommon.gelu(tx)
     assert got.dtype == tx.dtype
-    _close(got, want, TOL if dtype == "float32" else BF16_TOL)
+    close(got, want, TOL if dtype == "float32" else BF16_TOL)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -370,12 +355,12 @@ def test_tracking_step_of_tied_gemma2_matches_jax():
                            opt_state_from_jax(state_np),
                            params_from_jax(params_np, tcfg), 1e-3,
                            do_subspace_update=True)
-    _close_tree(upd, jupd, 1e-3)
+    close_tree(upd, jupd, 1e-3)
     n_lowrank = 0
     for path, st in _leaves(new.inner):
         jst = _at(jnew.inner, path)
         for f in st._fields:
-            _close(getattr(st, f), getattr(jst, f), 1e-3, f"{path} {f}")
+            close(getattr(st, f), getattr(jst, f), 1e-3, f"{path} {f}")
         n_lowrank += "S" in st._fields
     assert n_lowrank == 8
 
@@ -463,6 +448,6 @@ def test_wide_svd_reduction_keeps_the_basis():
     assert R.shape == (2, 48, 48)
     U, s, _ = torch.linalg.svd(G, full_matrices=False)
     U2, s2, _ = torch.linalg.svd(R, full_matrices=False)
-    _close(s2, s.numpy(), 1e-5)
+    close(s2, s.numpy(), 1e-5)
     P, P2 = (u[..., :16] @ u[..., :16].mT for u in (U, U2))
-    _close(P2, P.numpy(), 1e-5)
+    close(P2, P.numpy(), 1e-5)

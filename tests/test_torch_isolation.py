@@ -77,12 +77,14 @@ def test_serve_raises_without_cuda_unless_cpu_is_asked_for(monkeypatch):
     assert tserve.resolve_device("cpu").type == "cpu"
 
 
-@pytest.mark.parametrize("argv,match", [
-    (["--mesh", "prod"], "--mesh"),
-    (["--arch", "xlstm-125m"], "not yet ported"),
+@pytest.mark.parametrize("argv,exc,match", [
+    (["--mesh", "prod"], NotImplementedError, "--mesh"),
+    # every arch id of the JAX package is ported: an unknown one raises
+    # the JAX package's error
+    (["--arch", "no-such-arch"], ValueError, "unknown arch"),
 ])
-def test_serve_parts_not_ported_yet_raise(argv, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_serve_parts_not_ported_yet_raise(argv, exc, match):
+    with pytest.raises(exc, match=match):
         tserve.serve(argv + ["--smoke", "--device", "cpu"])
 
 
@@ -162,14 +164,19 @@ def test_ported_flags_run_on_the_asked_device(monkeypatch, entry, argv):
     assert all(t.device.type == "cpu" for t in tensors)
 
 
-@pytest.mark.parametrize("argv,match", [
-    (["--mesh", "prod"], "--mesh prod needs a world of 256"),
-    (["--inject", "dev-loss@3"], "--inject"),
-    (["--arch", "xlstm-125m"], "not yet ported"),
-    (["--mesh", "multipod"], "--mesh multipod needs a world of 512"),
-    (["--mesh", "host", "--mesh-devices", "2"], "--mesh-devices"),
-    (["--step-timeout", "30"], "--step-timeout"),
+@pytest.mark.parametrize("argv,exc,match", [
+    (["--mesh", "prod"], NotImplementedError,
+     "--mesh prod needs a world of 256"),
+    (["--inject", "dev-loss@3"], NotImplementedError, "--inject"),
+    # every arch id of the JAX package is ported: an unknown one raises
+    # the JAX package's error
+    (["--arch", "no-such-arch"], ValueError, "unknown arch"),
+    (["--mesh", "multipod"], NotImplementedError,
+     "--mesh multipod needs a world of 512"),
+    (["--mesh", "host", "--mesh-devices", "2"], NotImplementedError,
+     "--mesh-devices"),
+    (["--step-timeout", "30"], NotImplementedError, "--step-timeout"),
 ])
-def test_train_parts_not_ported_yet_raise(argv, match):
-    with pytest.raises(NotImplementedError, match=match):
+def test_train_parts_not_ported_yet_raise(argv, exc, match):
+    with pytest.raises(exc, match=match):
         ttrain.train(argv + ["--smoke", "--device", "cpu", "--steps", "1"])

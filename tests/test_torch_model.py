@@ -235,8 +235,30 @@ def test_paged_supported_matches_jax():
 
     for name in ("llama-7b", "qwen1.5-4b", "stablelm-12b", "gemma2-27b",
                  "minicpm3-4b", "qwen2-vl-2b", "mixtral-8x22b",
-                 "llama4-maverick-400b-a17b", "zamba2-7b"):
+                 "llama4-maverick-400b-a17b", "zamba2-7b", "xlstm-125m",
+                 "seamless-m4t-large-v2"):
         assert transformer.paged_supported(get_config(name)) == \
             jax_supported(jax_get_config(name))
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        get_config("xlstm-125m")
+    # every arch id of the JAX package is ported: an unknown one raises
+    # the JAX package's error
+    with pytest.raises(ValueError, match="unknown arch"):
+        get_config("no-such-arch")
+
+
+def test_registry_and_configs_match_the_reference():
+    """The port's registry holds exactly the JAX package's arch ids, each
+    config (full and smoke) equal to the reference's field by field, and
+    ``build_model`` raises the reference's error for an unknown family."""
+    import dataclasses
+
+    from repro.configs.registry import arch_names as jax_arch_names
+    from repro_torch.configs.registry import arch_names
+    from repro_torch.models.api import build_model
+
+    assert arch_names() == jax_arch_names()
+    for name in arch_names():
+        for smoke in (False, True):
+            assert dataclasses.asdict(get_config(name, smoke)) == \
+                dataclasses.asdict(jax_get_config(name, smoke)), name
+    with pytest.raises(ValueError, match="unknown model family"):
+        build_model(get_config("llama-60m").with_(family="rnn"))

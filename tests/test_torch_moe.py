@@ -36,8 +36,6 @@ import pytest
 import torch
 
 from repro.configs.registry import get_config as jax_get_config
-from repro.core.api import get_optimizer as jax_get_optimizer
-from repro.core.lowrank_adam import MatrixOptState as JMatrixState
 from repro.distributed.context import mesh_context
 from repro.launch import serve as jserve
 from repro.launch.mesh import smoke_context
@@ -48,7 +46,6 @@ from repro.models import transformer as jtf
 from repro.models.api import build_model as jax_build_model
 from repro.models.config import MoEConfig as JMoEConfig
 from repro_torch.configs.registry import PAPER_RANKS, get_config
-from repro_torch.core.api import get_optimizer
 from repro_torch.core.subtrack import tree_leaves
 from repro_torch.distributed.context import abstract_context
 from repro_torch.interop import opt_state_from_jax, params_from_jax
@@ -59,6 +56,8 @@ from repro_torch.models import moe as tmoe
 from repro_torch.models import transformer as ttf
 from repro_torch.models.api import build_model
 from repro_torch.models.config import MoEConfig
+from torch_compare import (check_optimizer_step, close, close_tree,
+                           jax_optimizer_steps, unflatten)
 from torch_threads import one_thread  # noqa: F401
 
 
@@ -78,28 +77,6 @@ B, S = 2, 64                    # decoder loss batch
 WINDOW, RING_MAX = 16, 48       # mixtral smoke window cut so decode wraps
 RING_CASES = {"below": (8, 12), "past": (32, 4)}   # prompt -> decode steps
 P, GEN, BS = 9, 5, 4            # the serving case of tests/test_serve.py
-
-
-def _close(got, want, tol=TOL, msg=""):
-    got = got.detach().float().numpy() if torch.is_tensor(got) else got
-    want = np.asarray(want, np.float32)
-    np.testing.assert_allclose(np.asarray(got, np.float32), want, rtol=0,
-                               err_msg=msg,
-                               atol=tol * max(np.abs(want).max(), 1e-30))
-
-
-def _close_tree(got, want, tol=TOL, path=""):
-    if isinstance(got, dict):
-        assert got.keys() == want.keys(), path
-        for k in got:
-            _close_tree(got[k], want[k], tol, f"{path}/{k}")
-        return
-    _close(got, want, tol, path)
-
-
-def _unflatten(like, leaves):
-    it = iter(leaves)
-    return jax.tree.map(lambda _: next(it), like, is_leaf=torch.is_tensor)
 
 
 # ---------------------------------------------------------------------------
@@ -159,15 +136,15 @@ def test_moe_layer_matches_jax(case, layer_runs):
     x = torch.tensor(x_np, requires_grad=True)
     y, aux = tmoe.moe_layer(x, params, cfg)
     assert y.dtype == x.dtype and aux.dtype == torch.float32
-    _close(y, want["y"], msg="y")
+    close(y, want["y"], msg="y")
     assert float(aux) == pytest.approx(want["aux"], rel=TOL)
     gx, *gp = torch.autograd.grad((y * torch.tensor(ct)).sum() + aux,
                                   [x] + list(params.values()))
-    _close(gx, want["grads"][0], GRAD_TOL, "dx")
+    close(gx, want["grads"][0], GRAD_TOL, "dx")
     for (name, g) in zip(params, gp):
-        _close(g, want["grads"][1][name], GRAD_TOL, name)
+        close(g, want["grads"][1][name], GRAD_TOL, name)
     ys, aux_s = tmoe.moe_layer(x, params, cfg, serving=True)
-    _close(ys, want["y_serving"], msg="serving")
+    close(ys, want["y_serving"], msg="serving")
     assert torch.equal(ys, y) and torch.equal(aux_s, aux)
     if case.startswith("drops"):
         # the same rows dropped: with every choice of a token over
@@ -202,8 +179,8 @@ def test_capacity_route_ties_and_expert_layout():
                                            JMoEConfig(5, k, 8))
         assert ids.tolist() == np.asarray(jids).tolist()
         assert ids.tolist() == [[1, 3, 0][:k], [0, 1, 2][:k]]
-        _close(gates, jgates)
-        _close(probs, jprobs)
+        close(gates, jgates)
+        close(probs, jprobs)
     one = abstract_context((1, 1))
     assert one.expert_layout(128, 8192) == (1, 128, 8192)
     with pytest.raises(NotImplementedError, match="not yet ported"):
@@ -275,64 +252,28 @@ def test_decoder_loss_and_grads_match_jax(decoder):
                                                        rel=TOL)
     assert float(metrics["aux_loss"]) > 0
     grads = torch.autograd.grad(loss, tree_leaves(params))
-    _close_tree(_unflatten(params, grads), decoder["grads"])
+    close_tree(unflatten(params, grads), decoder["grads"])
 
 
-def _mid_run(rng):
-    """A JAX optimizer state mid-run: orthonormal S, nonzero moments, V
-    away from zero (as in tests/test_torch_decoder_variants.py)."""
-    def mid(st):
-        if not isinstance(st, JMatrixState):
-            return st
-        S_ = np.linalg.qr(rng.standard_normal(st.S.shape))[0]
-        return st._replace(
-            S=jnp.asarray(S_, jnp.float32),
-            M=jnp.asarray(0.01 * rng.standard_normal(st.M.shape),
-                          jnp.float32),
-            V=jnp.asarray(1e-4 * (0.5 + np.abs(rng.standard_normal(
-                st.V.shape))), jnp.float32))
-    return mid
+@pytest.fixture(scope="module")
+def opt_runs():
+    jcfg, _ = _configs("mixtral-8x22b")
+    return jax_optimizer_steps(_jax_params(jcfg, seed=5),
+                               dict(rank=32, update_interval=2, eta=5.0),
+                               seed=4)
 
 
 @pytest.mark.parametrize("tracking", [False, True])
-def test_optimizer_step_on_expert_banks_matches_jax(tracking):
+def test_optimizer_step_on_expert_banks_matches_jax(tracking, opt_runs):
     """One plain (1e-5) and one tracking (1e-3) SubTrack++ step on the
     mixtral smoke tree from one JAX state: the expert banks are 5-D
     leaves (L, 1, E, d, f) planned with 3 stack dims; the router (L, d, E)
     is dense."""
-    jcfg, tcfg = _configs("mixtral-8x22b")
-    kw = dict(rank=32, update_interval=2, eta=5.0)
-    rng = np.random.default_rng(4)
-    params_np = _jax_params(jcfg, seed=5)
-    grads_np = jax.tree.map(lambda a: (0.01 * rng.standard_normal(
-        a.shape)).astype(np.float32), params_np)
-    with mesh_context(smoke_context()):
-        jopt = jax_get_optimizer("subtrack", **kw)
-        jp = jax.tree.map(jnp.asarray, params_np)
-        state = jopt.init(jp)
-        state = state._replace(step=jnp.int32(1), inner=jax.tree.map(
-            _mid_run(rng), state.inner,
-            is_leaf=lambda x: isinstance(x, JMatrixState)))
-        state_np = jax.tree.map(np.asarray, state)
-        jupd, jnew = jax.jit(lambda g, st, p: jopt.update(
-            g, st, p, 1e-3, do_subspace_update=tracking))(
-            jax.tree.map(jnp.asarray, grads_np), state, jp)
-        jupd, jnew = jax.tree.map(np.asarray, (jupd, jnew))
-    tol = 1e-3 if tracking else 1e-5
-    topt = get_optimizer("subtrack", **kw)
-    tstate = opt_state_from_jax(state_np)
-    banks = tstate.inner["layers"]["mlp"]
+    banks = opt_state_from_jax(opt_runs["state_np"]).inner["layers"]["mlp"]
     for w in ("wg", "wu", "wd"):
         assert banks[w].S.shape == (2, 1, 4, 128, 32), w
     assert "S" not in banks["router"]._fields
-    upd, new = topt.update(params_from_jax(grads_np, tcfg), tstate,
-                           params_from_jax(params_np, tcfg), 1e-3,
-                           do_subspace_update=tracking)
-    _close_tree(upd, jupd, tol)
-    for w in ("wg", "wu", "wd", "router"):
-        st, jst = new.inner["layers"]["mlp"][w], jnew.inner["layers"]["mlp"][w]
-        for f in st._fields:
-            _close(getattr(st, f), getattr(jst, f), tol, f"{w} {f}")
+    check_optimizer_step(opt_runs, _configs("mixtral-8x22b")[1], tracking)
 
 
 # ---------------------------------------------------------------------------
@@ -394,9 +335,9 @@ def test_ring_prefill_and_decode_match_jax(case, ring_runs):
             if i:
                 logits, cache = bundle.decode_step(
                     params, cache, torch.tensor(toks[:, s + i - 1]).long())
-            _close(logits, wlg, msg=f"logits {i}")
+            close(logits, wlg, msg=f"logits {i}")
             for f in ("k", "v", "positions"):
-                _close(getattr(cache.kv, f), getattr(wc.kv, f),
+                close(getattr(cache.kv, f), getattr(wc.kv, f),
                        msg=f"{f} {i}")
             assert cache.length == int(wc.length) == s + i
     assert s + n > WINDOW     # the ring wrapped

@@ -35,8 +35,6 @@ import pytest
 import torch
 
 from repro.configs.registry import get_config as jax_get_config
-from repro.core.api import get_optimizer as jax_get_optimizer
-from repro.core.lowrank_adam import MatrixOptState as JMatrixState
 from repro.core.plan import make_plans as jax_make_plans
 from repro.distributed.context import mesh_context
 from repro.launch.mesh import smoke_context
@@ -46,7 +44,6 @@ from repro.models import ssm as jssm
 from repro.models import transformer as jtf
 from repro.models.api import build_model as jax_build_model
 from repro_torch.configs.registry import PAPER_RANKS, get_config
-from repro_torch.core.api import get_optimizer
 from repro_torch.core.plan import make_plans
 from repro_torch.core.subtrack import tree_leaves
 from repro_torch.interop import opt_state_from_jax, params_from_jax
@@ -57,6 +54,9 @@ from repro_torch.launch.steps import _tap_paths, default_rank
 from repro_torch.models import ssm
 from repro_torch.models import transformer as ttf
 from repro_torch.models.api import build_model
+from torch_compare import (TOL, check_optimizer_step, close, close_bf16,
+                           close_tree, jax_optimizer_steps, t as _t,
+                           unflatten)
 from torch_threads import one_thread  # noqa: F401
 
 
@@ -71,32 +71,6 @@ SSD_DIMS = (2, 3, 4, 5)
 B, S = 2, 64                    # the smoke model's loss batch
 P, GEN = 24, 3                  # prefill (not a chunk multiple), decode steps
 MAX_LEN = 32
-
-
-def _close(got, want, tol=TOL, msg=""):
-    got = got.detach().float().numpy() if torch.is_tensor(got) else got
-    want = np.asarray(want, np.float32)
-    np.testing.assert_allclose(np.asarray(got, np.float32), want, rtol=0,
-                               err_msg=msg,
-                               atol=tol * max(np.abs(want).max(), 1e-30))
-
-
-def _close_tree(got, want, tol=TOL, path=""):
-    if isinstance(got, dict):
-        assert got.keys() == want.keys(), path
-        for k in got:
-            _close_tree(got[k], want[k], tol, f"{path}/{k}")
-        return
-    _close(got, want, tol, path)
-
-
-def _unflatten(like, leaves):
-    it = iter(leaves)
-    return jax.tree.map(lambda _: next(it), like, is_leaf=torch.is_tensor)
-
-
-def _t(a, dtype=None):
-    return torch.tensor(np.asarray(a), dtype=dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -143,8 +117,8 @@ def test_ssd_chunked_matches_jax(case, ssd_runs):
         None if x["h0"] is None else _t(x["h0"]))
     assert y.dtype == h.dtype == torch.float32
     assert y.shape == y_want.shape and h.shape == h_want.shape
-    _close(y, y_want, SSD_TOL, "y")
-    _close(h, h_want, SSD_TOL, "final state")
+    close(y, y_want, SSD_TOL, "y")
+    close(h, h_want, SSD_TOL, "final state")
 
 
 @pytest.mark.parametrize("case", ["ragged", "multiple-h0"])
@@ -161,8 +135,8 @@ def test_chained_decode_steps_equal_the_chunked_ssd(case, ssd_runs):
         y, h = ssm.ssd_decode_step(_t(x["x"][:, t]), _t(x["dt"][:, t]), A,
                                    _t(x["Bm"][:, t]), _t(x["Cm"][:, t]), h)
         ys.append(y)
-    _close(torch.stack(ys, dim=1), y_want, SSD_TOL, "y")
-    _close(h, h_want, SSD_TOL, "final state")
+    close(torch.stack(ys, dim=1), y_want, SSD_TOL, "y")
+    close(h, h_want, SSD_TOL, "final state")
 
 
 def _nan_case():
@@ -215,11 +189,11 @@ def test_ssd_gradient_is_finite_where_the_reference_is_nan():
 
     tdt, tdx = tgrad(torch.float32)
     assert torch.isfinite(tdt).all() and torch.isfinite(tdx).all()
-    _close(tdt[..., ~bad], jdt[..., ~bad], SSD_TOL, "d/d(dt), finite heads")
-    _close(tdx, jdx, SSD_TOL, "d/dx")
+    close(tdt[..., ~bad], jdt[..., ~bad], SSD_TOL, "d/d(dt), finite heads")
+    close(tdx, jdx, SSD_TOL, "d/dx")
     ddt, ddx = tgrad(torch.float64)
-    _close(tdt, ddt.numpy(), SSD_TOL, "d/d(dt) against float64")
-    _close(tdx, ddx.numpy(), SSD_TOL, "d/dx against float64")
+    close(tdt, ddt.numpy(), SSD_TOL, "d/d(dt) against float64")
+    close(tdx, ddx.numpy(), SSD_TOL, "d/dx against float64")
 
 
 # ---------------------------------------------------------------------------
@@ -293,7 +267,7 @@ def block_runs():
 
 def test_causal_conv_and_mamba_block_match_jax(block_runs):
     conv_in, conv_w, conv_b, want = block_runs["conv"]
-    _close(ssm._causal_conv(_t(conv_in), _t(conv_w), _t(conv_b)), want,
+    close(ssm._causal_conv(_t(conv_in), _t(conv_w), _t(conv_b)), want,
            SSD_TOL, "causal conv")
     _, tcfg = _configs()
     p = params_from_jax(block_runs["params_np"], tcfg)
@@ -303,11 +277,11 @@ def test_causal_conv_and_mamba_block_match_jax(block_runs):
     for t in tree_leaves(p):
         t.requires_grad_(True)
     y = ssm.mamba_block(x, p, tcfg)
-    _close(y, block_runs["y"], TOL, "y")
+    close(y, block_runs["y"], TOL, "y")
     grads = torch.autograd.grad((y * _t(block_runs["ct"])).sum(),
                                 [x] + tree_leaves(p))
-    _close(grads[0], block_runs["gx"], TOL, "d/dx")
-    _close_tree(_unflatten(p, grads[1:]), block_runs["gp"])
+    close(grads[0], block_runs["gx"], TOL, "d/dx")
+    close_tree(unflatten(p, grads[1:]), block_runs["gp"])
 
 
 @pytest.fixture(scope="module")
@@ -352,17 +326,7 @@ def test_zamba_loss_and_grads_match_jax(remat, zamba_runs):
     assert float(loss.detach()) == pytest.approx(zamba_runs["loss"], rel=TOL)
     assert float(metrics["aux_loss"]) == 0.0
     grads = torch.autograd.grad(loss, tree_leaves(params))
-    _close_tree(_unflatten(params, grads), zamba_runs["grads"])
-
-
-def _close_bf16(got, want, msg=""):
-    """bf16 values rounded from fp32 values that agree to 2e-5 of the
-    largest: each entry within that of the reference's plus one bf16 step
-    (a value near a rounding boundary may land on either side)."""
-    g = got.float().numpy()
-    w = np.asarray(want, np.float32)
-    step = np.exp2(np.floor(np.log2(np.maximum(np.abs(w), 1e-30))) - 7)
-    assert (np.abs(g - w) <= step + TOL * np.abs(w).max()).all(), msg
+    close_tree(unflatten(params, grads), zamba_runs["grads"])
 
 
 def _cache_from_jax(jc):
@@ -381,10 +345,10 @@ def _check_cache(c, jc, where, tol=TOL):
     assert c.length == int(jc.length), where
     assert c.mamba.h.dtype == torch.float32, where
     assert c.mamba.conv.dtype == torch.bfloat16, where
-    _close(c.mamba.h, jc.mamba.h, tol, f"{where} h")
-    _close_bf16(c.mamba.conv, jc.mamba.conv, f"{where} conv")
-    _close(c.shared_k, jc.shared_k, tol, f"{where} shared_k")
-    _close(c.shared_v, jc.shared_v, tol, f"{where} shared_v")
+    close(c.mamba.h, jc.mamba.h, tol, f"{where} h")
+    close_bf16(c.mamba.conv, jc.mamba.conv, msg=f"{where} conv")
+    close(c.shared_k, jc.shared_k, tol, f"{where} shared_k")
+    close(c.shared_v, jc.shared_v, tol, f"{where} shared_v")
     np.testing.assert_array_equal(c.shared_pos.numpy(), jc.shared_pos,
                                   err_msg=where)
 
@@ -408,16 +372,16 @@ def test_zamba_prefill_and_decode_match_jax(zamba_runs):
     with torch.no_grad():
         logits, cache = bundle.prefill(params, {"tokens": toks[:, :P]},
                                        MAX_LEN)
-        _close(logits, steps[0][0], TOL, "prefill logits")
+        close(logits, steps[0][0], TOL, "prefill logits")
         _check_cache(cache, steps[0][1], "prefill")
         assert cache.length == P
         for i in range(GEN):
             lg, c = bundle.decode_step(params, _cache_from_jax(steps[i][1]),
                                        toks[:, P + i])
-            _close(lg, steps[i + 1][0], DECODE_TOL, f"decode {i} logits")
+            close(lg, steps[i + 1][0], DECODE_TOL, f"decode {i} logits")
             _check_cache(c, steps[i + 1][1], f"decode {i}", DECODE_TOL)
             logits, cache = bundle.decode_step(params, cache, toks[:, P + i])
-            _close(logits, steps[i + 1][0], DECODE_TOL,
+            close(logits, steps[i + 1][0], DECODE_TOL,
                    f"chained decode {i} logits")
             _check_cache(cache, steps[i + 1][1], f"chained decode {i}",
                          DECODE_TOL)
@@ -428,51 +392,13 @@ def test_zamba_prefill_and_decode_match_jax(zamba_runs):
 # ---------------------------------------------------------------------------
 
 
-def _mid_run(rng):
-    """A JAX optimizer state mid-run: orthonormal S, nonzero moments, V
-    away from zero (as in tests/test_torch_moe.py)."""
-    def mid(st):
-        if not isinstance(st, JMatrixState):
-            return st
-        S_ = np.linalg.qr(rng.standard_normal(st.S.shape))[0]
-        return st._replace(
-            S=jnp.asarray(S_, jnp.float32),
-            M=jnp.asarray(0.01 * rng.standard_normal(st.M.shape),
-                          jnp.float32),
-            V=jnp.asarray(1e-4 * (0.5 + np.abs(rng.standard_normal(
-                st.V.shape))), jnp.float32))
-    return mid
-
-
 OPT_KW = dict(rank=32, update_interval=2, eta=5.0)
 
 
 @pytest.fixture(scope="module")
 def opt_runs():
-    """One JAX state mid-run on the smoke zamba's tree, and the JAX
-    package's plain and tracking steps from it (one compiled program)."""
-    jcfg, tcfg = _configs()
-    rng = np.random.default_rng(5)
-    params_np = _jax_params(jcfg, seed=6)
-    grads_np = jax.tree.map(lambda a: (0.01 * rng.standard_normal(
-        a.shape)).astype(np.float32), params_np)
-    with mesh_context(smoke_context()):
-        jopt = jax_get_optimizer("subtrack", **OPT_KW)
-        jp = jax.tree.map(jnp.asarray, params_np)
-        state = jax.jit(jopt.init)(jp)
-        state = state._replace(step=jnp.int32(1), inner=jax.tree.map(
-            _mid_run(rng), state.inner,
-            is_leaf=lambda x: isinstance(x, JMatrixState)))
-
-        def both(g, st, p):
-            return tuple(jopt.update(g, st, p, 1e-3, do_subspace_update=t)
-                         for t in (False, True))
-
-        steps = jax.jit(both)(jax.tree.map(jnp.asarray, grads_np), state,
-                              jp)
-    return dict(tcfg=tcfg, params_np=params_np, grads_np=grads_np,
-                state_np=jax.tree.map(np.asarray, state),
-                steps=jax.tree.map(np.asarray, steps))
+    jcfg, _ = _configs()
+    return jax_optimizer_steps(_jax_params(jcfg, seed=6), OPT_KW, seed=5)
 
 
 @pytest.mark.parametrize("tracking", [False, True])
@@ -481,29 +407,12 @@ def test_optimizer_step_on_the_zamba_tree_matches_jax(tracking, opt_runs):
     in_proj / out_proj stacks and the shared matrices low-rank (out_proj,
     w_in, w_down and embed as transposed plans), conv_w (L, K, C) and the
     fp32 (L, H) leaves dense."""
-    tcfg = opt_runs["tcfg"]
-    jupd, jnew = opt_runs["steps"][int(tracking)]
-    tol = 1e-3 if tracking else 1e-5
-    tstate = opt_state_from_jax(opt_runs["state_np"])
-    layers = tstate.inner["mamba_layers"]
+    layers = opt_state_from_jax(opt_runs["state_np"]).inner["mamba_layers"]
     assert layers["in_proj"].S.shape == (6, 128, 32)
     assert layers["out_proj"].S.shape == (6, 128, 32)
     for k in ("conv_w", "A_log", "D", "dt_bias"):
         assert "S" not in layers[k]._fields, k
-    upd, new = get_optimizer("subtrack", **OPT_KW).update(
-        params_from_jax(opt_runs["grads_np"], tcfg), tstate,
-        params_from_jax(opt_runs["params_np"], tcfg), 1e-3,
-        do_subspace_update=tracking)
-    _close_tree(upd, jupd, tol)
-    flat = jax.tree_util.tree_flatten_with_path(
-        jnew.inner, is_leaf=lambda x: hasattr(x, "_fields"))[0]
-    for path, jst in flat:
-        st = new.inner
-        for k in path:
-            st = st[k.key]
-        for f in st._fields:
-            _close(getattr(st, f), getattr(jst, f), tol,
-                   f"{jax.tree_util.keystr(path)} {f}")
+    check_optimizer_step(opt_runs, _configs()[1], tracking)
 
 
 # ---------------------------------------------------------------------------
