@@ -194,8 +194,18 @@ exits non-zero:
    to step 3, a finite final loss, the final save landing after two failed
    attempts, exact launch counts for the steps run; (e) a run failed at
    step 6 (a checkpoint at 5) and restarted: steps 6-9 within
-   ``RESTART_RTOL`` of (d)'s uninterrupted losses; the phase's time
-   printed;
+   ``RESTART_RTOL`` of (d)'s uninterrupted losses; (g) a failover, the
+   slice's full-width path: the CLI with ``--mesh host`` on a one-rank
+   NCCL group, ``--checkpoint-every 2``, ``--inject dev-loss@5
+   --dev-loss-mode hang --step-timeout 4 --hang-s 10 --survivors 1``: one
+   MESH_LOST verdict at step 5 (the deadline's), one failover from 1 to 1
+   rank (the old group aborted by ``_abort_process_group``, a new NCCL
+   group built and used), known-good step 4 restored, steps 5-7 within
+   ``FAILOVER_RTOL`` of a one-rank run resumed from a hard link of step
+   4, exact launch counts on the resumed steps; the restore seconds and
+   the seconds from detection to the first resumed step printed with the
+   card's name and power limit; the port's inspector ``--verify`` on step
+   4; the phase's time printed;
 23. the multi-GPU StepPrograms at group size 1 on a one-rank NCCL group
    (NCCL refuses two ranks on one device, so every round is an identity
    here; runs of 2 and 4 ranks are held on the CPU over gloo), from phase
@@ -3076,7 +3086,15 @@ def phase_runtime_1b(trained_1b: dict) -> None:
     without a quarantine; (d) loss-spike gives exactly one rollback to the
     known-good step and a finite final loss; (e) a run failed at a step
     and restarted matches the uninterrupted losses; (f) ckpt-io-error is
-    absorbed by the retry.  (a), (d) and (f) are one CLI run."""
+    absorbed by the retry; (g) a failover: ``--mesh host`` on a one-rank
+    NCCL group, a checkpoint every 2 steps, ``dev-loss@5`` in hang mode
+    under a 4 s step deadline gives one MESH_LOST verdict at step 5, one
+    failover (1 -> 1 rank: the old group aborted, a new NCCL group built
+    and used), the known-good step 4 restored, and the resumed steps'
+    losses within 1e-5 of a one-rank run resumed from the same (hard
+    linked) checkpoint, with exact launch counts; the port's checkpoint
+    inspector verifies that checkpoint.  (a), (d) and (f) are one CLI
+    run."""
     import shutil
     import tempfile
 
@@ -3250,10 +3268,112 @@ def phase_runtime_1b(trained_1b: dict) -> None:
         print(f"[runtime] failed at step 6, restarted from the step-5 "
               f"checkpoint: losses of steps 6-9 within {rel:.2e} of the "
               f"uninterrupted run's (budget {RESTART_RTOL:g})", flush=True)
+        shutil.rmtree(root / "restart")
+        _failover_1b(root, base, stepdir, card)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     print(f"[runtime] phase 22: {time.perf_counter() - t_phase:.1f} s",
           flush=True)
+
+
+FAILOVER_RTOL = 1e-5   # resumed losses against the one-rank reference's
+FAILOVER_STEPS = 8     # from the step-3 checkpoint: steps 4-7
+FAILOVER_AT = 5        # dev-loss@5, hang mode: checkpoints at 4 and 6
+
+
+def _failover_1b(root: Path, base: list, stepdir: str, card: str) -> None:
+    """Phase 22 (g): the failover leg on llama-1b (``phase_runtime_1b``),
+    from the hard-linked step-3 checkpoint, against a one-rank run resumed
+    from a hard link of the restored step."""
+    import contextlib
+    import io
+    import shutil
+
+    from repro_torch.checkpoint import inspect as ckpt_inspect
+
+    t_leg = time.perf_counter()
+    argv = list(base)
+    argv[argv.index("--steps") + 1] = str(FAILOVER_STEPS)
+    argv += ["--mesh", "host"]
+    _linked_copy(root / "base" / stepdir, root / "failover" / stepdir)
+    fo, log = _train_logged(argv + [
+        "--checkpoint-dir", str(root / "failover"), "--checkpoint-every",
+        "2", "--inject", f"dev-loss@{FAILOVER_AT}", "--dev-loss-mode",
+        "hang", "--step-timeout", "4", "--hang-s", "10", "--survivors",
+        "1"])
+    del fo["state"]                # the reference run needs the memory
+    restored = FAILOVER_AT - 1
+    verdicts = [e for e in fo["sentinel_events"]
+                if e.get("verdict") == "mesh-lost"]
+    events = fo["failover_events"]
+    ev = events[0] if events else {}
+    if not (fo["failovers"] == 1 and len(events) == 1
+            and len(verdicts) == 1 and verdicts[0]["step"] == FAILOVER_AT
+            and "deadline exceeded" in verdicts[0]["reason"]
+            and (ev.get("from_devices"), ev.get("to_devices")) == (1, 1)
+            and ev.get("restored_step") == restored
+            and ev.get("resume_step") == FAILOVER_AT
+            and fo["mesh_devices"] == 1 and math.isfinite(fo["final_loss"])
+            and f"restored known-good step {restored} onto 1" in log):
+        raise AssertionError(f"failover: {fo['failovers']} failovers, "
+                             f"events {events}, verdicts {verdicts}")
+    if not (ev.get("aborted") == "distributed_c10d._abort_process_group"
+            and ev.get("rebuilt_group") == "nccl"):
+        raise AssertionError(f"failover: old group aborted by "
+                             f"{ev.get('aborted')}, new group "
+                             f"{ev.get('rebuilt_group')}")
+    resumed = FAILOVER_STEPS - FAILOVER_AT
+    n_track = sum(1 for s in range(FAILOVER_AT, FAILOVER_STEPS)
+                  if s % 2 == 0)
+    want = _launches_want(resumed, n_track, single_front=True)
+    if fo["launch_counts"] != want:
+        raise AssertionError(f"failover: resumed steps' launches "
+                             f"{fo['launch_counts']}, want {want}")
+    ckdir = f"step_{restored:010d}"
+    _linked_copy(root / "failover" / ckdir, root / "reference" / ckdir)
+    shutil.rmtree(root / "failover")
+    ref, _ = _train_logged(argv + [
+        "--checkpoint-dir", str(root / "reference"), "--checkpoint-every",
+        "50"])
+    del ref["state"]
+    got = {h["step"]: h["loss"] for h in fo["history"]}
+    ref_loss = {h["step"]: h["loss"] for h in ref["history"]}
+    rel = max(abs(got[s] - ref_loss[s]) / abs(ref_loss[s])
+              for s in range(FAILOVER_AT, FAILOVER_STEPS))
+    if not (ref["start_step"] == FAILOVER_AT and rel <= FAILOVER_RTOL
+            and ref["launch_counts"] == want):
+        raise AssertionError(f"failover vs reference: start "
+                             f"{ref['start_step']}, losses {got} vs "
+                             f"{ref_loss} ({rel:.2e}), launches "
+                             f"{ref['launch_counts']}")
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = ckpt_inspect.main([str(root / "reference"), "--step",
+                                str(restored), "--verify", "--target-mesh",
+                                "2"])
+    verify_s = time.perf_counter() - t0
+    text = buf.getvalue()
+    verify = [ln.strip() for ln in text.splitlines() if "verify:" in ln]
+    if rc or not verify or not verify[0].endswith(" 0 damaged") \
+            or f"{restored}*" not in text:
+        raise AssertionError(f"inspector on step {restored}: rc {rc}\n"
+                             f"{text[-2000:]}")
+    print(f"[runtime] {card}: failover leg, dev-loss@{FAILOVER_AT} (hang "
+          f"mode, 4 s deadline): one MESH_LOST verdict at step "
+          f"{FAILOVER_AT}, 1 -> 1 rank, old group aborted "
+          f"({ev['aborted']}), new {ev['rebuilt_group']} group, "
+          f"{ev['program_changes']} programs changed; restored known-good "
+          f"step {restored} in {ev['restore_s']:.2f} s, detection to the "
+          f"end of the first resumed step {ev['to_first_step_s']:.2f} s; "
+          f"steps {FAILOVER_AT}-{FAILOVER_STEPS - 1} within {rel:.2e} of "
+          f"the resumed one-rank run (budget {FAILOVER_RTOL:g}), launches "
+          f"exact", flush=True)
+    print(f"[runtime] inspector --verify of step {restored}: {verify[0]} "
+          f"({verify_s:.1f} s); failover leg {time.perf_counter() - t_leg:.1f}"
+          " s", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------

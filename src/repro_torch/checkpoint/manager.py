@@ -26,6 +26,17 @@ the other saved:
   raised on the next ``wait``.  Restores verify the crc32 and length of
   every leaf, fall back past damaged steps, and place each leaf on the
   device of the matching leaf of ``like``.
+* On a mesh (a manager built with ``mesh=``, a host mesh of
+  ``launch/mesh.py``): the file still holds each leaf's logical array.
+  ``save(..., shardings=)`` gathers every sharded leaf by its spec on the
+  calling thread, every rank in the same (flatten) order, before the
+  host snapshot goes to the writer (the gather is a collective: on the
+  writer thread it would deadlock), and only rank 0 writes.  ``restore``
+  and ``rollback`` take the target spec tree (the JAX package's
+  ``shardings=``): rank 0 picks the step and broadcasts it over the
+  mesh's group (two ranks restoring different steps would hang the next
+  collective), and each rank loads the logical tree and keeps its
+  ``sharding.local_view`` of every leaf.
 
 The manifest is read and written by ``msgpack_codec``: the port needs no
 ``msgpack``, ``ml_dtypes`` or ``zstandard`` to save and restore.
@@ -46,6 +57,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import msgpack_codec
+from repro_torch.distributed import sharding
 
 FORMAT = "repro-ckpt-v1"
 
@@ -252,11 +264,41 @@ def _place(t: torch.Tensor, ref, host: bool):
     return t if host else t.to(ref.device)
 
 
-def load_pytree(path: str | os.PathLike, like: Any, *,
-                strict_shapes: bool = True, host: bool = False) -> Any:
+def leaf_specs(tree, specs) -> list:
+    """The spec of each leaf of ``tree``, in :func:`tree_flatten`'s order:
+    ``specs`` mirrors ``tree`` with a spec tuple where ``tree`` has a leaf
+    (``steps.train_state_shardings``); None replicates every leaf."""
+    if specs is None:
+        return [()] * len(tree_flatten(tree))
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in leaf_specs(tree[k], specs[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v, sp in zip(tree, specs) for x in leaf_specs(v, sp)]
+    return [specs]
+
+
+def local_views(tree, shardings, mesh) -> list:
+    """Each leaf of the logical ``tree`` as this rank holds it under
+    ``shardings`` (``sharding.local_view``, made contiguous), in flatten
+    order; the leaves themselves without a mesh."""
+    leaves = tree_flatten(tree)
+    if mesh is None or shardings is None:
+        return leaves
+    return [sharding.local_view(x, sp, mesh).contiguous()
+            if isinstance(x, torch.Tensor) else x
+            for x, sp in zip(leaves, leaf_specs(tree, shardings))]
+
+
+def load_pytree(path: str | os.PathLike, like: Any, shardings=None, *,
+                strict_shapes: bool = True, host: bool = False,
+                mesh=None) -> Any:
     """Restore into the structure of ``like``, each leaf on the device of
     ``like``'s matching leaf, in its stored dtype, bit for bit.
 
+    ``shardings`` (a spec tree mirroring ``like``) with ``mesh`` keeps this
+    rank's view of each stored logical leaf, so ``like`` holds the shards.
     ``strict_shapes=False`` skips the per-leaf shape check (the leaf
     count still applies): the elastic restore loads state whose rank
     differs and reconciles it in the transpose pass.  ``host=True``
@@ -268,12 +310,15 @@ def load_pytree(path: str | os.PathLike, like: Any, *,
         raise ValueError(
             f"checkpoint has {manifest['n_leaves']} leaves, expected "
             f"{len(leaves_like)} — structure mismatch")
+    specs = leaf_specs(like, shardings if mesh is not None else None)
     out = []
     dctx = [None]
     with open(path / "data.bin", "rb") as f:
         for i, (meta, ref) in enumerate(zip(manifest["leaves"],
                                             leaves_like)):
             t = _read_leaf(f, meta, path, i, dctx)
+            if specs[i]:
+                t = sharding.local_view(t, specs[i], mesh).contiguous()
             if strict_shapes and tuple(t.shape) != _shape(ref):
                 raise ValueError(f"leaf shape {tuple(t.shape)} != expected "
                                  f"{_shape(ref)}")
@@ -301,25 +346,33 @@ class CheckpointManager:
     * **Resume marker**: the preemption drain's ``RESUME`` record in the
       root, consumed once by the restarted run.
 
-    ``last_save`` holds the last save's snapshot seconds, write seconds
-    and bytes (the write's once the worker finished)."""
+    ``last_save`` holds the last save's snapshot seconds (the gather's
+    included), write seconds and bytes (the write's once the worker
+    finished).  ``mesh`` (settable: a failover rebinds it to the rebuilt
+    mesh) makes the manager a mesh's: the module notes."""
 
     STEP_RE = re.compile(r"^step_(\d+)$")
     KNOWN_GOOD_MARKER = "KNOWN_GOOD"
     RESUME_MARKER = "RESUME"
 
     def __init__(self, root: str | os.PathLike, keep: int = 3,
-                 retries: int = 3, backoff_s: float = 0.05):
+                 retries: int = 3, backoff_s: float = 0.05, mesh=None):
         self.root = Path(root)
         self.root.mkdir(parents=True, exist_ok=True)
         self.keep = keep
         self.retries = retries
         self.backoff_s = backoff_s
+        self.mesh = mesh
         self._worker: threading.Thread | None = None
         self._last_error: BaseException | None = None
         self._fail_saves = 0
         self._hang_next_save_s = 0.0
         self.last_save: dict = {}
+
+    @property
+    def writer(self) -> bool:
+        """Whether this rank writes: rank 0 of the mesh, or no mesh."""
+        return self.mesh is None or self.mesh.rank == 0
 
     # ---------------- save ----------------
 
@@ -344,12 +397,34 @@ class CheckpointManager:
         save_pytree(self.root / f"step_{step:010d}", snap, meta,
                     marker=self.KNOWN_GOOD_MARKER if known_good else None)
 
+    def _gathered_snapshot(self, tree: Any, shardings) -> HostSnapshot | None:
+        """The host snapshot of the logical ``tree`` on the writer (None on
+        the other ranks): every rank all-gathers each sharded leaf by its
+        spec, leaf by leaf in flatten order, and the writer copies each
+        whole leaf to host before the next is gathered."""
+        leaves = []
+        for x, sp in zip(tree_flatten(tree), leaf_specs(tree, shardings)):
+            if isinstance(x, torch.Tensor):
+                x = sharding.gather(x, sp, self.mesh)
+            if self.writer:
+                leaves.append(_host_leaf(x))
+        return HostSnapshot(tree_str(tree), leaves) if self.writer else None
+
     def save(self, step: int, tree: Any, blocking: bool = False,
              extra_meta: dict | None = None,
-             known_good: bool = False) -> None:
+             known_good: bool = False, shardings=None) -> None:
+        """Save ``tree`` as step ``step``.  ``shardings`` (a spec tree
+        mirroring ``tree``) names the leaves that are this rank's shards on
+        the manager's mesh: they are gathered first, on every rank; only
+        the writer writes."""
         self.wait()   # backpressure: one outstanding save
         t0 = time.perf_counter()
-        snap = snapshot(tree)                      # on this thread, now
+        if self.mesh is not None and shardings is not None:
+            snap = self._gathered_snapshot(tree, shardings)
+        else:                                      # on this thread, now
+            snap = snapshot(tree) if self.writer else None
+        if snap is None:
+            return
         info = {"step": step, "bytes": snapshot_bytes(snap),
                 "snapshot_s": time.perf_counter() - t0}
         self.last_save = info
@@ -443,48 +518,85 @@ class CheckpointManager:
                 if (self.root / f"step_{s:010d}"
                     / self.KNOWN_GOOD_MARKER).exists()]
 
-    def rollback(self, like: Any, loader: Callable | None = None,
+    def _loader(self, loader: Callable | None) -> Callable:
+        if loader is not None:
+            return loader
+        return lambda path, like, shardings: load_pytree(
+            path, like, shardings, mesh=self.mesh)
+
+    def _agree(self, step: int | None, like: Any) -> int | None:
+        """The writer's ``step`` (None: no step) on every rank of the mesh:
+        a broadcast over the mesh's group, on the device of ``like``'s
+        first tensor (the identity without a mesh group)."""
+        pg = getattr(self.mesh, "pg", None)
+        if pg is None:
+            return step
+        import torch.distributed as dist
+
+        dev = next((x.device for x in tree_flatten(like)
+                    if isinstance(x, torch.Tensor)), torch.device("cpu"))
+        t = torch.tensor([-1 if step is None else step], dtype=torch.int64,
+                         device=dev)
+        opts = dist.BroadcastOptions()
+        opts.rootRank = 0
+        pg.broadcast([t], opts).wait()
+        got = int(t.item())
+        return None if got < 0 else got
+
+    def _first_restorable(self, candidates: list, like: Any, shardings,
+                          load: Callable, fallback: str):
+        """The writer tries ``candidates`` in order and the first that
+        loads is every rank's: (tree, step, last error)."""
+        got = chosen = last_err = None
+        if self.writer:
+            for s in candidates:
+                try:
+                    got = load(self.root / f"step_{s:010d}", like, shardings)
+                    chosen = s
+                    break
+                except Exception as e:
+                    last_err = e
+                    print(f"[ckpt] {fallback[0]}step {s} not restorable "
+                          f"({type(e).__name__}: {e}) — falling back to the "
+                          f"previous {fallback[1]}checkpoint", flush=True)
+        chosen = self._agree(chosen, like)
+        if chosen is not None and got is None:
+            got = load(self.root / f"step_{chosen:010d}", like, shardings)
+        return got, chosen, last_err
+
+    def rollback(self, like: Any, shardings=None,
+                 loader: Callable | None = None,
                  before: int | None = None) -> tuple[Any, int] | None:
         """Restore the newest known-good checkpoint (only steps below
         ``before`` when given), falling back past damaged tagged steps;
         (tree, step), or None when no tagged step restores.  Waits out an
-        in-flight save first."""
+        in-flight save first.  ``shardings`` is the target spec tree."""
         self.wait()
-        load = loader if loader is not None else load_pytree
-        for s in reversed(self.known_good_steps()):
-            if before is not None and s >= before:
-                continue
-            try:
-                return load(self.root / f"step_{s:010d}", like), s
-            except Exception as e:
-                print(f"[ckpt] known-good step {s} not restorable "
-                      f"({type(e).__name__}: {e}) — falling back to the "
-                      "previous tagged checkpoint", flush=True)
-        return None
+        cands = [s for s in reversed(self.known_good_steps())
+                 if before is None or s < before]
+        got, step, _ = self._first_restorable(
+            cands, like, shardings, self._loader(loader),
+            ("known-good ", "tagged "))
+        return None if step is None else (got, step)
 
-    def restore(self, like: Any, step: int | None = None,
+    def restore(self, like: Any, step: int | None = None, shardings=None,
                 loader: Callable | None = None) -> tuple[Any, int] | None:
         """(tree, step), or None if no checkpoint restores.  Without
         ``step`` the candidates are tried newest first, and a damaged or
         incompatible one is skipped with a logged line; an explicit
-        ``step`` is tried alone and raises.  ``loader(path, like)``
-        replaces the plain load (the elastic restore hooks in here)."""
-        load = loader if loader is not None else load_pytree
+        ``step`` is tried alone and raises.  ``shardings`` is the target
+        spec tree; ``loader(path, like, shardings)`` replaces the plain
+        load (the elastic restore hooks in here)."""
+        load = self._loader(loader)
         if step is not None:
-            return load(self.root / f"step_{step:010d}", like), step
-        last_err: Exception | None = None
-        for s in reversed(self.steps()):
-            try:
-                return load(self.root / f"step_{s:010d}", like), s
-            except Exception as e:
-                last_err = e
-                print(f"[ckpt] step {s} not restorable "
-                      f"({type(e).__name__}: {e}) — falling back to the "
-                      "previous checkpoint", flush=True)
-        if last_err is not None:
+            return load(self.root / f"step_{step:010d}", like,
+                        shardings), step
+        got, s, last_err = self._first_restorable(
+            list(reversed(self.steps())), like, shardings, load, ("", ""))
+        if s is None and last_err is not None:
             print("[ckpt] no restorable checkpoint found "
                   f"(last error: {last_err}) — starting fresh", flush=True)
-        return None
+        return None if s is None else (got, s)
 
     def _gc(self) -> None:
         if not self.keep:

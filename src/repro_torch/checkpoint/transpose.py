@@ -1,14 +1,16 @@
-"""Layout-transposing checkpoint restore on one device.
+"""Layout-transposing checkpoint restore: any StepProgram onto any other.
 
-Counterpart of ``repro.checkpoint.transpose`` (all but ``restore_targets``,
-which restores sharded state and waits for the sharded restore).  Every
-leaf is stored as its logical array, so a checkpoint written under one
-program is portable to another: on save, :func:`state_program_records`
-puts one :class:`~repro_torch.core.program.StateDescriptor` record per
+Counterpart of ``repro.checkpoint.transpose``.  Every leaf is stored as
+its logical array, so a checkpoint written under one program is portable
+to another: on save, :func:`state_program_records` puts one
+:class:`~repro_torch.core.program.StateDescriptor` record per
 optimizer-state node into the manifest's ``extra`` (key
 ``"state_programs"``, the source programs); on restore,
 :func:`elastic_loader` lowers every (source, target) pair through
-:func:`transpose_matrix_state`:
+:func:`transpose_matrix_state` and keeps this rank's view of each leaf
+under the target spec tree (``steps.train_state_shardings``);
+:func:`restore_targets` answers offline which sharded regimes a record
+can restore onto for a group size:
 
 ==============================  =========================================
 pair                            work
@@ -224,23 +226,71 @@ def transpose_state(loaded, records: list[dict], param_descs):
     return rebuild(loaded)
 
 
-def elastic_loader(param_descs):
-    """``loader(path, like)`` for ``CheckpointManager.restore`` and
-    ``rollback``: load on the host, transpose every state node from its
-    recorded source program onto ``param_descs`` (the targets, from
-    ``steps.checkpoint_descriptors`` for this run), check the result
-    against ``like`` leaf for leaf, then place each leaf on the device of
-    ``like``'s.  A checkpoint without records takes the plain
-    identical-shape load."""
+# ---------------------------------------------------------------------------
+# Offline target-mesh admissibility (python -m repro_torch.checkpoint.inspect
+# --target-mesh)
+# ---------------------------------------------------------------------------
 
-    def load(path, like):
+
+def restore_targets(record: dict, device_count: int) -> dict:
+    """Which StepProgram regimes one embedded state-program record can
+    elastic-restore onto for a ``device_count``-rank ``(1, g)`` mesh.
+
+    The restore itself is always admissible onto "replicated" (layout,
+    regime and group size are the identity on the logical state), so
+    this answers which sharded hot paths survive the move, by the gates
+    ``hotpath_param_specs`` ranks with (``kernels.traffic.in_column_regime``
+    / ``in_row_regime``, and ``program.pick_row_flavor`` for the row
+    family's state flavour)."""
+    from repro_torch.core.program import pick_row_flavor
+    from repro_torch.kernels import traffic
+
+    if record.get("kind") != "lowrank":
+        return {"regimes": ["dense"], "notes": []}
+    m, n, r = int(record["m"]), int(record["n"]), int(record["rank"])
+    g = int(device_count)
+    regimes = ["replicated"]
+    notes = []
+    if g > 1:
+        if traffic.in_column_regime(n, g, r):
+            regimes.append("column")
+        elif n % g:
+            notes.append(f"column: n={n} % g={g} != 0")
+        else:
+            notes.append(f"column: n/g={n // g} < 2r={2 * r}")
+        if traffic.in_row_regime(m, g, r):
+            regimes.append(pick_row_flavor(m, n, r, g))
+        elif m % g:
+            notes.append(f"row: m={m} % g={g} != 0")
+        else:
+            notes.append(f"row: m/g={m // g} < 2r={2 * r}")
+    return {"regimes": regimes, "notes": notes}
+
+
+# ---------------------------------------------------------------------------
+# The restore-side loader
+# ---------------------------------------------------------------------------
+
+
+def elastic_loader(param_descs, mesh=None):
+    """``loader(path, like, shardings=None)`` for ``CheckpointManager.
+    restore`` and ``rollback``: load on the host, transpose every state
+    node from its recorded source program onto ``param_descs`` (the
+    targets, from ``steps.checkpoint_descriptors`` for this run's mesh),
+    keep this rank's view of each leaf under ``shardings`` on ``mesh``
+    (the whole leaf without them), check it against ``like`` leaf for
+    leaf, then place it on the device of ``like``'s.  A checkpoint without
+    records takes the plain identical-shape load."""
+
+    def load(path, like, shardings=None):
         records = manager.load_manifest(path)["extra"].get(META_KEY)
         if records is None:
-            return manager.load_pytree(path, like)
+            return manager.load_pytree(path, like, shardings, mesh=mesh)
         host = manager.load_pytree(path, like, strict_shapes=False,
                                    host=True)
         tree = transpose_state(host, records, param_descs)
-        got, want = manager.tree_flatten(tree), manager.tree_flatten(like)
+        got = manager.local_views(tree, shardings, mesh)
+        want = manager.tree_flatten(like)
         for g, w in zip(got, want):
             if manager._shape(g) != manager._shape(w):
                 raise TransposeError(

@@ -367,7 +367,8 @@ def layout_specs(program: StepProgram, batch_dims: int):
     update follow ``grad_layout``; S shards with the gradient rows; M and V
     follow ``state_layout`` ("column" and "slice" both shard the (r, n)
     state along n); ``lam_prev`` is replicated.  A spec entry is the
-    program's axes (a tuple) or None."""
+    program's axes (a tuple) or None.  ``program`` may also be a
+    :class:`StateDescriptor`, which records the same axes and layouts."""
     from repro_torch.core.lowrank_adam import MatrixOptState
 
     lead = (None,) * batch_dims

@@ -24,7 +24,11 @@ class MeshContext:
     share every other coordinate with this one (None for an axis of size
     1, or everywhere on a context built only to plan layouts); ``world``
     is the group over every rank of the mesh (the warm start's broadcast,
-    the health gate's verdict)."""
+    the health gate's verdict), None on one rank.  A host mesh also keeps
+    that group at any size as ``pg`` (the checkpoints' step agreement,
+    and what a failover aborts), the world ranks of its ranks in mesh
+    order as ``members``, and the ``new_group(ranks)`` factory that builds
+    a group over some of those world ranks (``launch/mesh.py``)."""
 
     axis_names: tuple = ("data", "model")
     axis_sizes: tuple = (1, 1)
@@ -33,6 +37,9 @@ class MeshContext:
     model_axis: str = "model"
     groups: dict = field(default_factory=dict, compare=False)
     world: Any = field(default=None, compare=False)
+    pg: Any = field(default=None, compare=False)
+    members: tuple = field(default=(), compare=False)
+    new_group: Any = field(default=None, compare=False)
 
     @property
     def shape(self) -> dict:

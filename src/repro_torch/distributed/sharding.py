@@ -12,9 +12,12 @@ Where the JAX package places an array with a ``NamedSharding`` and GSPMD
 moves the bytes, the port's ranks each hold their shard:
 :func:`local_view` takes this rank's shard of a whole tensor (a view, no
 communication) and :func:`gather` all-gathers shards back into the whole
-tensor over the process group of each sharded dim's axes.  The forward's
-tensor-parallel layout (``param_specs`` / ``spec_for_path``), the state
-and batch specs and the cache specs are not ported yet.
+tensor over the process group of each sharded dim's axes.
+:func:`descriptor_state_specs` gives a checkpoint's low-rank state node
+the layout its StateDescriptor declares (the sharded restore places by
+it).  The forward's tensor-parallel layout (``param_specs`` /
+``spec_for_path``), the batch specs and the cache specs are not ported
+yet.
 """
 
 from __future__ import annotations
@@ -101,6 +104,19 @@ def hotpath_param_specs(params_shape: Any, ctx: MeshContext, rank: int,
         return leaf(tree)
 
     return walk(params_shape)
+
+
+def descriptor_state_specs(desc):
+    """Specs of one low-rank leaf's MatrixOptState under its StepProgram
+    :class:`~repro_torch.core.program.StateDescriptor`: the layout the
+    sharded step holds that state in (``program.layout_specs``, read from
+    the descriptor's axes and layouts): S follows the gradient rows, M and
+    V the declared state layout ("column" and "slice" shard the (r, n)
+    arrays along n), ``lam_prev`` replicates.  None for a dense
+    descriptor (the caller replicates)."""
+    if getattr(desc, "kind", "dense") != "lowrank":
+        return None
+    return program_lib.layout_specs(desc, desc.batch_dims)[1]
 
 
 def _axes(entry) -> tuple:

@@ -73,6 +73,34 @@ def checkpoint_descriptors(params, optimizer: GradientTransform):
         param_specs=optimizer.param_specs)
 
 
+def train_state_shardings(like: TrainState, descs, mesh,
+                          param_specs=None):
+    """The target spec tree of an elastic restore of a TrainState (the
+    JAX package's ``shardings=``, with a spec tuple where it places a
+    ``NamedSharding``): params follow ``param_specs`` (replicated, spec
+    ``()``, when absent), each MatrixOptState follows its descriptor's
+    declared state layout (``sharding.descriptor_state_specs``: the layout
+    the sharded step holds it in), everything else replicates.  None when
+    there is no mesh to place onto.  ``launch/train.py`` passes no
+    ``param_specs``: the port's ranks hold the parameters whole (the
+    forward is not tensor-parallel)."""
+    if mesh is None:
+        return None
+
+    def inner(d, node):
+        if isinstance(d, dict):
+            return {k: inner(d[k], node[k]) for k in d}
+        specs = sharding.descriptor_state_specs(d)
+        if specs is not None and isinstance(node, MatrixOptState):
+            return specs
+        return type(node)(*(() for _ in node))
+
+    params = (param_specs if param_specs is not None
+              else tree_map(lambda _: (), like.params))
+    return TrainState(params=params, opt=OptState(
+        step=(), n_updates=(), inner=inner(descs, like.opt.inner)))
+
+
 def _unflatten(like, leaves: list) -> Any:
     it = iter(leaves)
     return tree_map(lambda _: next(it), like)

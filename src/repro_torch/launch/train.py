@@ -49,7 +49,18 @@ The runtime around the step, as the JAX driver's:
   bounded known-good save and a ``RESUME`` marker, and returns;
 * **injections** (``--inject kind@step``, each consumed once):
   nan-grad, loss-spike, sigma-blowup, corrupt-batch, ckpt-io-error,
-  preempt and slow-host; ``--fail-at-step`` raises mid-run.
+  dev-loss, preempt and slow-host; ``--fail-at-step`` raises mid-run;
+* **elastic mesh failover**: a deadline on each step (``--step-timeout``:
+  its compute, collectives and drain), and any raising collective, turn a
+  hung or lost rank into a ``MESH_LOST`` verdict, distinct from the
+  numerical ladder.  Every rank aborts the old group; the survivors
+  rebuild the mesh (``launch/mesh.py`` ``degraded_context``), re-plan
+  every leaf's StepProgram on it (regimes and group sizes flip where the
+  gates say so), elastic-restore the newest known-good checkpoint onto
+  the new programs and resume, bounded by ``--max-failovers``; a rank
+  outside the survivors returns a summary that says it was lost.
+  ``--inject dev-loss@N`` simulates the loss (``--dev-loss-mode`` raise
+  or hang, ``--survivors``, ``--hang-s``).
 
 Unlike the JAX driver's loop, which drains step t's metrics after
 dispatching step t + 1, this loop is synchronous: each step is drained
@@ -58,27 +69,31 @@ step it judged.  Where the JAX driver rolls back it discards the step it
 had already dispatched, and with it any injection of that step; here
 that step was never run, so its injection fires on the replay.
 
-``--mesh host`` runs the (1, N) mesh over every rank ``torchrun``
-started (``--mesh-devices`` 0 or N), each rank on its own card: the
-process group is NCCL on CUDA and gloo when ``--device cpu`` asks for the
-CPU (a plain ``python -m`` start is a world of one).  Every rank takes
-the same batch and runs the forward and backward whole; with
-``--use-kernels`` each low-rank leaf's optimizer step runs the
-StepProgram of its ``--hotpath-layout`` (auto, column, row, row-rs, or
-off for none) on this rank's shards, and the step gathers the updates
-(``launch/steps.py``).  Only rank 0 prints the step lines.
+``--mesh host`` runs the (1, N) mesh over the first ``--mesh-devices``
+ranks (0: all) that ``torchrun`` started, each rank on its own card (a
+rank past them returns at once): the default process group is NCCL on
+CUDA and gloo when ``--device cpu`` asks for the CPU (a plain ``python
+-m`` start is a world of one), and the mesh runs on a group of its own.
+:func:`train` also runs on a process group its caller hands it (``group=``,
+with a ``new_group`` factory for the rebuilds: the CPU tests' threaded
+ranks).  Every rank takes the same batch and runs the forward and
+backward whole; with ``--use-kernels`` each low-rank leaf's optimizer
+step runs the StepProgram of its ``--hotpath-layout`` (auto, column,
+row, row-rs, or off for none) on this rank's shards, and the step
+gathers the updates (``launch/steps.py``).  Checkpoints on a mesh hold
+the logical arrays: every rank gathers its state shards, rank 0 writes,
+and a restore keeps each rank's shards under the run's programs
+(``checkpoint/``).  Only rank 0 prints the step lines.
 
 The driver runs on CUDA unless ``--device cpu`` asks for the CPU; with no
-card and no such request it raises.  Not ported yet, and raising with
-what they wait for: ``--inject dev-loss`` and ``--step-timeout`` (mesh
-failover), ``--checkpoint-dir`` on a mesh of more than one rank (the
-sharded restore), and ``--mesh prod`` / ``multipod`` on a world of
-other than 256 / 512 ranks.
+card and no such request it raises.  ``--mesh prod`` / ``multipod`` on a
+world of other than 256 / 512 ranks raise: not ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
+import datetime
 import json
 import math
 import os
@@ -103,10 +118,13 @@ from repro_torch.data.pipeline import (DataConfig, SyntheticLMDataset,
                                        fetch_batch, validate_batch)
 from repro_torch.distributed import sharding
 from repro_torch.kernels import ops
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch.mesh import MeshLostError, SimulatedDeviceLoss
 from repro_torch.launch.serve import resolve_device
 from repro_torch.launch.steps import (TrainState, checkpoint_descriptors,
                                       default_rank, make_train_step,
-                                      make_warm_start)
+                                      make_warm_start,
+                                      train_state_shardings)
 from repro_torch.models.api import build_model
 from repro_torch.optim.schedules import cosine_with_warmup
 
@@ -152,11 +170,17 @@ class HealthSentinel:
     skip, 2 -> force a subspace refresh on the next step, >= 3 -> roll
     back to the newest known-good checkpoint with lr backoff for a
     cooldown window.  A healthy step resets the counter; more than
-    ``max_rollbacks`` rollbacks abort the run.  (The JAX driver's
-    mesh-lost verdict waits for failover.)"""
+    ``max_rollbacks`` rollbacks abort the run.
+
+    Infrastructure faults take a separate door: :meth:`mesh_lost` is the
+    ``MESH_LOST`` verdict for a hung or raising collective.  It never
+    touches the strike counter (the logical state is not suspect, the
+    topology is) and escalates straight to ``FAILOVER``, with no lr
+    backoff: the model was healthy."""
 
     OK, SKIP, REFRESH, ROLLBACK, ABORT = \
         "ok", "skip", "refresh", "rollback", "abort"
+    MESH_LOST, FAILOVER = "mesh-lost", "failover"
 
     def __init__(self, alpha: float = 0.05, warmup: int = 5,
                  sigma: float = 4.0, factor: float = 1.25,
@@ -228,6 +252,16 @@ class HealthSentinel:
     def note_rollback(self, resume_step: int) -> None:
         self.backoff_until = resume_step + self.cooldown
 
+    def mesh_lost(self, step: int, reason: str) -> str:
+        """The infrastructure verdict: record it and escalate straight to
+        failover."""
+        self.events.append({"step": step, "reason": reason,
+                            "action": self.FAILOVER,
+                            "verdict": self.MESH_LOST})
+        print(f"[sentinel] step {step}: {reason} — verdict "
+              f"{self.MESH_LOST} -> {self.FAILOVER}", flush=True)
+        return self.FAILOVER
+
 
 INJECT_KINDS = ("nan-grad", "loss-spike", "sigma-blowup", "corrupt-batch",
                 "ckpt-io-error", "dev-loss", "preempt", "slow-host")
@@ -287,8 +321,10 @@ def _parse_args(argv) -> argparse.Namespace:
                          "torchrun started; prod / multipod: the 16x16 / "
                          "2x16x16 meshes (a world of 256 / 512 ranks)")
     ap.add_argument("--mesh-devices", type=int, default=0,
-                    help="with --mesh host: 0 or the world size (a mesh "
-                         "over part of the world waits for failover)")
+                    help="with --mesh host: build the (1, N) mesh over "
+                         "only the first N ranks (0 = all; the others "
+                         "return at once): how the failover tests run "
+                         "uninjected degraded-mesh reference runs")
     ap.add_argument("--hotpath-layout", default="auto",
                     choices=["auto", "column", "row", "row-rs", "off"],
                     help="the sharded optimizer layout under a mesh: auto "
@@ -298,9 +334,29 @@ def _parse_args(argv) -> argparse.Namespace:
                          "picks its state flavour); row-rs forces the "
                          "reduce-scatter flavour; off keeps every leaf "
                          "replicated")
-    ap.add_argument("--step-timeout", type=float, default=0.0,
-                    help="a deadline (s) on each step (not yet ported: "
-                         "it waits for mesh failover; 0 = off)")
+    ap.add_argument("--step-timeout", type=float, default=300.0,
+                    help="deadline (s) on each step's compute, collectives "
+                         "and drain; exceeding it is a MESH_LOST verdict "
+                         "(a collective presumed hung) and triggers "
+                         "failover.  0 disables")
+    ap.add_argument("--survivors", type=int, default=0,
+                    help="rank count the mesh shrinks to on failover when "
+                         "the fault does not name survivors (0 = half the "
+                         "mesh, min 1); also the subset --inject dev-loss "
+                         "leaves alive")
+    ap.add_argument("--dev-loss-mode", default="raise",
+                    choices=["raise", "hang"],
+                    help="--inject dev-loss flavour: raise surfaces a "
+                         "failed collective at dispatch; hang blocks the "
+                         "step's drain so the --step-timeout deadline "
+                         "must catch it")
+    ap.add_argument("--hang-s", type=float, default=30.0,
+                    help="how long the simulated hung collective blocks "
+                         "(dev-loss hang mode; keep it above "
+                         "--step-timeout so the deadline fires first)")
+    ap.add_argument("--max-failovers", type=int, default=2,
+                    help="mesh rebuilds allowed before a MESH_LOST "
+                         "verdict is re-raised to the operator")
     ap.add_argument("--accum", type=int, default=1)
     ap.add_argument("--grad-fused", action="store_true",
                     help="plain steps take the grad-fused backward")
@@ -318,55 +374,63 @@ def _parse_args(argv) -> argparse.Namespace:
     ap.add_argument("--inject", default="",
                     help="fault injection: comma-separated kind@step with "
                          f"kind in {{{', '.join(INJECT_KINDS)}}}, each "
-                         "consumed once (dev-loss is not ported yet)")
+                         "consumed once.  Infrastructure kinds: dev-loss "
+                         "(a rank subset leaves the mesh at step N and "
+                         "stays lost until failover: --survivors, "
+                         "--dev-loss-mode), preempt (SIGTERM to self), "
+                         "slow-host (a --stall-s stall the straggler "
+                         "watchdog must flag)")
     ap.add_argument("--stall-s", type=float, default=0.75,
                     help="--inject slow-host stall duration (s)")
     ap.add_argument("--save-timeout", type=float, default=60.0,
                     help="bound (s) on the checkpoint waits of the "
-                         "preemption drain")
+                         "preemption drain and the failover")
     ap.add_argument("--resume-marker", default="on", choices=["on", "off"],
                     help="write a RESUME marker on preemption and consume "
                          "it on the next start; off disables both")
     return ap.parse_args(argv)
 
 
-def _reject_unported(args: argparse.Namespace, mesh=None) -> None:
-    if args.step_timeout:
-        raise NotImplementedError("--step-timeout is not yet ported to "
-                                  "repro_torch.launch.train (it waits for "
-                                  "mesh failover)")
-    if args.checkpoint_dir and mesh is not None and mesh.size > 1:
-        raise NotImplementedError(
-            "--checkpoint-dir on a mesh of more than one rank is not yet "
-            "ported to repro_torch.launch.train (it waits for the sharded "
-            "restore, restore_targets)")
+def _group_timeout(args: argparse.Namespace) -> datetime.timedelta:
+    """The process groups' own timeout: above the step deadline, so that
+    the deadline (not NCCL's watchdog) judges a hung collective."""
+    return datetime.timedelta(seconds=max(600.0, 2 * args.step_timeout))
 
 
-def open_mesh(args: argparse.Namespace):
-    """The run's MeshContext (None for ``--mesh smoke``) and whether this
-    call initialised the default process group (the caller then destroys
-    it).  Under ``torchrun`` the world comes from its environment; a
+def open_mesh(args: argparse.Namespace, group=None, new_group=None):
+    """The run's MeshContext (None for ``--mesh smoke``, and for a rank
+    past ``--mesh-devices``) and whether this call initialised the default
+    process group (the caller then destroys it).  ``group`` (with its
+    ``new_group`` factory) is a process group the caller hands the run;
+    otherwise the world comes from ``torchrun``'s environment, and a
     plain start is a world of one.  NCCL on CUDA, gloo on the CPU."""
-    from repro_torch.launch import mesh as mesh_lib
-
     if args.mesh == "smoke":
         return None, False
+    if group is not None:
+        if args.mesh != "host":
+            raise ValueError(f"--mesh {args.mesh} runs on the default world, "
+                             "not on a group handed to train()")
+        return mesh_lib.host_context(args.mesh_devices or None, group=group,
+                                     new_group=new_group), False
     owned = False
+    timeout = _group_timeout(args)
     if not torch.distributed.is_initialized():
         device = resolve_device(args.device)
         if device.type == "cuda" and "LOCAL_RANK" in os.environ:
             torch.cuda.set_device(int(os.environ["LOCAL_RANK"]))
         backend = "nccl" if device.type == "cuda" else "gloo"
         if "WORLD_SIZE" in os.environ:
-            torch.distributed.init_process_group(backend)
+            torch.distributed.init_process_group(backend, timeout=timeout)
         else:
             torch.distributed.init_process_group(
                 backend, store=torch.distributed.HashStore(), rank=0,
-                world_size=1)
+                world_size=1, timeout=timeout)
         owned = True
     try:
         if args.mesh == "host":
-            return mesh_lib.host_context(args.mesh_devices or None), owned
+            return mesh_lib.host_context(
+                args.mesh_devices or None,
+                new_group=mesh_lib.world_group_factory(timeout)), owned
         return mesh_lib.make_context(multi_pod=args.mesh == "multipod"), \
             owned
     except BaseException:
@@ -377,17 +441,25 @@ def open_mesh(args: argparse.Namespace):
 
 @dataclass
 class Runtime:
-    """Host state of the runtime around the step: the consumed-once
-    injection table, the sentinel and watchdog, the checkpoint manager
-    with this run's descriptor records and elastic loader, and the
-    preemption flag its signal handler sets.  The default is a run with
-    no injection and no checkpoint."""
+    """Host state of the runtime around the step, which outlives a mesh
+    rebuild (each attempt of :func:`train` rebuilds everything
+    mesh-derived; this carries over): the consumed-once injection table,
+    the sentinel and watchdog, the history of every attempt, the
+    checkpoint manager with this attempt's descriptor records, target
+    spec tree and elastic loader, the preemption flag its signal handler
+    sets, and the failover session: the armed device-loss simulator, the
+    step deadline, the failover count and events, the previous
+    attempt's programs (the re-planning ledger) and whether the next
+    attempt restores through a rollback.  The default is a run with no
+    injection, no checkpoint and no deadline."""
 
     injections: dict = field(default_factory=dict)
     sentinel: HealthSentinel = field(default_factory=HealthSentinel)
     watchdog: StragglerWatchdog = field(default_factory=StragglerWatchdog)
+    history: list = field(default_factory=list)
     ckpt: CheckpointManager | None = None
     ckpt_extra: dict = field(default_factory=dict)
+    shardings: object = None
     loader: Callable | None = None
     checkpoint_every: int = 50
     fail_at_step: int = -1
@@ -396,21 +468,30 @@ class Runtime:
     resume_marker: bool = True
     preempt: bool = False
     preempt_signum: int | None = None
+    dev_loss: SimulatedDeviceLoss = field(default_factory=SimulatedDeviceLoss)
+    step_timeout: float = 0.0
+    survivors: int = 0
+    dev_loss_mode: str = "raise"
+    hang_s: float = 30.0
+    max_failovers: int = 2
+    failovers: int = 0
+    failover_events: list = field(default_factory=list)
+    prev_programs: list | None = None
+    resume_via_rollback: bool = False
+    failover_t0: float | None = None
 
     @classmethod
     def from_args(cls, args: argparse.Namespace) -> "Runtime":
-        injections = parse_injections(args.inject)
-        if "dev-loss" in injections.values():
-            raise NotImplementedError(
-                "--inject dev-loss is not yet ported to "
-                "repro_torch.launch.train (mesh failover)")
-        return cls(injections=injections,
+        return cls(injections=parse_injections(args.inject),
                    ckpt=(CheckpointManager(args.checkpoint_dir)
                          if args.checkpoint_dir else None),
                    checkpoint_every=args.checkpoint_every,
                    fail_at_step=args.fail_at_step, stall_s=args.stall_s,
                    save_timeout=args.save_timeout,
-                   resume_marker=args.resume_marker == "on")
+                   resume_marker=args.resume_marker == "on",
+                   step_timeout=args.step_timeout, survivors=args.survivors,
+                   dev_loss_mode=args.dev_loss_mode, hang_s=args.hang_s,
+                   max_failovers=args.max_failovers)
 
 
 def _install_preempt_handlers(rt: Runtime):
@@ -441,6 +522,39 @@ def _restore_preempt_handlers(prev) -> None:
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def _deadline(fn, timeout: float, what: str, device=None):
+    """Run ``fn`` under a wall-clock deadline.  A step that never returns
+    (a hung collective, a dead participant) becomes a
+    :class:`MeshLostError` after ``timeout`` seconds; the runner thread
+    cannot be cancelled and is abandoned (daemon), as a host gives up on a
+    wedged device.  ``timeout <= 0`` runs inline.  On a CUDA ``device`` the
+    runner makes it its current device first: the current device is per
+    thread, and a fresh thread's is card 0."""
+    if not timeout or timeout <= 0:
+        return fn()
+    box: dict = {}
+
+    def run():
+        try:
+            if device is not None and device.type == "cuda" \
+                    and device.index is not None:
+                torch.cuda.set_device(device)
+            box["ok"] = fn()
+        except BaseException as e:  # re-raised on the caller's thread
+            box["err"] = e
+
+    t = threading.Thread(target=run, daemon=True)
+    t.start()
+    t.join(timeout)
+    if t.is_alive():
+        raise MeshLostError(
+            f"step deadline exceeded ({timeout:.1f}s) during {what} — "
+            "device compute or a collective presumed hung")
+    if "err" in box:
+        raise box["err"]
+    return box.get("ok")
 
 
 def resolve_grad_fused(bundle, grad_fused: bool, accum: int,
@@ -479,16 +593,21 @@ def run(cfg, params, batch_at: Callable, *, optimizer, steps: int,
     and takes the plain backward, :func:`resolve_grad_fused`).  A dense
     baseline (``adamw``, ``badam``) has no warm
     start and no tracking step.  ``runtime`` carries the injections,
-    sentinel, watchdog and checkpoints (none by default).  ``mesh`` (a
+    sentinel, watchdog, checkpoints and the failover session (none by
+    default); with its ``step_timeout`` each step runs under
+    :func:`_deadline`, and an armed ``dev-loss`` raises
+    :class:`MeshLostError` out of the run (at dispatch, or from the
+    drain in hang mode).  ``mesh`` (a
     :class:`~repro_torch.distributed.context.MeshContext`, the
     optimizer's by default) runs the step on its ranks together
     (``launch/steps.py``); only its rank 0 prints the step lines.
 
-    Returns the history (one record per step taken, with its loss, grad
-    norm, lr, wall time ending in a device sync, and the ``quarantined``
-    and ``theta_clamped`` flags; a rollback's replayed steps appear
-    again), the warm start's loss and time, the final train state, and
-    whether a preemption ended the run."""
+    Returns the history (the runtime's: one record per step taken, with
+    its loss, grad norm, lr, wall time ending in a device sync, and the
+    ``quarantined`` and ``theta_clamped`` flags; a rollback's or a
+    failover's replayed steps appear again), the warm start's loss and
+    time, the final train state, and whether a preemption ended the
+    run."""
     rt = runtime if runtime is not None else Runtime()
     device = tree_leaves(params)[0].device
     bundle = build_model(cfg)
@@ -523,8 +642,8 @@ def run(cfg, params, batch_at: Callable, *, optimizer, steps: int,
             print(f"[train] warm-started subspaces from step-0 gradients "
                   f"(loss {warm_loss:.4f}, {warm_s:.2f}s)", flush=True)
 
-    sentinel, ckpt = rt.sentinel, rt.ckpt
-    history: list[dict] = []
+    sentinel, ckpt, dev_loss = rt.sentinel, rt.ckpt, rt.dev_loss
+    history = rt.history
     pending_refresh = False
 
     def apply_action(act: str, at_step: int, cur_state):
@@ -541,7 +660,8 @@ def run(cfg, params, batch_at: Callable, *, optimizer, steps: int,
                 f"[sentinel] aborting at step {at_step}: escalation "
                 f"ladder exhausted after {sentinel.max_rollbacks} "
                 "rollbacks")
-        res = (ckpt.rollback(cur_state, loader=rt.loader)
+        res = (ckpt.rollback(cur_state, shardings=rt.shardings,
+                             loader=rt.loader)
                if ckpt is not None else None)
         if res is None:
             raise FloatingPointError(
@@ -586,6 +706,22 @@ def run(cfg, params, batch_at: Callable, *, optimizer, steps: int,
             print(f"[inject] step {step}: slow-host (+{stall_s:.2f}s "
                   "stall)", flush=True)
             kind = None
+        elif kind == "dev-loss":
+            # from this step on the mesh has lost all but the survivors;
+            # the simulator stays armed until the failover disarms it
+            size = 1 if mesh is None else mesh.size
+            members = (list(mesh.members) if mesh is not None
+                       and mesh.members else list(range(size)))
+            keep = rt.survivors or max(1, size // 2)
+            dev_loss.arm(step, members[:keep], mode=rt.dev_loss_mode,
+                         hang_s=rt.hang_s)
+            if chatty:
+                print(f"[inject] step {step}: dev-loss ({size} -> {keep} "
+                      f"devices, mode={rt.dev_loss_mode})", flush=True)
+            kind = None
+        if dev_loss.armed:
+            # raise mode surfaces at dispatch, on every rank alike
+            dev_loss.check(step, "dispatch")
         if kind == "corrupt-batch":
             print(f"[inject] step {step}: corrupt-batch", flush=True)
             batch, kind = batch_at(step, corrupt_tokens), None
@@ -612,14 +748,29 @@ def run(cfg, params, batch_at: Callable, *, optimizer, steps: int,
         lr = float(lr_at(step)) * sentinel.lr_scale(step)
         if kind:
             print(f"[inject] step {step}: {kind}", flush=True)
+
+        def step_and_drain():
+            out = train_step(
+                state, on_device(batch), lr, do_subspace_update=do_update,
+                inject=_INJECT_CODES[kind],
+                eta_scale=BLOWUP_ETA_SCALE if kind == "sigma-blowup"
+                else 1.0)
+            if stall_s:
+                time.sleep(stall_s)    # host-side only: the watchdog's case
+            dev_loss.check(step, "drain")
+            _sync(device)
+            return out
+
         t0 = time.perf_counter()
-        state, metrics = train_step(
-            state, on_device(batch), lr, do_subspace_update=do_update,
-            inject=_INJECT_CODES[kind],
-            eta_scale=BLOWUP_ETA_SCALE if kind == "sigma-blowup" else 1.0)
-        if stall_s:
-            time.sleep(stall_s)    # host-side only: the watchdog's case
-        _sync(device)
+        try:
+            # the deadline covers the step's compute, its collectives and
+            # the drain: the gate's host read blocks on all of them
+            state, metrics = _deadline(step_and_drain, rt.step_timeout,
+                                       f"step {step}", device)
+        except MeshLostError as e:
+            if e.step is None:
+                e.step = step
+            raise
         dt = time.perf_counter() - t0
         rec = {"step": step, "loss": float(metrics["loss"]),
                "grad_norm": float(metrics["grad_norm"]), "lr": lr,
@@ -628,6 +779,11 @@ def run(cfg, params, batch_at: Callable, *, optimizer, steps: int,
                "theta_clamped": bool(metrics["theta_clamped"]), "dt": dt}
         history.append(rec)
         rt.watchdog.observe(step, dt)
+        if rt.failover_t0 is not None:
+            # detection to the end of the first step on the rebuilt mesh
+            rt.failover_events[-1]["to_first_step_s"] = \
+                time.perf_counter() - rt.failover_t0
+            rt.failover_t0 = None
         if chatty and (step % log_every == 0 or step == steps - 1
                        or rec["quarantined"]):
             print(f"[train] step {step:5d}  loss {rec['loss']:8.4f}  lr "
@@ -643,9 +799,11 @@ def run(cfg, params, batch_at: Callable, *, optimizer, steps: int,
             state, step = rb
             continue
         if ckpt and step and step % rt.checkpoint_every == 0:
-            # only a step the sentinel passed is tagged known-good
+            # only a step the sentinel passed (on the verdict every rank
+            # agreed) is tagged known-good
             ckpt.save(step, state, extra_meta=rt.ckpt_extra,
-                      known_good=act == HealthSentinel.OK)
+                      known_good=act == HealthSentinel.OK,
+                      shardings=rt.shardings)
         step += 1
 
     preempted = rt.preempt
@@ -659,7 +817,8 @@ def run(cfg, params, batch_at: Callable, *, optimizer, steps: int,
             try:
                 ckpt.wait(timeout=rt.save_timeout)
                 ckpt.save(save_step, state, extra_meta=rt.ckpt_extra,
-                          known_good=last_act == HealthSentinel.OK)
+                          known_good=last_act == HealthSentinel.OK,
+                          shardings=rt.shardings)
                 ckpt.wait(timeout=rt.save_timeout)
             except OSError as e:
                 print(f"[train] preemption save did not land ({e}) — the "
@@ -672,7 +831,8 @@ def run(cfg, params, batch_at: Callable, *, optimizer, steps: int,
               "exiting cleanly for restart", flush=True)
     elif ckpt:
         ckpt.save(steps - 1, state, blocking=True, extra_meta=rt.ckpt_extra,
-                  known_good=last_act == HealthSentinel.OK)
+                  known_good=last_act == HealthSentinel.OK,
+                  shardings=rt.shardings)
     return {"history": history, "warm_loss": warm_loss,
             "warm_start_s": warm_s, "state": state, "preempted": preempted}
 
@@ -684,7 +844,6 @@ def prepare(args: argparse.Namespace, mesh=None, params=None):
     ``mesh`` the low-rank optimizer is built on it, with the hot-path
     layout ``--hotpath-layout`` picks for ``params`` (whole, as every
     rank holds them)."""
-    _reject_unported(args, mesh)
     if (args.mesh != "smoke") != (mesh is not None):
         raise ValueError(f"--mesh {args.mesh} runs on the MeshContext "
                          f"open_mesh builds; got {mesh}")
@@ -745,72 +904,156 @@ def prepare(args: argparse.Namespace, mesh=None, params=None):
     return cfg, rank, optimizer, batch_at, device
 
 
-def _resume(args, rt: Runtime, optimizer, params):
-    """Set up the run's checkpoints (the descriptor records every save
-    embeds, the elastic loader rollbacks use) and restore the newest
-    checkpoint unless ``--resume off``: (params, opt_state, start step),
-    the opt_state None when nothing was restored."""
+def _restore(args, rt: Runtime, mesh, optimizer, params):
+    """Set up this attempt's checkpoints on ``mesh`` (the descriptor
+    records every save embeds, the target spec tree and the elastic
+    loader restores and rollbacks use, the re-planning ledger) and restore:
+    after a failover the newest known-good step through a rollback, else
+    the newest checkpoint unless ``--resume off``.  (params, opt_state,
+    start step), the opt_state None when nothing was restored."""
     like = TrainState(params=params, opt=optimizer.init(params))
     descs = checkpoint_descriptors(params, optimizer)
+    ckpt = rt.ckpt
+    ckpt.mesh = mesh
     rt.ckpt_extra = ckpt_transpose.state_program_records(like, descs)
-    rt.loader = ckpt_transpose.elastic_loader(descs)
-    if rt.resume_marker:
-        marker = rt.ckpt.consume_resume_marker()
+    rt.shardings = train_state_shardings(
+        like, descs, mesh if optimizer.param_specs is not None else None)
+    rt.loader = ckpt_transpose.elastic_loader(descs, mesh)
+    chatty = mesh is None or mesh.rank == 0
+    # the re-planning ledger: after a failover the descriptors were
+    # rebuilt on the smaller mesh; diff them against the lost mesh's
+    progs = [(d.regime, int(d.shards), d.state_layout, int(d.rank))
+             for d in ckpt_transpose.descriptor_leaves(descs)
+             if d.kind == "lowrank"]
+    size = 1 if mesh is None else mesh.size
+    if rt.resume_via_rollback and rt.prev_programs is not None:
+        changed = sum(1 for a, b in zip(rt.prev_programs, progs) if a != b)
+        if rt.failover_events:
+            rt.failover_events[-1]["program_changes"] = changed
+        if chatty:
+            print(f"[failover] re-planned StepPrograms on the {size}-device "
+                  f"mesh: {changed} of {len(progs)} low-rank leaves changed "
+                  "regime/group/state-layout", flush=True)
+    rt.prev_programs = progs
+    if rt.resume_marker and ckpt.writer:
+        marker = ckpt.consume_resume_marker()
         if marker:
             print(f"[train] resume marker found (step {marker.get('step')}, "
                   f"{marker.get('reason')}) — auto-resuming", flush=True)
+    if rt.resume_via_rollback:
+        # the newest known-good step, transposed onto the re-planned
+        # programs and kept as this rank's shards of the new mesh
+        t0 = time.perf_counter()
+        res = ckpt.rollback(like, shardings=rt.shardings, loader=rt.loader)
+        if res is None:
+            raise RuntimeError("[failover] unrecoverable: mesh lost but no "
+                               "known-good checkpoint restores onto the "
+                               "degraded mesh")
+        (params, opt_state), ck_step = res
+        rt.resume_via_rollback = False
+        if rt.failover_events:
+            rt.failover_events[-1].update(
+                restored_step=ck_step, resume_step=ck_step + 1,
+                restore_s=time.perf_counter() - t0)
+        if chatty:
+            print(f"[failover] restored known-good step {ck_step} onto "
+                  f"{size} devices; resuming at step {ck_step + 1}",
+                  flush=True)
+        return params, opt_state, ck_step + 1
     restored = None
     if args.resume != "off":
-        restored = rt.ckpt.restore(
-            like, loader=rt.loader if args.resume == "elastic" else None)
+        restored = ckpt.restore(
+            like, shardings=rt.shardings,
+            loader=rt.loader if args.resume == "elastic" else None)
     if restored is None:
         return params, None, 0
     (params, opt_state), ck_step = restored
-    print(f"[train] resumed from checkpoint step {ck_step} ({args.resume} "
-          "restore); no warm start", flush=True)
+    if chatty:
+        print(f"[train] resumed from checkpoint step {ck_step} "
+              f"({args.resume} restore); no warm start", flush=True)
     return params, opt_state, ck_step + 1
 
 
-def train(argv=None) -> dict:
-    """The CLI: returns the run's summary (loss history, step times,
-    warm-start time, kernel launch counts, the runtime's quarantines,
-    rollbacks, events and stragglers) and, under ``state``, the final
-    train state (not written to ``--metrics-out``)."""
-    args = _parse_args(argv)
-    _reject_unported(args)
-    mesh, owned = open_mesh(args)
+def _failover(args, rt: Runtime, mesh, err: MeshLostError):
+    """Handle a MESH_LOST verdict on this rank: record it, abort the old
+    group, pick the survivors and rebuild the mesh over them, and flag the
+    next attempt to elastic-restore the newest known-good checkpoint onto
+    the re-planned programs.  Returns the new mesh (None on the one-rank
+    smoke mesh) and whether this rank is among the survivors.  Re-raises
+    when failover cannot help (no checkpoint dir, budget exhausted)."""
+    t0 = time.perf_counter()
+    step = err.step if err.step is not None else \
+        (rt.history[-1]["step"] if rt.history else -1)
+    rt.sentinel.mesh_lost(step, str(err))
+    rt.failovers += 1
+    if rt.ckpt is None:
+        raise MeshLostError("mesh lost with no --checkpoint-dir: nothing to "
+                            "fail over from") from err
+    if rt.failovers > rt.max_failovers:
+        raise MeshLostError(f"mesh lost again after {rt.max_failovers} "
+                            "failover(s) — giving up") from err
+    if mesh is not None and mesh.pg is None:
+        raise MeshLostError("mesh lost on a mesh with no group to rebuild "
+                            "from (the production meshes)") from err
+    # absorb an in-flight save (bounded: a hung filesystem must not hang
+    # the failover too); the rollback targets steps that landed
     try:
-        device = resolve_device(args.device)
-        cfg = get_config(args.arch, smoke=args.smoke)
-        params = build_model(cfg).init(
-            torch.Generator(device=device).manual_seed(args.seed))
-        cfg, rank, optimizer, batch_at, device = prepare(args, mesh, params)
-        rt = Runtime.from_args(args)
-        t_start = time.time()
-        prev_handlers = _install_preempt_handlers(rt)
-        try:
-            opt_state, start_step = None, 0
-            if rt.ckpt is not None:
-                params, opt_state, start_step = _resume(args, rt, optimizer,
-                                                        params)
-            ops.reset_launch_counts()
-            out = run(cfg, params, batch_at, optimizer=optimizer,
-                      steps=args.steps,
-                      lr_at=cosine_with_warmup(args.lr, args.steps,
-                                               args.warmup),
-                      remat=args.remat, log_every=args.log_every,
-                      opt_state=opt_state, grad_fused=args.grad_fused,
-                      accum=args.accum, start_step=start_step, runtime=rt,
-                      mesh=mesh)
-        finally:
-            _restore_preempt_handlers(prev_handlers)
-    finally:
-        if owned:
-            torch.distributed.destroy_process_group()
-    launches = ops.launch_counts()
+        rt.ckpt.wait(timeout=rt.save_timeout)
+    except OSError as e:
+        print(f"[failover] pending checkpoint save abandoned ({e})",
+              flush=True)
+    size = 1 if mesh is None else mesh.size
+    members = (list(mesh.members) if mesh is not None and mesh.members
+               else list(range(size)))
+    survivors = err.survivors or members[:rt.survivors or max(1, size // 2)]
+    rt.dev_loss.disarm()        # the lost ranks are out of the mesh
+    rt.resume_via_rollback = True
+    fresh = StragglerWatchdog()  # new topology, new timing statistics
+    fresh.flagged = rt.watchdog.flagged
+    rt.watchdog = fresh
+    event = {"step": step, "from_devices": size,
+             "to_devices": len(survivors)}
+    rt.failover_events.append(event)
+    new = None
+    if mesh is not None and mesh.pg is not None:
+        # work queued on the old group (an abandoned step, a hung
+        # collective) must not block the new one
+        event["aborted"] = mesh_lib.abort_group(mesh.pg)
+        new = mesh_lib.degraded_context(survivors, mesh)
+        if new is None:
+            return None, False
+        event["rebuilt_group"] = new.pg.name()
+    rt.failover_t0 = t0
+    if mesh is None or mesh.rank == 0:
+        print(f"[failover] rebuilding mesh {size} -> {len(survivors)} "
+              "devices; re-planning StepPrograms and elastic-restoring the "
+              "newest known-good checkpoint", flush=True)
+    return new, True
+
+
+def _run(args, mesh, rt: Runtime) -> dict:
+    """One attempt of the run on ``mesh``: everything mesh-derived (the
+    parameters from ``--seed``, the optimizer and its programs, the
+    checkpoint layout) built afresh, the restore, the steps, and the
+    summary."""
+    device = resolve_device(args.device)
+    cfg = get_config(args.arch, smoke=args.smoke)
+    params = build_model(cfg).init(
+        torch.Generator(device=device).manual_seed(args.seed))
+    cfg, rank, optimizer, batch_at, device = prepare(args, mesh, params)
+    opt_state, start_step = None, 0
+    if rt.ckpt is not None:
+        params, opt_state, start_step = _restore(args, rt, mesh, optimizer,
+                                                 params)
+    ops.reset_launch_counts()
+    out = run(cfg, params, batch_at, optimizer=optimizer, steps=args.steps,
+              lr_at=cosine_with_warmup(args.lr, args.steps, args.warmup),
+              remat=args.remat, log_every=args.log_every,
+              opt_state=opt_state, grad_fused=args.grad_fused,
+              accum=args.accum, start_step=start_step, runtime=rt, mesh=mesh)
     history = out["history"]
     taken = [h for h in history if h["loss"] is not None]
-    summary = {
+    return {
         "arch": cfg.name, "optimizer": args.optimizer, "rank": rank,
         "grad_fused": args.grad_fused, "accum": args.accum,
         "remat": args.remat,
@@ -821,9 +1064,8 @@ def train(argv=None) -> dict:
         "losses": [h["loss"] for h in history],
         "step_s": [h.get("dt") for h in history],
         "warm_start_s": out["warm_start_s"], "warm_loss": out["warm_loss"],
-        "wall_time_s": time.time() - t_start,
         "state_bytes": optimizer.state_bytes(out["state"].params),
-        "launch_counts": launches,
+        "launch_counts": ops.launch_counts(),
         "skipped_batches": [h["step"] for h in history
                             if h.get("skipped_batch")],
         "quarantined_steps": rt.sentinel.quarantined_steps,
@@ -831,17 +1073,73 @@ def train(argv=None) -> dict:
         "sentinel_events": rt.sentinel.events,
         "stragglers": rt.watchdog.flagged,
         "preempted": out["preempted"],
+        "failovers": rt.failovers,
+        "failover_events": rt.failover_events,
+        "mesh_devices": 1 if mesh is None else mesh.size,
+        "lost": False, "in_mesh": True,
         "history": history,
+        "state": out["state"],
     }
+
+
+def _left_summary(args, rt: Runtime, lost: bool) -> dict:
+    """The summary of a rank that is not in the mesh: lost in a failover
+    (``lost``), or past ``--mesh-devices`` from the start."""
+    return {"arch": args.arch, "optimizer": args.optimizer,
+            "steps": args.steps, "lost": lost, "in_mesh": False,
+            "final_loss": None, "preempted": False,
+            "failovers": rt.failovers, "failover_events": rt.failover_events,
+            "sentinel_events": rt.sentinel.events, "history": rt.history,
+            "mesh_devices": (rt.failover_events[-1]["to_devices"]
+                             if lost else args.mesh_devices)}
+
+
+def train(argv=None, *, group=None, new_group=None) -> dict:
+    """The CLI: returns the run's summary (loss history, step times,
+    warm-start time, kernel launch counts of the last attempt, the
+    runtime's quarantines, rollbacks, failovers, events and stragglers,
+    the mesh's size) and, under ``state``, the final train state (not
+    written to ``--metrics-out``).  ``group`` runs it on a process group
+    the caller hands it, ``new_group`` the factory its failovers rebuild
+    with (``launch/mesh.py``).  A rank that leaves the mesh (lost in a
+    failover, or past ``--mesh-devices``) returns a summary with
+    ``in_mesh`` False and ``lost`` saying which."""
+    args = _parse_args(argv)
+    mesh, owned = open_mesh(args, group, new_group)
+    rt = Runtime.from_args(args)
+    t_start = time.time()
+    prev_handlers = _install_preempt_handlers(rt)
+    try:
+        if args.mesh != "smoke" and mesh is None:
+            return _left_summary(args, rt, lost=False)
+        while True:
+            try:
+                summary = _run(args, mesh, rt)
+                break
+            except MeshLostError as e:
+                mesh, alive = _failover(args, rt, mesh, e)
+            except torch.distributed.DistBackendError as e:
+                # a real raising collective or a dead backend: the same
+                # MESH_LOST door, bounded by the same budget
+                mesh, alive = _failover(args, rt, mesh, MeshLostError(
+                    f"runtime error treated as mesh loss: {e}"))
+            if not alive:
+                return _left_summary(args, rt, lost=True)
+    finally:
+        _restore_preempt_handlers(prev_handlers)
+        if owned:
+            torch.distributed.destroy_process_group()
+    summary["wall_time_s"] = time.time() - t_start
     if mesh is not None and mesh.rank != 0:
-        return dict(summary, state=out["state"])     # rank 0 reports
+        return summary                             # rank 0 reports
     if args.metrics_out:
         Path(args.metrics_out).parent.mkdir(parents=True, exist_ok=True)
-        Path(args.metrics_out).write_text(json.dumps(summary, indent=2))
-    if not out["preempted"]:
+        Path(args.metrics_out).write_text(json.dumps(
+            {k: v for k, v in summary.items() if k != "state"}, indent=2))
+    if not summary["preempted"]:
         print(f"[train] done: {args.steps} steps, final loss "
               f"{summary['final_loss']}", flush=True)
-    return dict(summary, state=out["state"])
+    return summary
 
 
 if __name__ == "__main__":
